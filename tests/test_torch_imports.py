@@ -1,0 +1,46 @@
+"""The port stands alone: every ``repro_torch`` module and
+``chip_smoke.py`` import without pulling in ``jax`` or the reference
+package ``repro`` (checked in a fresh interpreter, so nothing this test
+process already imported can hide a dependency)."""
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke                       # module only: main() does not run
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "repro") or m.startswith(
+                 ("jax.", "jaxlib.", "repro.")))
+assert not bad, bad
+assert len(names) >= 20, names
+print("IMPORTED", len(names))
+"""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(REPO, "src"), REPO, env.get("PYTHONPATH", "")])
+    out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO,
+                         capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "IMPORTED" in out.stdout
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    """Without CUDA the script exits nonzero and prints no result line."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -97,6 +97,11 @@ class GNNConfig:
 
 _ARCH_MODULES = ["gnn_papers100m"]
 
+#: the reference's LM configurations; the LM family is ported in slice 6
+LM_ARCHS = ("gemma3-12b", "gemma-7b", "granite-3-2b", "internvl2-76b",
+            "llama4-maverick-400b-a17b", "llama4-scout-17b-a16e",
+            "mamba2-130m", "stablelm-1.6b", "whisper-medium", "zamba2-7b")
+
 
 def _modules() -> Dict[str, object]:
     mods = {}

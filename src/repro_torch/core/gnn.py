@@ -1,6 +1,8 @@
-"""GCN / GraphSAGE(mean) / GAT forward on the full graph (ELL layout) —
-the torch counterpart of the reference ``repro.core.gnn`` (forward only;
-the mini-batch path and the losses come with the training part).
+"""GCN / GraphSAGE(mean) / GAT — the torch counterpart of the reference
+``repro.core.gnn``: the full-graph (ELL) forward, the mini-batch
+(fan-out tree) forward, and the CE/MSE losses, differentiable on every
+path (the kernel path through ``kernels/neighbor_agg``'s autograd
+Functions and their CUDA backward kernel).
 
 Parameters keep the reference layout so its arrays load unchanged:
 ``h @ W`` with ``W`` shaped ``[d_in, d_out]``; GAT's ``w [d_in, H, dh]``,
@@ -99,13 +101,51 @@ def _kernel_agg(cfg: GNNConfig, table, idx, w, self_rows=None,
                         kernel="tiled")
 
 
+def _wsum(cfg: GNNConfig, w_edge, h_nb, h_self=None, w_self=None):
+    """Weighted neighbor sum over ALREADY-GATHERED features:
+    out[..., :] = Σ_k w_edge[..., k] * h_nb[..., k, :]
+                  [+ w_self[...] * h_self[..., :]]
+    (reference ``gnn.py:81-116`` without ``mesh``).
+
+    With ``cfg.use_agg_kernel`` the fan-out tree is flattened to a
+    [B*K, d] table with identity ids, so the mini-batch path runs the
+    same tiled kernel (zero-weight padding edges stay exact) and its
+    backward; the optional self term rides the fused epilogue."""
+    fused = h_self is not None
+    if not cfg.use_agg_kernel:
+        out = torch.einsum("...k,...kd->...d", w_edge, h_nb)
+        return out + w_self[..., None] * h_self if fused else out
+    k, d = h_nb.shape[-2], h_nb.shape[-1]
+    lead = h_nb.shape[:-2]
+    table = h_nb.reshape(-1, d)
+    b = table.shape[0] // k
+    idx = torch.arange(b * k, dtype=torch.int32,
+                       device=table.device).reshape(b, k)
+    out = _kernel_agg(cfg, table, idx, w_edge.reshape(b, k),
+                      self_rows=h_self.reshape(b, d) if fused else None,
+                      w_self=w_self.reshape(b) if fused else None)
+    return out.reshape(lead + (d,))
+
+
+def _gcn_layer(cfg, p, h_self, h_nb, w_edge, w_self):
+    """h_self [..., d]; h_nb [..., K, d]; w_edge [..., K]; w_self [...]."""
+    return _wsum(cfg, w_edge, h_nb, h_self, w_self) @ p["w"]
+
+
+def _sage_layer(cfg, p, h_self, h_nb, mask):
+    cnt = torch.clamp(mask.sum(-1, keepdim=True), min=1.0)
+    mean = _wsum(cfg, mask, h_nb) / cnt
+    return h_self @ p["w_self"] + mean @ p["w_neigh"]
+
+
 def _gat_layer(p, h_self, h_nb, mask):
     z_s = torch.einsum("...d,dhe->...he", h_self, p["w"])     # [..., H, dh]
     z_n = torch.einsum("...kd,dhe->...khe", h_nb, p["w"])     # [..., K, H, dh]
     e_s = torch.einsum("...he,he->...h", z_s, p["a_src"])     # [..., H]
     e_n = torch.einsum("...khe,he->...kh", z_n, p["a_dst"])   # [..., K, H]
     e = F.leaky_relu(e_s[..., None, :] + e_n, 0.2)
-    e = torch.where(mask[..., None], e, torch.full_like(e, -1e30))
+    # a float 0/1 mask (mini-batch path) selects like the bool one
+    e = torch.where(mask[..., None].bool(), e, torch.full_like(e, -1e30))
     # self edge always valid (jax.nn.leaky_relu's default slope, 0.01)
     e_self = F.leaky_relu(e_s + torch.einsum("...he,he->...h", z_s,
                                              p["a_dst"]), 0.01)[..., None, :]
@@ -114,6 +154,20 @@ def _gat_layer(p, h_self, h_nb, mask):
     zn_all = torch.cat([z_n, z_s[..., None, :, :]], dim=-3)
     out = torch.einsum("...kh,...khe->...he", alpha, zn_all)
     return out.reshape(out.shape[:-2] + (-1,))                 # concat heads
+
+
+def _apply_layer(cfg: GNNConfig, p, h_self, h_nb, mask, w_edge, w_self,
+                 last: bool):
+    if cfg.model == "gcn":
+        out = _gcn_layer(cfg, p, h_self, h_nb, w_edge, w_self)
+    elif cfg.model == "graphsage":
+        out = _sage_layer(cfg, p, h_self, h_nb, mask)
+    else:
+        out = _gat_layer(p, h_self, h_nb, mask)
+        if last:  # average heads into class logits
+            h = cfg.gat_heads
+            out = out.reshape(out.shape[:-1] + (h, -1)).mean(-2)
+    return out if last else torch.relu(out)
 
 
 def agg_dtype(cfg: GNNConfig, h_dtype: torch.dtype) -> torch.dtype:
@@ -196,6 +250,59 @@ def full_graph_forward(params, cfg: GNNConfig, feats, ell_idx, ell_w,
         if return_layers:
             layers.append(h)
     return (h, layers) if return_layers else h
+
+
+# ---------------------------------------------------------------------------
+# mini-batch forward (fan-out tree)
+# ---------------------------------------------------------------------------
+
+def minibatch_forward(params, cfg: GNNConfig, hop_feats: Sequence,
+                      masks: Sequence, weights: Sequence, self_w: Sequence):
+    """hop_feats[d]: [b, f1..fd, r]; masks/weights[d]: [b, f1..f(d+1)].
+    Layer l aggregates hop d+1 into hop d for d < L - l (reference
+    ``gnn.py:305-324`` without ``mesh``).  Like the reference, this path
+    does NOT cast to ``agg_dt``: it aggregates in the hop features' own
+    dtype."""
+    hs = list(hop_feats)
+    n_layers = len(params)
+    for li, p in enumerate(params):
+        last = li == n_layers - 1
+        hs = [_apply_layer(cfg, p, hs[d], hs[d + 1],
+                           masks[d].to(hs[d].dtype), weights[d], self_w[d],
+                           last)
+              for d in range(len(hs) - 1)]
+    assert len(hs) == 1
+    return hs[0]                                      # [b, C]
+
+
+# ---------------------------------------------------------------------------
+# losses (paper: CE and MSE, §3)
+# ---------------------------------------------------------------------------
+
+def gnn_loss(logits, labels, kind: str, n_classes: int, valid=None,
+             weight=None):
+    """CE / MSE over target rows (reference ``gnn.py:331-358``).
+    ``valid`` (float 0/1 per row, or None) masks padded rows out of the
+    mean: they contribute exact zeros and the divisor is the valid
+    count.  ``weight`` (float per row, or None) scales each row's loss
+    before the mean and does not enter the divisor."""
+    z = logits.to(F32)
+    if kind == "mse":
+        onehot = F.one_hot(labels.long(), n_classes).to(F32)
+        rows = torch.sum(torch.square(z - onehot), dim=-1)
+        if weight is not None:
+            rows = rows * weight
+        if valid is None:
+            return 0.5 * torch.mean(rows)
+        return 0.5 * (torch.sum(rows * valid) / torch.sum(valid))
+    logz = torch.logsumexp(z, dim=-1)
+    ll = torch.gather(z, -1, labels.long()[..., None])[..., 0]
+    rows = logz - ll
+    if weight is not None:
+        rows = rows * weight
+    if valid is None:
+        return torch.mean(rows)
+    return torch.sum(rows * valid) / torch.sum(valid)
 
 
 def accuracy(logits, labels):

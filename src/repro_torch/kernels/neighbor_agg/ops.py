@@ -1,20 +1,32 @@
-"""Public wrapper of the weighted neighbor aggregation.
+"""Public wrapper of the weighted neighbor aggregation and its gradient.
 
-``neighbor_agg`` is the forward of the reference wrapper
-(``repro/kernels/neighbor_agg/ops.py:170-202``):
+``neighbor_agg`` mirrors the reference wrapper
+(``repro/kernels/neighbor_agg/ops.py:170-202``) and its custom VJP
+(``:46-114``):
 
 * ``use_kernel=False`` — the plain version plus the unfused
-  ``w_self[:, None] * self_rows`` epilogue (``ops.py:191-193``);
-* ``use_kernel=True`` on a CUDA tensor — the hand-written kernel
-  (``csrc/neighbor_agg.cu``), fused epilogue included, or an exception:
-  never a quiet fallback;
-* ``use_kernel=True`` on a CPU tensor — the kernel's plain version
-  (``ref.neighbor_agg_ref``), because the tensor lies on the CPU.
+  ``w_self[:, None] * self_rows`` epilogue (``ops.py:191-193``),
+  differentiated by torch autograd;
+* ``use_kernel=True`` — a ``torch.autograd.Function`` (``_Agg``, or
+  ``_AggSelf`` with the fused epilogue) whose forward is the tiled CUDA
+  kernel (``csrc/neighbor_agg.cu``) or, for ``kernel="row"``, the row
+  kernel (``csrc/neighbor_agg_row.cu``, self term added outside as the
+  reference does), and whose backward is the CUDA backward kernel
+  (``csrc/neighbor_agg_bwd.cu``).  On a CUDA tensor each of them
+  launches or raises: never a quiet fallback.  On a CPU tensor the same
+  Functions run the kernels' plain versions (``ref.neighbor_agg_ref``
+  and ``ref.neighbor_agg_backward_ref``), because the tensor lies on the
+  CPU.
 
-The kernel masks ragged B/K/D itself, so nothing is padded to tiles.
-``launches`` counts kernel launches; it changes only where one happens.
-The backward kernels (scatter-add dfeats, gathered-dot dw) come with the
-training part of the port.
+The backward reads ``ctx.needs_input_grad``: no scatter when ``feats``
+needs no gradient, no dot when ``w`` needs none (on the model paths the
+weights, masks and layer 1's raw feature table never do).  ``dfeats`` is
+summed in f32 and cast to ``feats.dtype``; ``dw`` is in ``w.dtype``.
+The kernels mask ragged B/K/D themselves, so nothing is padded to tiles.
+
+One launch counter per kernel, changed only where that kernel launches:
+``launches`` (tiled forward), ``backward_launches`` and
+``row_launches``.
 """
 from __future__ import annotations
 
@@ -22,11 +34,41 @@ import threading
 
 import torch
 
-from repro_torch.kernels.neighbor_agg.ref import neighbor_agg_ref
+from repro_torch.kernels.neighbor_agg.ref import (neighbor_agg_backward_ref,
+                                                  neighbor_agg_ref)
 
-#: number of CUDA kernel launches made through ``neighbor_agg``
+#: launches of the tiled forward kernel
 launches = 0
+#: launches of the backward kernel
+backward_launches = 0
+#: launches of the row kernel
+row_launches = 0
 _count_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch counter to 0."""
+    global launches, backward_launches, row_launches
+    with _count_lock:
+        launches = backward_launches = row_launches = 0
+
+
+def launch_counts() -> dict:
+    """The launch counters by kernel: tiled, backward, row."""
+    return {"tiled": launches, "backward": backward_launches,
+            "row": row_launches}
+
+
+def _count(name: str) -> None:
+    global launches, backward_launches, row_launches
+    with _count_lock:
+        if name == "tiled":
+            launches += 1
+        elif name == "backward":
+            backward_launches += 1
+        else:
+            row_launches += 1
+
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -63,7 +105,6 @@ def _check_kernel_args(feats, idx, w, self_rows, w_self) -> None:
 
 
 def _launch(feats, idx, w, self_rows, w_self):
-    global launches
     from repro_torch.kernels.neighbor_agg.build import load_library
     n, d = feats.shape
     b, k = idx.shape
@@ -71,20 +112,157 @@ def _launch(feats, idx, w, self_rows, w_self):
     if b == 0 or d == 0:                         # nothing to compute
         return out
     lib = load_library()
-    fused = self_rows is not None
     with torch.cuda.device(feats.device):     # launch on the tensors' card
         err = lib.neighbor_agg_forward(
             _DTYPE_CODE[feats.dtype], feats.data_ptr(), idx.data_ptr(),
-            w.data_ptr(), self_rows.data_ptr() if fused else None,
-            w_self.data_ptr() if fused else None, out.data_ptr(), n, b, k,
-            d, torch.cuda.current_stream(feats.device).cuda_stream)
+            w.data_ptr(), _ptr(self_rows), _ptr(w_self), out.data_ptr(), n,
+            b, k, d, _stream(feats))
+    _raise_on(err, "neighbor_agg (tiled)", b, k, d, n, feats.dtype)
+    _count("tiled")
+    return out
+
+
+def _raise_on(err: int, what: str, b, k, d, n, dtype) -> None:
     if err != 0:
         raise RuntimeError(
-            f"neighbor_agg CUDA kernel launch failed with error {err} "
-            f"(B={b}, K={k}, D={d}, N={n}, dtype={feats.dtype})")
-    with _count_lock:
-        launches += 1
+            f"{what} CUDA kernel launch failed with error {err} "
+            f"(B={b}, K={k}, D={d}, N={n}, dtype={dtype})")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_row(feats, idx, w):
+    from repro_torch.kernels.neighbor_agg.build import load_library
+    n, d = feats.shape
+    b, k = idx.shape
+    out = torch.empty((b, d), dtype=feats.dtype, device=feats.device)
+    if b == 0 or d == 0:                         # nothing to compute
+        return out
+    lib = load_library()
+    with torch.cuda.device(feats.device):
+        err = lib.neighbor_agg_row_forward(
+            _DTYPE_CODE[feats.dtype], feats.data_ptr(), idx.data_ptr(),
+            w.data_ptr(), out.data_ptr(), n, b, k, d, _stream(feats))
+    _raise_on(err, "neighbor_agg (row)", b, k, d, n, feats.dtype)
+    _count("row")
     return out
+
+
+def _launch_backward(feats, idx, w, g, self_rows, w_self, need):
+    """The backward kernel; ``need`` = which of (dfeats, dw, dself,
+    dw_self) autograd asked for.  dfeats accumulates in an f32 buffer
+    zeroed here and cast to ``feats.dtype`` once."""
+    from repro_torch.kernels.neighbor_agg.build import load_library
+    n, d = feats.shape
+    b, k = idx.shape
+    fused = self_rows is not None
+    alloc = torch.empty_like if d > 0 else torch.zeros_like
+    df32 = (torch.zeros((n, d), dtype=torch.float32, device=feats.device)
+            if need[0] else None)
+    dw = alloc(w) if need[1] else None
+    dself = alloc(self_rows) if fused and need[2] else None
+    dws = alloc(w_self) if fused and need[3] else None
+    outs = (df32, dw, dself, dws)
+    if b > 0 and d > 0 and any(o is not None for o in outs):
+        lib = load_library()
+        with torch.cuda.device(feats.device):
+            err = lib.neighbor_agg_backward(
+                _DTYPE_CODE[feats.dtype], feats.data_ptr(), idx.data_ptr(),
+                w.data_ptr(), g.data_ptr(), _ptr(self_rows), _ptr(w_self),
+                *(_ptr(o) for o in outs), n, b, k, d, _stream(feats))
+        _raise_on(err, "neighbor_agg backward", b, k, d, n, feats.dtype)
+        _count("backward")
+    dfeats = (df32 if df32 is None or feats.dtype == torch.float32
+              else df32.to(feats.dtype))
+    return dfeats, dw, dself, dws
+
+
+def _device_of(feats) -> str:
+    if feats.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"neighbor_agg kernel: unsupported device "
+                         f"{feats.device}")
+    return feats.device.type
+
+
+def _forward(kernel, feats, idx, w, self_rows=None, w_self=None):
+    """The kernel's forward on a CUDA tensor, its plain version on a CPU
+    tensor."""
+    if _device_of(feats) == "cpu":
+        return neighbor_agg_ref(feats, idx, w, self_rows, w_self)
+    if kernel == "row":
+        return _launch_row(feats, idx, w)
+    return _launch(feats, idx, w, self_rows, w_self)
+
+
+def _backward(feats, idx, w, g, self_rows, w_self, need):
+    """The backward kernel on a CUDA tensor, its plain version on a CPU
+    tensor; cotangents not in ``need`` come back as None."""
+    g = g.to(feats.dtype).contiguous()
+    if _device_of(feats) == "cpu":
+        return neighbor_agg_backward_ref(feats, idx, w, g, self_rows, w_self,
+                                         need)
+    return _launch_backward(feats, idx, w, g, self_rows, w_self, need)
+
+
+def neighbor_agg_backward(feats, idx, w, g, self_rows=None, w_self=None, *,
+                          need=(True, True, True, True)):
+    """The backward of ``neighbor_agg(..., use_kernel=True)`` called
+    directly: ``(dfeats, dw, dself, dw_self)`` for the output cotangent
+    ``g`` [B, D] (in feats' dtype), each None where ``need`` does not ask
+    for it.  The backward kernel on a CUDA tensor, its plain version on a
+    CPU tensor."""
+    _check_kernel_args(feats, idx, w, self_rows, w_self)
+    b, d = idx.shape[0], feats.shape[1]
+    if g.shape != (b, d) or g.dtype != feats.dtype or \
+            g.device != feats.device:
+        raise ValueError(f"neighbor_agg backward: g must be {feats.dtype} "
+                         f"{(b, d)} on {feats.device}, got {g.dtype} "
+                         f"{tuple(g.shape)} on {g.device}")
+    return _backward(feats, idx, w, g, self_rows, w_self, need)
+
+
+class _Agg(torch.autograd.Function):
+    """Σ_k w[b,k]·feats[idx[b,k]] through the tiled or row kernel, with
+    the backward kernel as its gradient (reference ``_agg``)."""
+
+    @staticmethod
+    def forward(ctx, feats, idx, w, kernel):
+        ctx.save_for_backward(feats, idx, w)
+        return _forward(kernel, feats, idx, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, idx, w = ctx.saved_tensors
+        need_f, _, need_w, _ = ctx.needs_input_grad
+        dfeats, dw, _, _ = _backward(feats, idx, w, g, None, None,
+                                     (need_f, need_w, False, False))
+        return dfeats, None, dw, None
+
+
+class _AggSelf(torch.autograd.Function):
+    """The fused variant: + w_self[b]·self_rows[b] in the tiled kernel's
+    accumulator init (reference ``_agg_self``).  When ``self_rows`` is
+    the table itself (GCN), autograd sums dfeats and dself."""
+
+    @staticmethod
+    def forward(ctx, feats, idx, w, self_rows, w_self):
+        ctx.save_for_backward(feats, idx, w, self_rows, w_self)
+        return _forward("tiled", feats, idx, w, self_rows, w_self)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, idx, w, self_rows, w_self = ctx.saved_tensors
+        need_f, _, need_w, need_s, need_ws = ctx.needs_input_grad
+        dfeats, dw, dself, dws = _backward(
+            feats, idx, w, g, self_rows, w_self,
+            (need_f, need_w, need_s, need_ws))
+        return dfeats, None, dw, dself, dws
 
 
 def neighbor_agg(feats, idx, w, self_rows=None, w_self=None, *,
@@ -92,10 +270,11 @@ def neighbor_agg(feats, idx, w, self_rows=None, w_self=None, *,
     """out[b] = Σ_k w[b,k] · feats[idx[b,k]]  [+ w_self[b] · self_rows[b]].
 
     feats [N, D]; idx [B, K] int32; w [B, K] (0 ⇒ padding edge); the
-    optional self_rows [B, D] + w_self [B] ride the kernel's fused
-    accumulator init (the plain path adds them outside, as the
-    reference does).  ``kernel="row"`` (the reference's seed row kernel)
-    is not ported yet."""
+    optional self_rows [B, D] + w_self [B] ride the tiled kernel's fused
+    accumulator init (the plain path and the ``"row"`` kernel add them
+    outside, as the reference does).  ``kernel``: ``"tiled"`` (the fast
+    one) | ``"row"`` (the reference's seed row kernel).  Differentiable
+    with respect to feats, w, self_rows and w_self on every path."""
     if kernel not in ("row", "tiled"):
         raise ValueError(f"kernel must be 'row' or 'tiled', got {kernel!r}")
     fused = self_rows is not None
@@ -104,15 +283,11 @@ def neighbor_agg(feats, idx, w, self_rows=None, w_self=None, *,
     if not use_kernel:
         out = neighbor_agg_ref(feats, idx, w)
         return out + w_self[:, None] * self_rows if fused else out
-    if kernel == "row":
-        raise NotImplementedError(
-            "neighbor_agg(kernel='row'): the row kernel "
-            "(neighbor_agg_pallas) is not ported yet — ROADMAP.md Queue 2, "
-            "item 2; use kernel='tiled'")
     _check_kernel_args(feats, idx, w, self_rows, w_self)
-    if feats.device.type == "cpu":
-        return neighbor_agg_ref(feats, idx, w, self_rows, w_self)
-    if feats.device.type != "cuda":
-        raise ValueError(f"neighbor_agg kernel: unsupported device "
-                         f"{feats.device}")
-    return _launch(feats, idx, w, self_rows, w_self)
+    _device_of(feats)
+    if kernel == "row":
+        out = _Agg.apply(feats, idx, w, "row")
+        return out + w_self[:, None] * self_rows if fused else out
+    if fused:
+        return _AggSelf.apply(feats, idx, w, self_rows, w_self)
+    return _Agg.apply(feats, idx, w, "tiled")

@@ -1,4 +1,5 @@
-"""Plain torch version of the neighbor-aggregation kernel.
+"""Plain torch versions of the neighbor-aggregation kernels (forward and
+backward).
 
 out[b, :] = sum_k w[b, k] * feats[idx[b, k], :]
             (+ w_self[b] * self_rows[b, :])
@@ -24,3 +25,30 @@ def neighbor_agg_ref(feats, idx, w, self_rows=None, w_self=None):
     if self_rows is not None:
         acc = w_self.float()[:, None] * self_rows.float() + acc
     return acc.to(feats.dtype)
+
+
+def neighbor_agg_backward_ref(feats, idx, w, g, self_rows=None,
+                              w_self=None, need=(True, True, True, True)):
+    """Cotangents of ``neighbor_agg_ref`` for the output cotangent ``g``
+    [B, D]: ``(dfeats [N, D], dw [B, K], dself [B, D], dw_self [B])``,
+    each None where ``need`` does not ask for it (the last two always
+    None without ``self_rows``)."""
+    b, k = idx.shape
+    d = feats.shape[1]
+    g32 = g.float()
+    flat = idx.reshape(-1).long()
+    dfeats = dw = dself = dw_self = None
+    if need[1]:
+        rows = torch.index_select(feats, 0, flat).reshape(b, k, d).float()
+        dw = torch.einsum("bd,bkd->bk", g32, rows).to(w.dtype)
+    if need[0]:
+        contrib = (w.float()[:, :, None] * g32[:, None, :]).reshape(b * k, d)
+        dfeats = torch.zeros(feats.shape, dtype=torch.float32,
+                             device=feats.device).index_add_(0, flat, contrib)
+        dfeats = dfeats.to(feats.dtype)
+    if self_rows is not None and need[2]:
+        dself = (w_self.float()[:, None] * g32).to(self_rows.dtype)
+    if self_rows is not None and need[3]:
+        dw_self = torch.einsum("bd,bd->b", g32, self_rows.float()).to(
+            w_self.dtype)
+    return dfeats, dw, dself, dw_self

@@ -155,3 +155,143 @@ def test_bf16_config_casts_like_reference(graph):
                          device="cpu")
     t = [torch.as_tensor(a) for a in (graph.feats, *to_ell(graph))]
     assert TG.full_graph_forward(params, cfg, *t).dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# mini-batch forward, losses and gradients (the training path)
+# ---------------------------------------------------------------------------
+
+def _fanout_batch(g, b=12, fanouts=(4, 3), seed=5):
+    """One sampled fan-out tree from the reference's numpy sampler, with
+    its hop features gathered, as numpy arrays."""
+    from repro.core.sampler import gather_features, sample_batch
+    fb = sample_batch(np.random.default_rng(seed), g, b, fanouts)
+    return (gather_features(g, fb), [m.astype(np.float32) for m in fb.masks],
+            fb.weights, fb.self_w, fb.labels)
+
+
+def _loss_extras(b, with_valid, with_weight):
+    rng = np.random.default_rng(11)
+    valid = (rng.random(b) > 0.25).astype(np.float32) if with_valid else None
+    if valid is not None:
+        valid[0] = 1.0
+    weight = (rng.random(b) + 0.5).astype(np.float32) if with_weight \
+        else None
+    return valid, weight
+
+
+def _ref_mb_grads(params, kw, batch, valid, weight):
+    cfg = RefConfig(**kw)
+    feats, masks, weights, self_w, labels = (
+        [jnp.asarray(x) for x in a] if isinstance(a, list)
+        else jnp.asarray(a) for a in batch)
+    v = None if valid is None else jnp.asarray(valid)
+    wt = None if weight is None else jnp.asarray(weight)
+
+    def loss(p):
+        logits = RG.minibatch_forward(p, cfg, feats, masks, weights, self_w)
+        return RG.gnn_loss(logits, labels, cfg.loss, cfg.n_classes,
+                           valid=v, weight=wt), logits
+
+    (val, logits), grads = jax.value_and_grad(loss, has_aux=True)(params)
+    return (np.asarray(logits), float(val),
+            [{k: np.asarray(x) for k, x in p.items()} for p in grads])
+
+
+def _port_mb_grads(params_np, kw, batch, valid, weight):
+    cfg = GNNConfig(**kw)
+    params = TG.params_from_numpy(params_np, device="cpu")
+    leaves = [v.requires_grad_() for p in params for v in p.values()]
+    feats, masks, weights, self_w, labels = (
+        [torch.as_tensor(x) for x in a] if isinstance(a, list)
+        else torch.as_tensor(a) for a in batch)
+    logits = TG.minibatch_forward(params, cfg, feats, masks, weights, self_w)
+    loss = TG.gnn_loss(logits, labels, cfg.loss, cfg.n_classes,
+                       valid=None if valid is None else torch.as_tensor(valid),
+                       weight=None if weight is None
+                       else torch.as_tensor(weight))
+    grads = iter(torch.autograd.grad(loss, leaves))
+    return (logits.detach().numpy(), float(loss.detach()),
+            [{k: next(grads).numpy() for k in p} for p in params])
+
+
+@pytest.mark.parametrize("kernel", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("loss", ["ce", "mse"])
+@pytest.mark.parametrize("model", ["gcn", "graphsage", "gat"])
+def test_minibatch_loss_and_grads_match_reference(graph, model, loss, dtype,
+                                                  kernel):
+    """Logits, loss and every parameter gradient of minibatch_forward +
+    gnn_loss, from the reference's init_gnn; ``valid`` and ``weight`` on
+    the ce cases.  The mini-batch path casts nothing to agg_dt, so a
+    bf16 config computes in f32 on both sides."""
+    kw = _cfg_kw(graph, model=model, loss=loss, dtype=dtype,
+                 use_agg_kernel=kernel)
+    params = RG.init_gnn(jax.random.key(3), RefConfig(**kw), 24)
+    params_np = [{k: np.asarray(v) for k, v in p.items()} for p in params]
+    batch = _fanout_batch(graph)
+    valid, weight = _loss_extras(12, loss == "ce", loss == "ce")
+    want_l, want_v, want_g = _ref_mb_grads(
+        params, dict(kw, use_agg_kernel=False), batch, valid, weight)
+    got_l, got_v, got_g = _port_mb_grads(params_np, kw, batch, valid, weight)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got_l, want_l, rtol=tol, atol=tol)
+    assert got_v == pytest.approx(want_v, rel=tol, abs=tol)
+    for pg, pw in zip(got_g, want_g):
+        assert sorted(pg) == sorted(pw)
+        for k in pw:
+            np.testing.assert_allclose(pg[k], pw[k], rtol=tol, atol=tol,
+                                       err_msg=k)
+
+
+def test_minibatch_kernel_path_matches_reference_kernel_path(graph):
+    """One case against the reference's Pallas kernel path (interpret
+    mode): GCN, so the fused epilogue rides the identity-id _wsum
+    route; gradients included."""
+    kw = _cfg_kw(graph, model="gcn", use_agg_kernel=True)
+    params = RG.init_gnn(jax.random.key(4), RefConfig(**kw), 24)
+    params_np = [{k: np.asarray(v) for k, v in p.items()} for p in params]
+    batch = _fanout_batch(graph, b=8, fanouts=(3, 2))
+    want = _ref_mb_grads(params, kw, batch, None, None)
+    got = _port_mb_grads(params_np, kw, batch, None, None)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
+    for pg, pw in zip(got[2], want[2]):
+        for k in pw:
+            np.testing.assert_allclose(pg[k], pw[k], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("model", ["gcn", "graphsage"])
+def test_full_graph_loss_grads_match_reference(graph, model, dtype):
+    """The full-graph training objective's parameter gradients through
+    the kernel path (the autograd Functions) against the reference's
+    plain path: bf16 aggregation on the bf16 config, as on the card."""
+    kw = _cfg_kw(graph, model=model, dtype=dtype, use_agg_kernel=True)
+    params = RG.init_gnn(jax.random.key(6), RefConfig(**kw), 24)
+    ell = to_ell(graph, max_deg=6)
+    sel = graph.train_nodes
+    cfg_r = RefConfig(**dict(kw, use_agg_kernel=False))
+    j = [jnp.asarray(a) for a in (graph.feats, *ell)]
+
+    def jloss(p):
+        logits = RG.full_graph_forward(p, cfg_r, *j)
+        return RG.gnn_loss(logits[sel], jnp.asarray(graph.labels)[sel],
+                           "ce", cfg_r.n_classes)
+
+    want = jax.grad(jloss)(params)
+    tp = TG.params_from_numpy(
+        [{k: np.asarray(v) for k, v in p.items()} for p in params],
+        device="cpu")
+    leaves = [v.requires_grad_() for p in tp for v in p.values()]
+    t = [torch.as_tensor(a) for a in (graph.feats, *ell)]
+    logits = TG.full_graph_forward(tp, GNNConfig(**kw), *t)
+    s = torch.as_tensor(sel).long()
+    loss = TG.gnn_loss(logits[s], torch.as_tensor(graph.labels)[s], "ce",
+                       kw["n_classes"])
+    flat = iter(torch.autograd.grad(loss, leaves))
+    got = [{k: next(flat).numpy() for k in p} for p in tp]
+    tol = TOL[dtype]
+    for pg, pw in zip(got, want):
+        for k in pw:
+            np.testing.assert_allclose(pg[k], np.asarray(pw[k]), rtol=tol,
+                                       atol=tol, err_msg=k)

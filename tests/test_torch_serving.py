@@ -292,9 +292,9 @@ def test_store_requires_card_unless_told_cpu(small_graph):
 
 
 def test_chip_smoke_rehearsal_on_cpu():
-    """chip_smoke.py's phases at a tiny size on the CPU (the kernel takes
-    its plain version here, so this checks control flow, checks and the
-    result line's keys — not the kernel)."""
+    """chip_smoke.py's phases at a tiny size on the CPU (the kernels take
+    their plain versions here, so this checks control flow, checks and
+    the result line's keys — not the kernels)."""
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     import chip_smoke
@@ -303,7 +303,9 @@ def test_chip_smoke_rehearsal_on_cpu():
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"}
     assert [k["name"] for k in result["kernels"]] == [
-        "neighbor_agg_tiled", "neighbor_agg_tiled_fused"]
+        "neighbor_agg_tiled", "neighbor_agg_tiled_fused",
+        "neighbor_agg_backward", "neighbor_agg_row"]
     for k in result["kernels"]:
         assert keys <= set(k) and k["route"] == "cuda"
         assert os.path.exists(k["source"]) and k["bound_by"] == "bytes"
+        assert os.path.exists(k["replaces"].split(":")[0])

@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and ``nvcc`` (the kernel library is built from the
-sources in this checkout at first use, one ``nvcc`` per source, all
+Needs one CUDA card and ``nvcc`` (both kernel libraries are built from
+the sources in this checkout at first use, one ``nvcc`` per source, all
 started together); exits nonzero without a card.  Imports nothing of JAX
 or of the reference package ``repro``.
 
-1. Builds the neighbor-aggregation kernel library (``nvcc``, sm_90a).
+1. Builds the neighbor-aggregation and flash-attention kernel libraries
+   (``nvcc``, sm_90a).
 2. Tiled-kernel phase: the forward kernel against its plain torch
    version (``neighbor_agg_ref``) — D = 128 and 172, K = 32, B = 65,536,
    f32 and bf16, fused epilogue on and off — plus ragged B/K/D, K = 0,
@@ -43,6 +44,29 @@ or of the reference package ``repro``.
    the plain forward (2e-2), the snapshot's argmax and a fresh rebuild.
 7. GCN phase (fused epilogue on the path): GCN in f32, hidden 256, at
    n = 65,536, checked against the plain forward at 1e-4.
+8. Flash-attention phase: the CUDA kernel against its plain version
+   (``flash_attention_ref``) at gemma3-12b's prefill shape (B = 2,
+   S = 4096, Hq = 16, Hkv = 8, D = 256; window 0 and 1024; bf16 and
+   f32), at D = 64 and 128, at the reference test's shapes (B 2, Hq 4,
+   Hkv 2, D 32, S 64-256, window 64), at ragged S and at windows that
+   are not a multiple of the 64-key tile.  Tolerance: 2e-5 (f32) and
+   3e-2 (bf16), atol = rtol.  The main shapes are timed with CUDA
+   events beside the plain version, one ``scaled_dot_product_attention``
+   call (``is_causal``, or a boolean band mask for the window) and the
+   bound.
+9. LM serving phase at full width: gemma3-12b (48 layers, d_model 3840,
+   16/8 heads of 256, d_ff 15360, vocab 262,144, 5 local : 1 global),
+   bf16 weights drawn on the card from a seeded generator, through the
+   port's ``models.steps``: prefill of 2 x 4096 tokens, then 32 greedy
+   decode steps.  The flash kernel's launch count is reset just before
+   and read just after: one launch per layer of the prefill (48).  The
+   prefill's last logits with the kernel must match the plain path
+   (the reference model's chunked attention) to a relative max error of
+   5e-2 in bf16 and, with the same model drawn in f32, 1e-3; every logit
+   finite and every token within the vocab; 8 teacher-forced decode
+   steps must match the forward over the extended sequence to a relative
+   max error of 5e-2.  One prefill and one decode step are traced with
+   ``torch.profiler`` (device time by kernel).
 
 Every failed check raises.  The last stdout line is
 ``{"ok": true, "device": {...}}``; the line before it names the card and
@@ -72,13 +96,19 @@ from repro_torch.core.embedding_store import EmbeddingStore  # noqa: E402
 from repro_torch.core.graph import to_ell  # noqa: E402
 from repro_torch.core.serving import GNNServer  # noqa: E402
 from repro_torch.data.synth import make_preset  # noqa: E402
+from repro_torch.kernels.build import build_all  # noqa: E402
+from repro_torch.kernels.flash_attn import build as fa_build  # noqa: E402
+from repro_torch.kernels.flash_attn import ops as fa  # noqa: E402
+from repro_torch.kernels.neighbor_agg import build as na_build  # noqa: E402
 from repro_torch.kernels.neighbor_agg import ops  # noqa: E402
-from repro_torch.kernels.neighbor_agg.build import build  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import steps  # noqa: E402
 from repro_torch.kernels.neighbor_agg.ref import (  # noqa: E402
     neighbor_agg_backward_ref, neighbor_agg_ref)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # gradients: dfeats sums with f32 atomics in no fixed order (f32); one
 # rounding of each cotangent to bf16 (bf16)
@@ -86,6 +116,15 @@ GTOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 TRAIN_LR = 0.3                 # the reference TrainPlan's default
 CSRC = "src/repro_torch/kernels/neighbor_agg/csrc/"
 REF_AGG = "src/repro/kernels/neighbor_agg/"
+# flash attention: the tolerances of tests/test_flash_attn.py
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# LM checks, relative max error (max|a - b| / max|b|) of logits.  The plain
+# path (the reference model's chunked attention) rounds scores and
+# probabilities to bf16 where the kernel keeps f32, and the difference
+# compounds over 48 layers of random weights: 2.5e-2 on the card in bf16,
+# so bf16 is held to 5e-2 and the same comparison in f32 to 1e-3.
+LM_PLAIN_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-3}
+LM_DECODE_TOL = 5e-2    # teacher-forced decode vs forward, bf16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,12 +147,24 @@ class Sizes:
     mb_steps: int = 20
     mb_b: int = 8192
     mb_fanout: tuple = (15, 10)
+    # flash attention (B, S, Hq, Hkv, D) and its windows: gemma3-12b prefill
+    fa_shape: tuple = (2, 4096, 16, 8, 256)
+    fa_windows: tuple = (0, 1024)
+    fa_iters: int = 10
+    # LM serving: gemma3-12b full config (smoke config when lm_smoke)
+    lm_smoke: bool = False
+    lm_b: int = 2
+    lm_s: int = 4096       # a multiple of q_chunk 512 and the window 1024
+    lm_gen: int = 32
+    lm_tf: int = 8         # teacher-forced decode steps checked
 
 
 FULL = Sizes()
 TINY = Sizes(agg_n=600, agg_b=300, n_serve=3_000, chunk=700,
              n_gcn=1_000, queries=24, updates=8, iters=2, path_iters=1,
-             full_steps=3, mb_steps=4, mb_b=64)
+             full_steps=3, mb_steps=4, mb_b=64, fa_shape=(1, 192, 4, 2, 64),
+             fa_windows=(0, 64), fa_iters=2, lm_smoke=True, lm_s=128,
+             lm_gen=4, lm_tf=3)
 
 
 def check(cond, msg: str) -> None:
@@ -803,6 +854,318 @@ def gcn_phase(dev, sz: Sizes) -> dict:
     return dict(launches=launches)
 
 
+def flash_bound(b, s, hq, hkv, d, window, dtype) -> tuple:
+    """The least time for one flash-attention call: q, k, v and o moved
+    once (k and v at Hkv heads, as the kernel reads them) over the HBM
+    rate, against 4·D flops for each (query, key) pair the mask keeps over
+    the peak rate of the inputs' type (bf16 tensor cores, or f32).
+    Returns (ms, "bytes" | "operations", bytes, flops)."""
+    el = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * hq + 2 * hkv) * b * s * d * el
+    w = window or s
+    pairs = w * (w + 1) // 2 + (s - w) * w if w < s else s * (s + 1) // 2
+    flops = 4 * b * hq * pairs * d
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def _sdpa(q, k, v, window):
+    """One PyTorch call for the same function (a yardstick the port never
+    calls): is_causal, or a boolean band mask for a window."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if not window:
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    pos = torch.arange(q.shape[1], device=q.device)
+    band = ((pos[None, :] <= pos[:, None])
+            & (pos[None, :] > pos[:, None] - window))
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=band, enable_gqa=True)
+
+
+def flash_phase(dev, sz: Sizes) -> dict:
+    """The flash-attention kernel against its plain version; the main
+    shapes timed.  Returns the measured main variants keyed (dtype,
+    window)."""
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    kern = lambda q, k, v, w: fa.flash_attention(  # noqa: E731
+        q, k, v, window=w, use_kernel=True)
+    # the plain version (``ref.flash_attention_ref`` after the GQA repeat)
+    plain = lambda q, k, v, w: fa.flash_attention(  # noqa: E731
+        q, k, v, window=w, use_kernel=False)
+
+    def qkv(b, s, hq, hkv, d, dtype):
+        return [torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+                for h in (hq, hkv, hkv)]
+
+    def one(name, b, s, hq, hkv, d, w, dtype):
+        q, k, v = qkv(b, s, hq, hkv, d, dtype)
+        want = plain(q, k, v, w)
+        err = compare(name, dtype, kern(q, k, v, w), want, FA_TOL[dtype])
+        del want
+        return (q, k, v), err
+
+    measured = {}
+    b, s, hq, hkv, d = sz.fa_shape
+    for dtype in (torch.bfloat16, torch.float32):
+        for w in sz.fa_windows:
+            name = (f"flash {str(dtype)[6:]} B={b} S={s} Hq={hq} Hkv={hkv} "
+                    f"D={d} window={w}")
+            (q, k, v), err = one(name, b, s, hq, hkv, d, w, dtype)
+            k_ms = time_ms(lambda: kern(q, k, v, w), dev, sz.fa_iters)
+            p_ms = time_ms(lambda: plain(q, k, v, w), dev,
+                           max(sz.fa_iters // 2, 1), 1)
+            lib = library_ms(_sdpa(q, k, v, w), dev, sz.fa_iters)
+            b_ms, b_by, nbytes, flops = flash_bound(b, s, hq, hkv, d, w,
+                                                    dtype)
+            measured[(dtype, w)] = dict(
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib)
+            print(f"{name}: max_err={err:.3g} kernel_ms={k_ms:.4f} "
+                  f"plain_ms={p_ms:.4f} library_ms={fmt(lib)} "
+                  f"(scaled_dot_product_attention) bound_ms={b_ms:.4f} "
+                  f"(bound by {b_by}: {nbytes} B = q + k + v + o at 3.35 "
+                  f"TB/s; {flops} flops at "
+                  f"{'989' if dtype == torch.bfloat16 else '67'} TFLOP/s) "
+                  f"= {flops / k_ms / 1e9:.1f} TFLOP/s achieved", flush=True)
+            del q, k, v
+    # other head dims, the reference test's shapes, ragged S, windows
+    # that are not a multiple of the 64-key tile
+    cases = [(b, s, hq, hkv, dd, w, torch.bfloat16)
+             for dd in (64, 128) for w in sz.fa_windows]
+    cases += [(2, ss, 4, 2, 32, w, dt) for ss in (64, 128, 256)
+              for w in (0, 64) for dt in (torch.float32, torch.bfloat16)]
+    cases += [(2, 1000, 16, 8, 256, 0, torch.bfloat16),
+              (1, 333, 8, 2, 128, 100, torch.float32),
+              (3, 1, 4, 4, 64, 0, torch.float32),
+              (1, 2048, 16, 8, 256, 1000, torch.bfloat16),
+              (2, 777, 4, 1, 16, 100, torch.float32)]
+    for cb, cs, chq, chkv, cd, cw, dt in cases:
+        name = (f"flash {str(dt)[6:]} B={cb} S={cs} Hq={chq} Hkv={chkv} "
+                f"D={cd} window={cw}")
+        _, err = one(name, cb, cs, chq, chkv, cd, cw, dt)
+        print(f"{name}: max_err={err:.3g}", flush=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+    return measured
+
+
+def _device_us(evt) -> float:
+    for attr in ("device_time_total", "cuda_time_total"):
+        val = getattr(evt, attr, None)
+        if val is not None:
+            return float(val)
+    return 0.0
+
+
+def profile_device(dev, fn) -> dict:
+    """Device time of one ``fn()`` by kernel, from a ``torch.profiler``
+    trace, beside its wall time: the flash kernel's part, the largest
+    kernels.  Only the trace's device events are summed (the operators
+    that launch them carry the same time again).  A trace that cannot be
+    taken leaves the numbers out ("not measured"); it does not stop the
+    run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        evs = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and _device_us(e) > 0]
+    except RuntimeError as e:               # the tracer, not the port
+        print(f"profiler trace failed ({e}): not measured", flush=True)
+        return {}
+    total = sum(_device_us(e) for e in evs)
+    flash = sum(_device_us(e) for e in evs if "flash_attn_kernel" in e.key)
+    top = sorted(evs, key=_device_us, reverse=True)[:6]
+    return {"wall_ms": 1e3 * wall, "device_ms": total / 1e3,
+            "flash_ms": flash / 1e3,
+            "top": [(e.key[:70], round(_device_us(e) / 1e3, 3), e.count)
+                    for e in top]}
+
+
+def _print_profile(what, prof) -> None:
+    if not prof or not prof["device_ms"]:
+        print(f"lm: profiled {what}: device time not measured", flush=True)
+        return
+    print(f"lm: profiled {what}: wall {prof['wall_ms']:.2f} ms (traced), "
+          f"device time {prof['device_ms']:.2f} ms "
+          f"({prof['device_ms'] / prof['wall_ms']:.3f} of the wall), "
+          f"flash kernel {prof['flash_ms']:.2f} ms "
+          f"({prof['flash_ms'] / prof['device_ms']:.3f} of device time); "
+          f"largest kernels (name, ms, calls): {prof['top']}", flush=True)
+
+
+def lm_phase(dev, sz: Sizes) -> dict:
+    """gemma3-12b through the port's serving steps: prefill then decode,
+    the main path of the LM serving slice."""
+    cfg = get_config("gemma3-12b", smoke=sz.lm_smoke)
+    if not sz.lm_smoke:
+        check(cfg.n_layers == 48 and cfg.d_model == 3840
+              and cfg.n_heads == 16 and cfg.n_kv_heads == 8
+              and cfg.resolved_head_dim == 256 and cfg.d_ff == 15360
+              and cfg.vocab_size == 262_144 and cfg.sliding_window == 1024
+              and cfg.dtype == "bfloat16" and cfg.tie_embeddings
+              and cfg.pattern.count("local") == 40,
+              f"unexpected gemma3-12b config {cfg}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                          dev, dtype=M._dt(cfg))
+    sync()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"lm: {cfg.name} {'smoke' if sz.lm_smoke else 'full'} config, "
+          f"{n_params} parameters in {M._dt(cfg)} drawn on {dev} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    b, s, ngen, ntf = sz.lm_b, sz.lm_s, sz.lm_gen, sz.lm_tf
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s + ntf)),
+                           device=dev)
+    prompt = {"tokens": toks[:, :s]}
+    prefill = steps.make_prefill_step(cfg)
+    decode = steps.make_serve_step(cfg)
+    with torch.inference_mode():
+        # ---- the main path, between the launch-count reset and its read
+        fa.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        last, cache = prefill(params, prompt, s + ngen)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = fa.launches
+        tok = last.argmax(-1, keepdim=True)
+        gen_toks, finite = [], torch.isfinite(last).all()
+        t0 = time.perf_counter()
+        for _ in range(ngen):
+            gen_toks.append(tok)
+            logits, cache = decode(params, cache, tok)
+            finite &= torch.isfinite(logits).all()
+            tok = logits.argmax(-1, keepdim=True)
+        sync()
+        decode_s = time.perf_counter() - t0
+        launches = fa.launches
+        # ---- end of the main path
+        gen_toks = torch.cat(gen_toks, 1)
+        del cache
+        print(f"lm: prefill {b} x {s} tokens in {prefill_s:.3f} s "
+              f"({b * s / prefill_s:.1f} tokens/s, first call); "
+              f"{ngen} greedy decode steps in {decode_s:.3f} s "
+              f"({1e3 * decode_s / ngen:.2f} ms/step, "
+              f"{b * ngen / decode_s:.1f} tokens/s); flash launches: "
+              f"prefill {prefill_launches}, main path {launches}",
+              flush=True)
+        if dev.type == "cuda":
+            check(prefill_launches == cfg.n_layers and
+                  launches == cfg.n_layers,
+                  f"prefill launched the flash kernel {prefill_launches} "
+                  f"times (main path {launches}), not once per layer "
+                  f"({cfg.n_layers})")
+        check(bool(finite), "a prefill or decode logit is not finite")
+        check(bool(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all()),
+              "a generated token is outside the vocab")
+
+        # ---- checks and timings outside the counted window
+        sync()
+        t0 = time.perf_counter()
+        plain_last, _ = M.prefill(params, cfg, prompt, kernel=False)
+        sync()
+        plain_s = time.perf_counter() - t0
+        check_plain(cfg, last, plain_last, f"plain path {plain_s:.3f} s")
+        del plain_last
+        # teacher-forced decode against the forward over prompt + ntf
+        sync()
+        t0 = time.perf_counter()
+        last2, cache = prefill(params, prompt, s + ntf)
+        sync()
+        prefill2_s = time.perf_counter() - t0
+        x = M.embed_tokens(params, cfg, toks)
+        hid, _ = M.backbone(params, cfg, x,
+                            torch.arange(s + ntf, device=dev))
+        want = M.logits_fn(params, cfg, hid[:, s - 1:]).float()
+        del x, hid
+        errs = [rel_err(last2.float(), want[:, 0])]
+        for t in range(ntf):
+            lg, cache = decode(params, cache, toks[:, s + t:s + t + 1])
+            errs.append(rel_err(lg.float(), want[:, t + 1]))
+        del want
+        prof_decode = ({} if dev.type != "cuda" else profile_device(
+            dev, lambda: decode(params, cache, toks[:, -1:])))
+        del cache
+        print(f"lm: second prefill {prefill2_s:.3f} s "
+              f"({b * s / prefill2_s:.1f} tokens/s); teacher-forced decode "
+              f"vs the forward over {s + ntf} tokens, relative max error "
+              f"by step (prefill first): {[f'{e:.3g}' for e in errs]} "
+              f"(limit {LM_DECODE_TOL})", flush=True)
+        check(max(errs) <= LM_DECODE_TOL,
+              f"teacher-forced decode rel err {max(errs)} beyond "
+              f"{LM_DECODE_TOL}")
+        out = dict(launches=launches, prefill_s=prefill_s,
+                   prefill2_s=prefill2_s, decode_ms=1e3 * decode_s / ngen)
+        if dev.type == "cuda":
+            _print_profile("prefill", profile_device(
+                dev, lambda: prefill(params, prompt)))
+            _print_profile("decode step", prof_decode)
+            print(f"lm: max memory allocated "
+                  f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+                  flush=True)
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if M._dt(cfg) != torch.float32:
+        # the same comparison with the model drawn in f32, where neither
+        # path rounds to bf16
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params = M.init_model(torch.Generator(device=dev).manual_seed(0),
+                              cfg32, dev, dtype=torch.float32)
+        with torch.inference_mode():
+            got, _ = M.prefill(params, cfg32, prompt)
+            want, _ = M.prefill(params, cfg32, prompt, kernel=False)
+        check_plain(cfg32, got, want, "f32 model")
+        del params, got, want
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_plain(cfg, got, want, what) -> None:
+    """The prefill's last logits with the kernel against the plain path."""
+    dt = M._dt(cfg)
+    err = rel_err(got.float(), want.float())
+    print(f"lm: prefill last logits ({str(dt)[6:]}), flash kernel vs the "
+          f"plain path (chunked attention; {what}): relative max error "
+          f"{err:.4g} (limit {LM_PLAIN_TOL[dt]})", flush=True)
+    check(err <= LM_PLAIN_TOL[dt],
+          f"prefill kernel vs plain rel err {err} beyond {LM_PLAIN_TOL[dt]}")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def run(dev: torch.device, sz: Sizes) -> dict:
     # full f32 products everywhere (TF32 off), bf16 GEMMs reduce in f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -816,7 +1179,11 @@ def run(dev: torch.device, sz: Sizes) -> dict:
     train = training_phase(dev, sz, graph)
     serve = serving_phase(dev, sz, graph)
     gcn = gcn_phase(dev, sz)
+    del graph
+    flash = flash_phase(dev, sz)
+    lm = lm_phase(dev, sz)
     d = max(sz.agg_d)
+    b, s, hq, hkv, hd = sz.fa_shape
     cell = f"B={sz.agg_b} K={sz.agg_k} D={d} N={sz.agg_n}"
     kernels = [
         {"name": "neighbor_agg_tiled", "route": "cuda",
@@ -849,6 +1216,15 @@ def run(dev: torch.device, sz: Sizes) -> dict:
                                       "through neighbor_agg(kernel='row')"},
          **row[(torch.bfloat16, d)],
          "shape": f"bf16, {cell}"},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
+         "replaces": "src/repro/kernels/flash_attn/flash_attn.py:78",
+         "launches": lm["launches"],
+         "launches_by_path": {"lm_serve": lm["launches"]},
+         **flash[(torch.bfloat16, 0)],
+         "shape": f"bf16, B={b} S={s} Hq={hq} Hkv={hkv} D={hd}, window 0",
+         f"window_{sz.fa_windows[1]}": flash[(torch.bfloat16,
+                                              sz.fa_windows[1])]},
     ]
     return {"kernels": kernels}
 
@@ -861,8 +1237,8 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
-    print(f"build: {build(verbose=True)} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    libs = build_all([na_build.LIBRARY, fa_build.LIBRARY], verbose=True)
+    print(f"build: {libs} in {time.perf_counter() - t0:.1f} s", flush=True)
     result = run(dev, FULL)
     check(threading.active_count() == 1,
           f"threads left running: {threading.enumerate()}")

@@ -1,1 +1,1 @@
-"""GNN configurations of the port."""
+"""Configurations of the port (copies of the reference's config modules)."""

@@ -1,11 +1,100 @@
-"""GNN configuration for the port: ``GNNConfig`` with the reference's
-fields and ``validate()`` (``repro.configs.base``), plus a GNN-only
-registry.  The LM configurations come with the LM part of the port."""
+"""Configurations of the port: ``GNNConfig`` and ``ModelConfig`` with the
+reference's fields (``repro.configs.base``), so the reference's config
+modules copy unchanged, and the registry of the ported architectures:
+the GNN and the dense decoder family.  The other LM families raise
+``NotImplementedError`` naming the slice that ports them."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple, Union
+
+
+# ---------------------------------------------------------------------------
+# Model configuration (the LM families; reference ``configs/base.py:19-116``)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                     # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int = 0                # query heads (0 for attn-free)
+    n_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    head_dim: int = 0               # 0 -> d_model // n_heads
+    # --- MLP ---
+    mlp_act: str = "silu"           # "silu" (SwiGLU) | "gelu" (GeGLU)
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 1
+    capacity_factor: float = 1.25
+    # --- SSM (mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv: int = 4
+    # --- layer pattern ---
+    # pattern tokens: "attn" (global), "local" (sliding window), "mamba",
+    # "shared_attn" (zamba2-style weight-shared attention block).
+    # None => ("attn",) * n_layers.
+    layer_pattern: Optional[Tuple[str, ...]] = None
+    sliding_window: int = 0
+    # --- encoder-decoder (whisper) ---
+    n_enc_layers: int = 0
+    enc_seq: int = 0                # encoder frames (stub frontend output)
+    # --- modality frontend stub (vlm) ---
+    frontend_seq: int = 0           # patch embeddings prepended to the text
+    # --- misc ---
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"
+    remat: bool = True              # accepted for parity; serving ignores it
+    tie_embeddings: bool = False
+    # query chunk of the plain chunked attention (the flash kernel reads
+    # neither chunk field: it tiles by itself and takes ragged S)
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+    moe_group: int = 256
+    source: str = ""                # citation
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def pattern(self) -> Tuple[str, ...]:
+        if self.layer_pattern is not None:
+            if len(self.layer_pattern) != self.n_layers:
+                raise ValueError(
+                    f"{self.name}: pattern length {len(self.layer_pattern)} "
+                    f"!= n_layers {self.n_layers}")
+            return self.layer_pattern
+        return ("attn",) * self.n_layers
+
+    @property
+    def has_decode(self) -> bool:
+        return True
+
+    def validate(self) -> None:
+        def req(cond: bool, msg: str) -> None:
+            if not cond:
+                raise ValueError(f"ModelConfig {self.name!r}: {msg}")
+        req(self.d_model > 0 and self.n_layers > 0,
+            "d_model and n_layers must be > 0")
+        if self.family != "ssm":
+            req(self.vocab_size > 0, "vocab_size must be > 0")
+        for t in self.pattern:
+            req(t in ("attn", "local", "mamba", "shared_attn"),
+                f"unknown layer type {t!r}")
+        if "local" in self.pattern:
+            req(self.sliding_window > 0,
+                "local layers need sliding_window > 0")
 
 # ---------------------------------------------------------------------------
 # GNN configuration (the paper's own system)
@@ -92,15 +181,22 @@ class GNNConfig:
 
 
 # ---------------------------------------------------------------------------
-# Registry (GNN configurations only)
+# Registry
 # ---------------------------------------------------------------------------
 
-_ARCH_MODULES = ["gnn_papers100m"]
+_ARCH_MODULES = ["gnn_papers100m", "gemma3_12b", "gemma_7b", "granite_3_2b",
+                 "stablelm_1_6b"]
 
-#: the reference's LM configurations; the LM family is ported in slice 6
+#: the reference's LM configurations (the dense ones are ported)
 LM_ARCHS = ("gemma3-12b", "gemma-7b", "granite-3-2b", "internvl2-76b",
             "llama4-maverick-400b-a17b", "llama4-scout-17b-a16e",
             "mamba2-130m", "stablelm-1.6b", "whisper-medium", "zamba2-7b")
+
+#: LM architectures of the reference not ported yet, with the family that
+#: a later slice ports (ROADMAP.md Queue 1)
+_LATER = {"llama4-maverick-400b-a17b": "moe", "llama4-scout-17b-a16e": "moe",
+          "mamba2-130m": "ssm", "zamba2-7b": "hybrid",
+          "whisper-medium": "audio", "internvl2-76b": "vlm"}
 
 
 def _modules() -> Dict[str, object]:
@@ -115,9 +211,18 @@ def list_archs() -> Tuple[str, ...]:
     return tuple(_modules())
 
 
-def get_config(name: str, smoke: bool = False) -> GNNConfig:
-    """``full_config()`` (or ``smoke_config()``) of the named GNN
-    configuration, validated.  Accepts ``-`` or ``_`` spellings."""
+def get_config(name: str, smoke: bool = False
+               ) -> Union[GNNConfig, ModelConfig]:
+    """``full_config()`` (or ``smoke_config()``) of the named
+    configuration, validated.  Accepts ``-`` or ``_`` spellings.  An LM
+    architecture of a family not ported yet raises
+    ``NotImplementedError``."""
+    later = _LATER.get(name.replace("_", "-"))
+    if later is not None:
+        raise NotImplementedError(
+            f"arch {name!r} is of the {later} family, which a later LM "
+            f"slice ports (ROADMAP.md Queue 1); the port serves the dense "
+            f"family")
     mods = _modules()
     for k, mod in mods.items():
         if k == name.replace("_", "-") or k.replace("-", "_") == name:

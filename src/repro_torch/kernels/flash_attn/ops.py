@@ -1,0 +1,139 @@
+"""Public wrapper of causal (sliding-window) flash attention.
+
+``flash_attention`` mirrors the reference wrapper
+(``repro/kernels/flash_attn/ops.py:18-37``): q ``[B, S, Hq, D]``, k and v
+``[B, S, Hkv, D]``, returns ``[B, S, Hq, D]``.
+
+* ``use_kernel=False`` — the plain version (``ref.flash_attention_ref``)
+  after the reference's GQA repeat and ``[B,S,H,D] -> [B,H,S,D]`` move.
+* ``use_kernel=True`` — on a CUDA tensor, the hand-written CUDA kernel
+  (``csrc/flash_attn.cu``), which reads the ``[B,S,H,D]`` tensors in
+  place and query head h's KV head h // (Hq/Hkv) directly; it launches
+  or raises, never a quiet fallback.  On a CPU tensor, the plain
+  version, because the tensor lies on the CPU.
+
+The reference's ``q_block``/``k_block``/``interpret`` are the TPU
+kernel's tiling and have no meaning here; the CUDA kernel tiles by
+itself and takes any S.  ``launches`` counts the kernel's launches and
+changes only where it launches.
+"""
+from __future__ import annotations
+
+import math
+import threading
+
+import torch
+
+from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+
+#: launches of the flash-attention kernel
+launches = 0
+_count_lock = threading.Lock()
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims the kernel is compiled for
+HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+def reset_launches() -> None:
+    """Set the launch counter to 0."""
+    global launches
+    with _count_lock:
+        launches = 0
+
+
+def _count() -> None:
+    global launches
+    with _count_lock:
+        launches += 1
+
+
+def _check_shapes(q, k, v, window) -> None:
+    def req(cond, msg):
+        if not cond:
+            raise ValueError(f"flash_attention: {msg}")
+    req(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
+        f"q, k, v must be [B, S, H, D], got {tuple(q.shape)}, "
+        f"{tuple(k.shape)}, {tuple(v.shape)}")
+    req(k.shape == v.shape, f"k {tuple(k.shape)} and v {tuple(v.shape)} "
+        f"differ")
+    b, s, hq, d = q.shape
+    req(k.shape[0] == b and k.shape[1] == s and k.shape[3] == d,
+        f"k {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    req(k.shape[2] > 0 and hq % k.shape[2] == 0,
+        f"query heads {hq} are not a multiple of KV heads {k.shape[2]}")
+    req(window >= 0, f"window must be >= 0, got {window}")
+
+
+def _check_kernel_args(q, k, v) -> None:
+    """Raise on anything the kernel does not take (checked on every
+    device, so the CPU tests hold the same contract as the card)."""
+    def req(cond, msg):
+        if not cond:
+            raise ValueError(f"flash_attention kernel: {msg}")
+    req(q.dtype in _DTYPE_CODE,
+        f"dtype must be float32 or bfloat16, got {q.dtype}")
+    req(k.dtype == q.dtype and v.dtype == q.dtype,
+        f"q, k, v must share a dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    req(q.device == k.device == v.device,
+        "all operands must be on one device")
+    req(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
+        "operands must be contiguous")
+    req(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+        "operands must start on a 16-byte boundary (the kernel loads "
+        "16 bytes at a time)")
+    req(q.shape[3] in HEAD_DIMS,
+        f"head dim must be one of {HEAD_DIMS}, got {q.shape[3]}")
+    req(q.shape[0] <= 65535 and q.shape[1] <= 65535 * 64,
+        f"batch must be <= 65535 and S <= {65535 * 64}, got "
+        f"{tuple(q.shape)}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention kernel: unsupported device "
+                         f"{q.device}")
+
+
+def _plain(q, k, v, window):
+    """The reference's wrapper around its oracle: GQA repeat, move heads
+    in front, attend, move back."""
+    hq, hkv = q.shape[2], k.shape[2]
+    if hq != hkv:
+        k = torch.repeat_interleave(k, hq // hkv, dim=2)
+        v = torch.repeat_interleave(v, hq // hkv, dim=2)
+    out = flash_attention_ref(q.movedim(2, 1), k.movedim(2, 1),
+                              v.movedim(2, 1), causal=True, window=window)
+    return out.movedim(1, 2)
+
+
+def _launch(q, k, v, window):
+    from repro_torch.kernels.flash_attn.build import load_library
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    out = torch.empty_like(q)
+    if b == 0 or s == 0 or hq == 0:           # nothing to compute
+        return out
+    lib = load_library()
+    with torch.cuda.device(q.device):         # launch on the tensors' card
+        err = lib.flash_attn_forward(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, s, hq, hkv, d, window,
+            1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention CUDA kernel launch failed with error {err} "
+            f"(B={b}, S={s}, Hq={hq}, Hkv={hkv}, D={d}, window={window}, "
+            f"dtype={q.dtype})")
+    _count()
+    return out
+
+
+def flash_attention(q, k, v, *, window: int = 0, use_kernel: bool = False):
+    """q: [B, S, Hq, D]; k, v: [B, S, Hkv, D] (Hq a multiple of Hkv).
+    Causal, with sliding-window banding when ``window > 0`` (keys in
+    (s - window, s]).  Returns [B, S, Hq, D] in q's dtype."""
+    _check_shapes(q, k, v, window)
+    if not use_kernel:
+        return _plain(q, k, v, window)
+    _check_kernel_args(q, k, v)
+    if q.device.type == "cpu":
+        return _plain(q, k, v, window)
+    return _launch(q, k, v, window)

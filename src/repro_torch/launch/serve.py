@@ -1,8 +1,12 @@
-"""Serving entry point for the GNN family (layer-wise embed -> EmbeddingStore
--> GNNServer), the torch counterpart of ``repro.launch.serve``:
+"""Serving entry point, the torch counterpart of ``repro.launch.serve``:
+the GNN family (layer-wise embed -> EmbeddingStore -> GNNServer) and the
+dense decoders (prefill + decode steps):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
+        --smoke --device cpu --temperature 0
 
 The smoke path builds a small synthetic graph, runs the layer-wise
 embedding pass, CHECKS it per layer against the plain full-graph forward,
@@ -15,8 +19,15 @@ mid-refresh crash (``store.mid_layer_refresh``) killing the background
 refresh scheduler — answers must keep coming from the last consistent
 snapshot; then a tight ``max_staleness_s`` SLO forces a synchronous
 refresh and the served answers must match the fully updated forward.
-Exit is nonzero on any mismatch.  Runs on ``cuda`` unless ``--device``
-says otherwise.
+Exit is nonzero on any mismatch.
+
+The decoder path serves randomly initialised weights drawn from
+``--seed`` (as the reference does), in the config's dtype: a random
+prompt of ``--batch`` x ``--prompt-len`` tokens through ``prefill`` (the
+flash-attention kernel in every layer on the card), then ``--gen``
+decode steps, greedy at ``--temperature 0`` and sampled with a seeded
+``torch.Generator`` above it.  It prints the reference's JSON keys.
+Runs on ``cuda`` unless ``--device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -209,14 +220,75 @@ def serve_gnn(args, cfg) -> int:
     return 0 if ok else 1
 
 
+def serve_decoder(args, cfg) -> int:
+    """Prefill + decode of a dense decoder (reference
+    ``launch/serve.py:230-283``)."""
+    from repro_torch.models import model as M
+    from repro_torch.models import steps
+
+    dev = resolve_device(args.device)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = M.init_model(gen, cfg, dev, dtype=M._dt(cfg))
+    rng = np.random.default_rng(args.seed)
+    b, s = args.batch, args.prompt_len
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (b, s)), device=dev)}
+    prefill = steps.make_prefill_step(cfg)
+    decode = steps.make_serve_step(cfg)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def pick(logits):
+        if args.temperature > 0:
+            probs = torch.softmax(logits.float() / args.temperature, -1)
+            return torch.multinomial(probs, 1, generator=gen)
+        return logits.argmax(-1, keepdim=True)
+
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        sync()
+        t_prefill = time.perf_counter() - t0
+
+        toks = []
+        tok = logits.argmax(-1, keepdim=True)
+        t0 = time.perf_counter()
+        for _ in range(args.gen):
+            toks.append(tok[:, 0])
+            logits, cache = decode(params, cache, tok)
+            tok = pick(logits)
+        sync()
+        t_dec = time.perf_counter() - t0
+
+    out = torch.stack(toks, 1).cpu().numpy()
+    print(json.dumps({
+        "arch": args.arch,
+        "device": str(dev),
+        "prefill_s": round(t_prefill, 4),
+        "decode_tok_per_s": round(args.batch * args.gen / t_dec, 2),
+        "generated_shape": list(out.shape),
+        "sample_tokens": out[0][:16].tolist(),
+    }, indent=2))
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gnn-papers100m",
-                    help="GNN config name")
+                    help="config name (default: the GNN serving smoke)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda unless told otherwise)")
+    # decoder knobs
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=1.0)
+    # gnn serving knobs
     ap.add_argument("--preset", default="arxiv-like")
     ap.add_argument("--nodes", type=int, default=400,
                     help="synthetic graph size for the smoke")
@@ -232,7 +304,10 @@ def main(argv=None):
                     help="route aggregation through the CUDA kernel "
                          "(its plain version on the CPU)")
     args = ap.parse_args(argv)
-    return serve_gnn(args, get_config(args.arch, smoke=args.smoke))
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.family == "gnn":
+        return serve_gnn(args, cfg)
+    return serve_decoder(args, cfg)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,11 @@ build whose kernel path must launch the kernel and match the plain
 forward, and one training step whose gradients through the kernels must
 match the plain path.  Forward tolerances: 1e-5 (f32), 2e-2 (bf16).
 Backward: 1e-3 (f32; dfeats sums with atomics in an order that changes
-from run to run), 2e-2 (bf16)."""
+from run to run), 2e-2 (bf16).
+
+The CUDA flash-attention kernel against its plain version (2e-5 f32,
+3e-2 bf16, the tolerances of tests/test_flash_attn.py), its argument
+checks, and a small-config prefill that launches it once per layer."""
 import dataclasses
 
 import numpy as np
@@ -208,3 +212,80 @@ def test_training_step_grads_kernel_match_plain(cuda, model, dtype):
             assert err <= tol, (type(src).__name__, err)
         src.done(batch)
         src.close()
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+def _qkv(seed, b, s, hq, hkv, d, dtype, device):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.normal(size=(b, s, h, d)).astype(np.float32),
+                         device=device).to(dtype)
+            for h in (hq, hkv, hkv)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("s,window", [(256, 0), (256, 64), (1100, 1000),
+                                      (200, 0), (77, 64), (1, 0)])
+def test_flash_kernel_matches_plain_version(cuda, s, window, d, dtype, tol):
+    """Ragged S (200, 77, 1, 1100), windows that are and are not a
+    multiple of the 64-key tile, GQA 4/2."""
+    from repro_torch.kernels.flash_attn import ops as fa
+    q, k, v = _qkv(s + d + window, 2, s, 4, 2, d, dtype, cuda)
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, window=window, use_kernel=True)
+    assert fa.launches == before + 1
+    want = fa.flash_attention(q, k, v, window=window, use_kernel=False)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+def test_flash_kernel_rejects_bad_inputs(cuda):
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    q, k, v = _qkv(0, 1, 64, 4, 2, 32, torch.float32, cuda)
+    with pytest.raises(ValueError, match="one device"):
+        flash_attention(q, k.cpu(), v, use_kernel=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k,
+                        v, use_kernel=True)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(q.half(), k.half(), v.half(), use_kernel=True)
+    with pytest.raises(ValueError, match="share a dtype"):
+        flash_attention(q, k.bfloat16(), v, use_kernel=True)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(*_qkv(0, 1, 64, 4, 2, 48, torch.float32, cuda),
+                        use_kernel=True)
+    flat = torch.zeros(1 + q.numel(), device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(flat[1:].view(q.shape), k, v, use_kernel=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_launches_flash_once_per_layer(cuda, dtype):
+    """A small-config prefill runs the kernel once per layer and matches
+    the plain path (the reference model's chunked attention): 1e-4 in
+    f32, relative max error 2e-2 in bf16."""
+    import dataclasses as dc
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attn import ops as fa
+    from repro_torch.models import model as M
+    cfg = dc.replace(get_config("gemma3-12b", smoke=True), dtype=dtype)
+    params = M.init_model(torch.Generator(device=cuda).manual_seed(0), cfg,
+                          cuda, dtype=M._dt(cfg))
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), device=cuda)
+    with torch.inference_mode():
+        before = fa.launches
+        got, _ = M.prefill(params, cfg, {"tokens": toks}, kernel=True)
+        assert fa.launches - before == cfg.n_layers
+        want, _ = M.prefill(params, cfg, {"tokens": toks}, kernel=False)
+        assert fa.launches - before == cfg.n_layers
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        err = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        assert err <= 2e-2, err

@@ -182,6 +182,8 @@ def test_papers100m_config_equal(smoke):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert t_base.get_config("gnn_papers100m") == t_base.get_config(
         "gnn-papers100m")
-    assert t_base.list_archs() == ("gnn-papers100m",)
+    assert t_base.list_archs() == ("gnn-papers100m", "gemma3-12b",
+                                   "gemma-7b", "granite-3-2b",
+                                   "stablelm-1.6b")
     with pytest.raises(KeyError):
         t_base.get_config("llama")

@@ -44,25 +44,41 @@ or of the reference package ``repro``.
    the plain forward (2e-2), the snapshot's argmax and a fresh rebuild.
 7. GCN phase (fused epilogue on the path): GCN in f32, hidden 256, at
    n = 65,536, checked against the plain forward at 1e-4.
-8. Flash-attention phase: the CUDA kernel against its plain version
-   (``flash_attention_ref``) at gemma3-12b's prefill shape (B = 2,
+8. Flash-attention phase: the two CUDA kernels against their plain
+   version (``flash_attention_ref``).  Every call goes to the kernel
+   ``kernel_route`` names, and the per-kernel launch counts must show
+   it: bf16 at D = 64, 128 and 256 on the tensor-core kernel
+   (``flash_attn_wgmma.cu``), f32 and D = 16 or 32 on the f32 kernel
+   (``flash_attn.cu``).  Cases: gemma3-12b's prefill shape (B = 2,
    S = 4096, Hq = 16, Hkv = 8, D = 256; window 0 and 1024; bf16 and
-   f32), at D = 64 and 128, at the reference test's shapes (B 2, Hq 4,
-   Hkv 2, D 32, S 64-256, window 64), at ragged S and at windows that
-   are not a multiple of the 64-key tile.  Tolerance: 2e-5 (f32) and
-   3e-2 (bf16), atol = rtol.  The main shapes are timed with CUDA
-   events beside the plain version, one ``scaled_dot_product_attention``
-   call (``is_causal``, or a boolean band mask for the window) and the
-   bound.
+   f32), D = 64 and 128, the reference test's shapes (B 2, Hq 4, Hkv 2,
+   D 32, S 64-256, window 64), ragged S (1, 63, 65, 127, 129, 333, 777,
+   1000), S = 16,384 at B = 1 (the ring wrapped 256 times), Hq = Hkv
+   and Hq/Hkv = 16, windows of 1, 100 and 1000 and one longer than S.
+   Tolerance: 2e-5 (f32) and 3e-2 (bf16), atol = rtol.  Every case of
+   the tensor-core kernel is also held, row by row, to the plain version
+   run in f32 on the same bf16 inputs: ||err|| / ||row|| at most 2^-7,
+   two bf16 roundings (``ref.row_rel_err``); at the main shapes, faults
+   planted in the output (the second half's rows off by 2 % and 10 %,
+   those rows skipping the first 64 keys they keep, the window's edge
+   one key out) must each break that limit.  Two calls of the
+   tensor-core kernel at the main shape must be bit-equal.  The
+   main shapes are timed with CUDA events beside the plain version,
+   one ``scaled_dot_product_attention`` call (``is_causal``, or a
+   boolean band mask for the window) and the bound; in bf16 the f32
+   kernel is timed on the same inputs as well.
 9. LM serving phase at full width: gemma3-12b (48 layers, d_model 3840,
    16/8 heads of 256, d_ff 15360, vocab 262,144, 5 local : 1 global),
    bf16 weights drawn on the card from a seeded generator, through the
    port's ``models.steps``: prefill of 2 x 4096 tokens, then 32 greedy
-   decode steps.  The flash kernel's launch count is reset just before
-   and read just after: one launch per layer of the prefill (48).  The
+   decode steps.  The flash kernels' launch counts are reset just
+   before and read just after: one launch of the tensor-core kernel per
+   layer of the prefill (48) and none of the f32 kernel.  The
    prefill's last logits with the kernel must match the plain path
    (the reference model's chunked attention) to a relative max error of
-   5e-2 in bf16 and, with the same model drawn in f32, 1e-3; every logit
+   5e-2 in bf16 and, with the same model drawn in f32 (whose prefill,
+   counted the same way, must launch the f32 kernel 48 times and the
+   tensor-core kernel never), 1e-3; every logit
    finite and every token within the vocab; 8 teacher-forced decode
    steps must match the forward over the extended sequence to a relative
    max error of 5e-2.  One prefill and one decode step are traced with
@@ -99,6 +115,8 @@ from repro_torch.data.synth import make_preset  # noqa: E402
 from repro_torch.kernels.build import build_all  # noqa: E402
 from repro_torch.kernels.flash_attn import build as fa_build  # noqa: E402
 from repro_torch.kernels.flash_attn import ops as fa  # noqa: E402
+from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
+    BF16_ROW_TOL, row_rel_err)
 from repro_torch.kernels.neighbor_agg import build as na_build  # noqa: E402
 from repro_torch.kernels.neighbor_agg import ops  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -115,6 +133,7 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 GTOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 TRAIN_LR = 0.3                 # the reference TrainPlan's default
 CSRC = "src/repro_torch/kernels/neighbor_agg/csrc/"
+FA_CSRC = "src/repro_torch/kernels/flash_attn/csrc/"
 REF_AGG = "src/repro/kernels/neighbor_agg/"
 # flash attention: the tolerances of tests/test_flash_attn.py
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
@@ -151,6 +170,8 @@ class Sizes:
     fa_shape: tuple = (2, 4096, 16, 8, 256)
     fa_windows: tuple = (0, 1024)
     fa_iters: int = 10
+    # the long case that wraps the tensor-core kernel's ring (B, S, Hq, Hkv, D)
+    fa_long: tuple = (1, 16384, 2, 1, 256)
     # LM serving: gemma3-12b full config (smoke config when lm_smoke)
     lm_smoke: bool = False
     lm_b: int = 2
@@ -163,7 +184,8 @@ FULL = Sizes()
 TINY = Sizes(agg_n=600, agg_b=300, n_serve=3_000, chunk=700,
              n_gcn=1_000, queries=24, updates=8, iters=2, path_iters=1,
              full_steps=3, mb_steps=4, mb_b=64, fa_shape=(1, 192, 4, 2, 64),
-             fa_windows=(0, 64), fa_iters=2, lm_smoke=True, lm_s=128,
+             fa_windows=(0, 64), fa_iters=2, fa_long=(1, 640, 2, 1, 64),
+             lm_smoke=True, lm_s=128,
              lm_gen=4, lm_tf=3)
 
 
@@ -871,6 +893,17 @@ def flash_bound(b, s, hq, hkv, d, window, dtype) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
+def _plain_keep(q, k, v, keep):
+    """The plain version's attention with any mask: ``keep[s, t]`` says
+    query s attends to key t ([B, S, H, D], GQA repeated)."""
+    g = q.shape[2] // k.shape[2]
+    k, v = (x.repeat_interleave(g, dim=2) for x in (k, v))
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() \
+        / q.shape[-1] ** 0.5
+    p = torch.softmax(scores.masked_fill(~keep, -1e30), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
 def _sdpa(q, k, v, window):
     """One PyTorch call for the same function (a yardstick the port never
     calls): is_causal, or a boolean band mask for a window."""
@@ -898,38 +931,134 @@ def flash_phase(dev, sz: Sizes) -> dict:
     plain = lambda q, k, v, w: fa.flash_attention(  # noqa: E731
         q, k, v, window=w, use_kernel=False)
 
+    def simt(q, k, v, w):
+        """The f32-FMA kernel on inputs the router sends elsewhere, to
+        time the two kernels on the same inputs (the plain version on the
+        CPU, as the wrapper would take)."""
+        if dev.type != "cuda":
+            return kern(q, k, v, w)
+        return fa._launch(q, k, v, w, "simt")
+
     def qkv(b, s, hq, hkv, d, dtype):
         return [torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
                 for h in (hq, hkv, hkv)]
 
-    def one(name, b, s, hq, hkv, d, w, dtype):
+    def one(name, b, s, hq, hkv, d, w, dtype, faults=False):
+        """One case: the routed kernel against the plain version at
+        FA_TOL and, on the tensor-core kernel, row by row against the
+        plain version in f32 (and, with ``faults``, the planted faults
+        against the same limit).  Returns the inputs, the output, the
+        max abs error, the largest row error (None off that kernel) and
+        the planted faults' readings."""
         q, k, v = qkv(b, s, hq, hkv, d, dtype)
         want = plain(q, k, v, w)
-        err = compare(name, dtype, kern(q, k, v, w), want, FA_TOL[dtype])
+        route = fa.kernel_route(dtype, d)
+        counts = fa.launch_counts()
+        out = kern(q, k, v, w)
+        launched = 1 if dev.type == "cuda" else 0   # CPU: the plain version
+        check(fa.launch_counts() == dict(counts, **{route: counts[route]
+                                                    + launched}),
+              f"{name}: not one launch of the {route} kernel "
+              f"({counts} -> {fa.launch_counts()})")
+        err = compare(name, dtype, out, want, FA_TOL[dtype])
+        row_err, planted = None, None
+        if route == "wgmma":
+            q32, k32, v32 = (x.float() for x in (q, k, v))
+            ref32 = plain(q32, k32, v32, w)
+            row_err = row_rel_err(out, ref32)
+            # on the CPU ``out`` is the plain version, whose scores are
+            # rounded to bf16: the limit is the kernel's alone
+            check(not launched or row_err <= BF16_ROW_TOL,
+                  f"{name}: row error {row_err} beyond {BF16_ROW_TOL}")
+            if faults:
+                planted = planted_faults(name, (q32, k32, v32), w, out,
+                                         ref32, want)
+            del q32, k32, v32, ref32
         del want
-        return (q, k, v), err
+        return (q, k, v), out, err, row_err, planted
+
+    def planted_faults(name, qkv32, w, out, ref32, want):
+        """Outputs a faulty kernel could give, each of which the row
+        check must reject: the second half's rows mis-normalised by 2 %
+        and 10 %, those rows skipping the first 64 keys they keep, and
+        with a window its edge one key out.  Returns each fault's row
+        error and whether the FA_TOL check would have passed it."""
+        s = out.shape[1]
+        bad = {}
+        for f in (1.02, 1.1):
+            x = out.clone()
+            x[:, s // 2:] = (x[:, s // 2:].float() * f).to(out.dtype)
+            bad[f"late rows x{f}"] = x
+        pos = torch.arange(s, device=dev)
+        row, key = pos[:, None], pos[None, :]
+        lo = (row - w + 1).clamp_min(0) if w else torch.zeros_like(row)
+        keep = (key <= row) & (key >= lo) & ~(
+            (row >= s // 2) & (key < lo + 64))
+        bad["late rows skip their first 64 keys"] = _plain_keep(
+            *qkv32, keep).to(out.dtype)
+        if w:
+            bad["window edge one key out"] = plain(*qkv32, w + 1).to(
+                out.dtype)
+        readings = {}
+        for fault, x in bad.items():
+            r = row_rel_err(x, ref32)
+            check(r > BF16_ROW_TOL, f"{name}: the row check passes the "
+                  f"planted fault '{fault}' ({r} <= {BF16_ROW_TOL})")
+            readings[fault] = {
+                "row_rel_err": r,
+                "passes_fa_tol": bool(torch.allclose(
+                    x.float(), want.float(), atol=FA_TOL[out.dtype],
+                    rtol=FA_TOL[out.dtype]))}
+        return readings
 
     measured = {}
+    row_errs = []            # every case of the tensor-core kernel
     b, s, hq, hkv, d = sz.fa_shape
     for dtype in (torch.bfloat16, torch.float32):
         for w in sz.fa_windows:
             name = (f"flash {str(dtype)[6:]} B={b} S={s} Hq={hq} Hkv={hkv} "
                     f"D={d} window={w}")
-            (q, k, v), err = one(name, b, s, hq, hkv, d, w, dtype)
+            (q, k, v), out, err, row_err, planted = one(
+                name, b, s, hq, hkv, d, w, dtype, faults=True)
+            route = fa.kernel_route(dtype, d)
+            if route == "wgmma":
+                row_errs.append(row_err)
+                print(f"{name}: row error {row_err:.6g} (limit "
+                      f"{BF16_ROW_TOL}); planted faults: "
+                      f"{json.dumps(planted)}", flush=True)
+            simt_err = None
+            if route == "wgmma":
+                check(torch.equal(out, kern(q, k, v, w)),
+                      f"{name}: two calls of the kernel differ")
+                simt_err = compare(f"{name} (f32 kernel)", dtype,
+                                   simt(q, k, v, w), plain(q, k, v, w),
+                                   FA_TOL[dtype])
+            del out
+            b_ms, b_by, nbytes, flops = flash_bound(b, s, hq, hkv, d, w,
+                                                    dtype)
+            # in bf16 the two kernels in turns on the same inputs
             k_ms = time_ms(lambda: kern(q, k, v, w), dev, sz.fa_iters)
+            simt_ms = None
+            if route == "wgmma":
+                simt_ms = time_ms(lambda: simt(q, k, v, w), dev, sz.fa_iters)
+                k_ms = (k_ms + time_ms(lambda: kern(q, k, v, w), dev,
+                                       sz.fa_iters)) / 2
             p_ms = time_ms(lambda: plain(q, k, v, w), dev,
                            max(sz.fa_iters // 2, 1), 1)
             lib = library_ms(_sdpa(q, k, v, w), dev, sz.fa_iters)
-            b_ms, b_by, nbytes, flops = flash_bound(b, s, hq, hkv, d, w,
-                                                    dtype)
             measured[(dtype, w)] = dict(
                 max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib)
-            print(f"{name}: max_err={err:.3g} kernel_ms={k_ms:.4f} "
-                  f"plain_ms={p_ms:.4f} library_ms={fmt(lib)} "
-                  f"(scaled_dot_product_attention) bound_ms={b_ms:.4f} "
-                  f"(bound by {b_by}: {nbytes} B = q + k + v + o at 3.35 "
-                  f"TB/s; {flops} flops at "
+                bound_by=b_by, library_ms=lib, simt_ms=simt_ms,
+                simt_max_abs_err=simt_err)
+            if route == "wgmma":
+                measured[(dtype, w)].update(row_rel_err=row_err,
+                                            planted_faults=planted)
+            print(f"{name}: {route} kernel max_err={err:.3g} "
+                  f"kernel_ms={k_ms:.4f} f32 kernel on the same inputs: "
+                  f"ms={fmt(simt_ms)} max_err={simt_err} plain_ms={p_ms:.4f} "
+                  f"library_ms={fmt(lib)} (scaled_dot_product_attention) "
+                  f"bound_ms={b_ms:.4f} (bound by {b_by}: {nbytes} B = q + "
+                  f"k + v + o at 3.35 TB/s; {flops} flops at "
                   f"{'989' if dtype == torch.bfloat16 else '67'} TFLOP/s) "
                   f"= {flops / k_ms / 1e9:.1f} TFLOP/s achieved", flush=True)
             del q, k, v
@@ -944,11 +1073,31 @@ def flash_phase(dev, sz: Sizes) -> dict:
               (3, 1, 4, 4, 64, 0, torch.float32),
               (1, 2048, 16, 8, 256, 1000, torch.bfloat16),
               (2, 777, 4, 1, 16, 100, torch.float32)]
+    # the tensor-core kernel's ring and masks: ragged S around its 64-key
+    # and 128-row tiles, a long S, MHA and 16 query heads a KV head,
+    # windows of 1, 100 and 1000 and one longer than S
+    bf = torch.bfloat16
+    cases += [(2, 1, 4, 2, 256, 0, bf), (2, 63, 4, 2, 256, 0, bf),
+              (2, 65, 4, 2, 128, 0, bf), (2, 127, 4, 2, 64, 0, bf),
+              (2, 129, 4, 2, 256, 64, bf), (*sz.fa_long, 0, bf),
+              (1, 1000, 8, 8, 256, 0, bf), (1, 1000, 16, 1, 256, 1024, bf),
+              (1, 1100, 4, 2, 256, 1, bf), (2, 700, 8, 4, 128, 100, bf),
+              (1, 1500, 8, 2, 64, 1000, bf), (1, 500, 4, 2, 256, 4096, bf)]
     for cb, cs, chq, chkv, cd, cw, dt in cases:
         name = (f"flash {str(dt)[6:]} B={cb} S={cs} Hq={chq} Hkv={chkv} "
                 f"D={cd} window={cw}")
-        _, err = one(name, cb, cs, chq, chkv, cd, cw, dt)
-        print(f"{name}: max_err={err:.3g}", flush=True)
+        _, _, err, row_err, _ = one(name, cb, cs, chq, chkv, cd, cw, dt)
+        rows = ""
+        if row_err is not None:
+            row_errs.append(row_err)
+            rows = f" row error {row_err:.6g}"
+        print(f"{name}: {fa.kernel_route(dt, cd)} kernel max_err={err:.3g}"
+              f"{rows}", flush=True)
+    measured["wgmma_rows"] = {"row_rel_err_max": max(row_errs),
+                              "limit": BF16_ROW_TOL, "cases": len(row_errs)}
+    print(f"flash: tensor-core kernel's largest row error "
+          f"{max(row_errs):.6g} over {len(row_errs)} cases, limit "
+          f"{BF16_ROW_TOL} (against the plain version in f32)", flush=True)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
@@ -986,7 +1135,7 @@ def profile_device(dev, fn) -> dict:
         print(f"profiler trace failed ({e}): not measured", flush=True)
         return {}
     total = sum(_device_us(e) for e in evs)
-    flash = sum(_device_us(e) for e in evs if "flash_attn_kernel" in e.key)
+    flash = sum(_device_us(e) for e in evs if "flash_attn" in e.key)
     top = sorted(evs, key=_device_us, reverse=True)[:6]
     return {"wall_ms": 1e3 * wall, "device_ms": total / 1e3,
             "flash_ms": flash / 1e3,
@@ -1001,7 +1150,7 @@ def _print_profile(what, prof) -> None:
     print(f"lm: profiled {what}: wall {prof['wall_ms']:.2f} ms (traced), "
           f"device time {prof['device_ms']:.2f} ms "
           f"({prof['device_ms'] / prof['wall_ms']:.3f} of the wall), "
-          f"flash kernel {prof['flash_ms']:.2f} ms "
+          f"flash kernels {prof['flash_ms']:.2f} ms "
           f"({prof['flash_ms'] / prof['device_ms']:.3f} of device time); "
           f"largest kernels (name, ms, calls): {prof['top']}", flush=True)
 
@@ -1050,6 +1199,7 @@ def lm_phase(dev, sz: Sizes) -> dict:
         sync()
         prefill_s = time.perf_counter() - t0
         prefill_launches = fa.launches
+        prefill_counts = fa.launch_counts()
         tok = last.argmax(-1, keepdim=True)
         gen_toks, finite = [], torch.isfinite(last).all()
         t0 = time.perf_counter()
@@ -1061,6 +1211,7 @@ def lm_phase(dev, sz: Sizes) -> dict:
         sync()
         decode_s = time.perf_counter() - t0
         launches = fa.launches
+        counts = fa.launch_counts()
         # ---- end of the main path
         gen_toks = torch.cat(gen_toks, 1)
         del cache
@@ -1069,14 +1220,18 @@ def lm_phase(dev, sz: Sizes) -> dict:
               f"{ngen} greedy decode steps in {decode_s:.3f} s "
               f"({1e3 * decode_s / ngen:.2f} ms/step, "
               f"{b * ngen / decode_s:.1f} tokens/s); flash launches: "
-              f"prefill {prefill_launches}, main path {launches}",
-              flush=True)
+              f"prefill {prefill_launches} {prefill_counts}, main path "
+              f"{launches} {counts}", flush=True)
         if dev.type == "cuda":
+            route = fa.kernel_route(M._dt(cfg), cfg.resolved_head_dim)
+            want_counts = {r: cfg.n_layers if r == route else 0
+                           for r in fa.ROUTES}
             check(prefill_launches == cfg.n_layers and
-                  launches == cfg.n_layers,
-                  f"prefill launched the flash kernel {prefill_launches} "
-                  f"times (main path {launches}), not once per layer "
-                  f"({cfg.n_layers})")
+                  launches == cfg.n_layers and prefill_counts == want_counts
+                  and counts == want_counts,
+                  f"prefill launched the flash kernels {prefill_counts} "
+                  f"(main path {counts}), not the {route} kernel once per "
+                  f"layer ({cfg.n_layers}) and no other")
         check(bool(finite), "a prefill or decode logit is not finite")
         check(bool(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all()),
               "a generated token is outside the vocab")
@@ -1116,7 +1271,7 @@ def lm_phase(dev, sz: Sizes) -> dict:
         check(max(errs) <= LM_DECODE_TOL,
               f"teacher-forced decode rel err {max(errs)} beyond "
               f"{LM_DECODE_TOL}")
-        out = dict(launches=launches, prefill_s=prefill_s,
+        out = dict(launches=launches, counts=counts, prefill_s=prefill_s,
                    prefill2_s=prefill2_s, decode_ms=1e3 * decode_s / ngen)
         if dev.type == "cuda":
             _print_profile("prefill", profile_device(
@@ -1128,15 +1283,31 @@ def lm_phase(dev, sz: Sizes) -> dict:
     del params
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    if M._dt(cfg) != torch.float32:
+    if M._dt(cfg) == torch.float32:           # the main path was f32 already
+        out["counts_f32"] = counts
+    else:
         # the same comparison with the model drawn in f32, where neither
         # path rounds to bf16
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         params = M.init_model(torch.Generator(device=dev).manual_seed(0),
                               cfg32, dev, dtype=torch.float32)
         with torch.inference_mode():
-            got, _ = M.prefill(params, cfg32, prompt)
+            # ---- the f32 model's prefill, between a reset and a read
+            fa.reset_launches()
+            got, _ = steps.make_prefill_step(cfg32)(params, prompt)
+            sync()
+            out["counts_f32"] = fa.launch_counts()
+            # ---- end of the f32 model's prefill
             want, _ = M.prefill(params, cfg32, prompt, kernel=False)
+        print(f"lm: f32 model prefill flash launches {out['counts_f32']}",
+              flush=True)
+        if dev.type == "cuda":
+            route = fa.kernel_route(torch.float32, cfg.resolved_head_dim)
+            check(out["counts_f32"] == {r: cfg.n_layers if r == route else 0
+                                        for r in fa.ROUTES},
+                  f"f32 prefill launched the flash kernels "
+                  f"{out['counts_f32']}, not the {route} kernel once per "
+                  f"layer")
         check_plain(cfg32, got, want, "f32 model")
         del params, got, want
         if dev.type == "cuda":
@@ -1184,6 +1355,7 @@ def run(dev: torch.device, sz: Sizes) -> dict:
     lm = lm_phase(dev, sz)
     d = max(sz.agg_d)
     b, s, hq, hkv, hd = sz.fa_shape
+    w1 = sz.fa_windows[1]
     cell = f"B={sz.agg_b} K={sz.agg_k} D={d} N={sz.agg_n}"
     kernels = [
         {"name": "neighbor_agg_tiled", "route": "cuda",
@@ -1216,17 +1388,48 @@ def run(dev: torch.device, sz: Sizes) -> dict:
                                       "through neighbor_agg(kernel='row')"},
          **row[(torch.bfloat16, d)],
          "shape": f"bf16, {cell}"},
-        {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
+        {"name": "flash_attention_wgmma", "route": "cuda",
+         "source": FA_CSRC + "flash_attn_wgmma.cu",
          "replaces": "src/repro/kernels/flash_attn/flash_attn.py:78",
-         "launches": lm["launches"],
-         "launches_by_path": {"lm_serve": lm["launches"]},
-         **flash[(torch.bfloat16, 0)],
+         "launches": lm["counts"]["wgmma"],
+         "launches_by_path": {
+             "lm_serve_bf16": lm["counts"]["wgmma"],
+             "lm_prefill_f32_model": lm["counts_f32"]["wgmma"]},
+         **_own(flash[(torch.bfloat16, 0)]),
          "shape": f"bf16, B={b} S={s} Hq={hq} Hkv={hkv} D={hd}, window 0",
-         f"window_{sz.fa_windows[1]}": flash[(torch.bfloat16,
-                                              sz.fa_windows[1])]},
+         f"window_{w1}": _own(flash[(torch.bfloat16, w1)]),
+         "row_check": flash["wgmma_rows"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": FA_CSRC + "flash_attn.cu",
+         "replaces": "src/repro/kernels/flash_attn/flash_attn.py:78",
+         "launches": lm["counts_f32"]["simt"],
+         "launches_by_path": {
+             "lm_serve_bf16": lm["counts"]["simt"],
+             "lm_prefill_f32_model": lm["counts_f32"]["simt"],
+             "note": "serves f32 and D = 16 or 32 only; launches are the "
+                     "f32 model's prefill, the bf16 main path runs none"},
+         **_simt_on_bf16(flash[(torch.bfloat16, 0)]),
+         "shape": f"bf16, B={b} S={s} Hq={hq} Hkv={hkv} D={hd}, window 0 "
+                  f"(the same inputs as flash_attention_wgmma)",
+         f"window_{w1}": _simt_on_bf16(flash[(torch.bfloat16, w1)]),
+         "f32_window_0": _own(flash[(torch.float32, 0)]),
+         f"f32_window_{w1}": _own(flash[(torch.float32, w1)])},
     ]
     return {"kernels": kernels}
+
+
+def _own(m: dict) -> dict:
+    """A measured main shape's numbers for the kernel that served it."""
+    return {k: v for k, v in m.items() if not k.startswith("simt_")}
+
+
+def _simt_on_bf16(m: dict) -> dict:
+    """The f32 kernel's numbers on the bf16 inputs of a measured main
+    shape: its own time and error; the plain, bound and library times are
+    those of the same inputs."""
+    own = {k: v for k, v in _own(m).items()
+           if k not in ("row_rel_err", "planted_faults")}
+    return dict(own, ms=m["simt_ms"], max_abs_err=m["simt_max_abs_err"])
 
 
 def main() -> int:

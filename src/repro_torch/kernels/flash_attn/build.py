@@ -1,5 +1,6 @@
-"""The flash-attention CUDA library (``csrc/flash_attn.cu``), built and
-loaded by the shared builder ``repro_torch.kernels.build``."""
+"""The flash-attention CUDA library (``csrc/flash_attn.cu`` and
+``csrc/flash_attn_wgmma.cu``), built and loaded by the shared builder
+``repro_torch.kernels.build``."""
 from __future__ import annotations
 
 import ctypes
@@ -11,6 +12,11 @@ from repro_torch.kernels.build import Library
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.flash_attn_forward
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4     # dtype, q, k, v, o
+                   + [ctypes.c_int] * 6                       # b s hq hkv d window
+                   + [ctypes.c_float, ctypes.c_void_p])       # scale, stream
+    fn.restype = ctypes.c_int
+    fn = lib.flash_attn_wgmma_forward
+    fn.argtypes = ([ctypes.c_void_p] * 4                      # q, k, v, o
                    + [ctypes.c_int] * 6                       # b s hq hkv d window
                    + [ctypes.c_float, ctypes.c_void_p])       # scale, stream
     fn.restype = ctypes.c_int

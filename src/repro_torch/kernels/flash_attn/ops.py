@@ -6,16 +6,26 @@
 
 * ``use_kernel=False`` — the plain version (``ref.flash_attention_ref``)
   after the reference's GQA repeat and ``[B,S,H,D] -> [B,H,S,D]`` move.
-* ``use_kernel=True`` — on a CUDA tensor, the hand-written CUDA kernel
-  (``csrc/flash_attn.cu``), which reads the ``[B,S,H,D]`` tensors in
-  place and query head h's KV head h // (Hq/Hkv) directly; it launches
-  or raises, never a quiet fallback.  On a CPU tensor, the plain
-  version, because the tensor lies on the CPU.
+* ``use_kernel=True`` — on a CUDA tensor, a hand-written CUDA kernel,
+  which reads the ``[B,S,H,D]`` tensors in place and query head h's KV
+  head h // (Hq/Hkv) directly; it launches or raises, never a quiet
+  fallback.  On a CPU tensor, the plain version, because the tensor
+  lies on the CPU.
+
+Two kernels compute the function; ``kernel_route(dtype, head_dim)``
+picks one, by those two alone:
+
+* ``"wgmma"`` (``csrc/flash_attn_wgmma.cu``) for bf16 at head dims 64,
+  128 and 256: both products on the tensor cores, K/V tiles by TMA in a
+  ring of shared memory;
+* ``"simt"`` (``csrc/flash_attn.cu``) for f32, and for bf16 at head
+  dims 16 and 32: f32 FMAs on the CUDA cores.
 
 The reference's ``q_block``/``k_block``/``interpret`` are the TPU
-kernel's tiling and have no meaning here; the CUDA kernel tiles by
-itself and takes any S.  ``launches`` counts the kernel's launches and
-changes only where it launches.
+kernel's tiling and have no meaning here; the CUDA kernels tile by
+themselves and take any S.  ``launches`` counts the launches of both
+kernels, ``launch_counts()`` each one's; both change only where a
+kernel launches.
 """
 from __future__ import annotations
 
@@ -26,26 +36,55 @@ import torch
 
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 
-#: launches of the flash-attention kernel
+#: launches of the flash-attention kernels, both routes together
 launches = 0
+_counts = {"wgmma": 0, "simt": 0}
 _count_lock = threading.Lock()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the kernel is compiled for
+#: head dims the kernels are compiled for
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: head dims of the tensor-core kernel (bf16 only)
+WGMMA_HEAD_DIMS = (64, 128, 256)
+ROUTES = tuple(_counts)
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The CUDA kernel that serves inputs of ``dtype`` and ``head_dim``:
+    ``"wgmma"`` for bf16 at head dims 64, 128 and 256, ``"simt"`` for
+    the rest of what the kernels take.  Raises ``ValueError`` for a
+    dtype or head dim that neither kernel takes."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"flash_attention kernel: dtype must be float32 or "
+                         f"bfloat16, got {dtype}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel: head dim must be one of "
+                         f"{HEAD_DIMS}, got {head_dim}")
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
+
+
+def launch_counts() -> dict:
+    """Launches of each kernel since the last reset, by route."""
+    with _count_lock:
+        return dict(_counts)
 
 
 def reset_launches() -> None:
-    """Set the launch counter to 0."""
+    """Set the launch counters to 0."""
     global launches
     with _count_lock:
         launches = 0
+        for r in _counts:
+            _counts[r] = 0
 
 
-def _count() -> None:
+def _count(route: str) -> None:
     global launches
     with _count_lock:
         launches += 1
+        _counts[route] += 1
 
 
 def _check_shapes(q, k, v, window) -> None:
@@ -65,14 +104,14 @@ def _check_shapes(q, k, v, window) -> None:
     req(window >= 0, f"window must be >= 0, got {window}")
 
 
-def _check_kernel_args(q, k, v) -> None:
-    """Raise on anything the kernel does not take (checked on every
-    device, so the CPU tests hold the same contract as the card)."""
+def _check_kernel_args(q, k, v) -> str:
+    """Raise on anything the kernels do not take (checked on every
+    device, so the CPU tests hold the same contract as the card); returns
+    ``kernel_route``'s choice."""
     def req(cond, msg):
         if not cond:
             raise ValueError(f"flash_attention kernel: {msg}")
-    req(q.dtype in _DTYPE_CODE,
-        f"dtype must be float32 or bfloat16, got {q.dtype}")
+    route = kernel_route(q.dtype, q.shape[3])
     req(k.dtype == q.dtype and v.dtype == q.dtype,
         f"q, k, v must share a dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     req(q.device == k.device == v.device,
@@ -82,14 +121,13 @@ def _check_kernel_args(q, k, v) -> None:
     req(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
         "operands must start on a 16-byte boundary (the kernel loads "
         "16 bytes at a time)")
-    req(q.shape[3] in HEAD_DIMS,
-        f"head dim must be one of {HEAD_DIMS}, got {q.shape[3]}")
     req(q.shape[0] <= 65535 and q.shape[1] <= 65535 * 64,
         f"batch must be <= 65535 and S <= {65535 * 64}, got "
         f"{tuple(q.shape)}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention kernel: unsupported device "
                          f"{q.device}")
+    return route
 
 
 def _plain(q, k, v, window):
@@ -104,7 +142,10 @@ def _plain(q, k, v, window):
     return out.movedim(1, 2)
 
 
-def _launch(q, k, v, window):
+def _launch(q, k, v, window, route):
+    """Launch the kernel ``route`` names on CUDA tensors the checks have
+    passed (``chip_smoke.py`` also calls it with ``"simt"`` on bf16
+    inputs, to time the two kernels on the same inputs)."""
     from repro_torch.kernels.flash_attn.build import load_library
     b, s, hq, d = q.shape
     hkv = k.shape[2]
@@ -112,17 +153,22 @@ def _launch(q, k, v, window):
     if b == 0 or s == 0 or hq == 0:           # nothing to compute
         return out
     lib = load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):         # launch on the tensors' card
-        err = lib.flash_attn_forward(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, s, hq, hkv, d, window,
-            1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+        if route == "wgmma":
+            err = lib.flash_attn_wgmma_forward(
+                *ptrs, b, s, hq, hkv, d, window, 1.0 / math.sqrt(d), stream)
+        else:
+            err = lib.flash_attn_forward(
+                _DTYPE_CODE[q.dtype], *ptrs, b, s, hq, hkv, d, window,
+                1.0 / math.sqrt(d), stream)
     if err != 0:
         raise RuntimeError(
-            f"flash_attention CUDA kernel launch failed with error {err} "
-            f"(B={b}, S={s}, Hq={hq}, Hkv={hkv}, D={d}, window={window}, "
-            f"dtype={q.dtype})")
-    _count()
+            f"flash_attention CUDA kernel ({route}) launch failed with error "
+            f"{err} (B={b}, S={s}, Hq={hq}, Hkv={hkv}, D={d}, "
+            f"window={window}, dtype={q.dtype})")
+    _count(route)
     return out
 
 
@@ -133,7 +179,7 @@ def flash_attention(q, k, v, *, window: int = 0, use_kernel: bool = False):
     _check_shapes(q, k, v, window)
     if not use_kernel:
         return _plain(q, k, v, window)
-    _check_kernel_args(q, k, v)
+    route = _check_kernel_args(q, k, v)
     if q.device.type == "cpu":
         return _plain(q, k, v, window)
-    return _launch(q, k, v, window)
+    return _launch(q, k, v, window, route)

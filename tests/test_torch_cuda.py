@@ -11,9 +11,15 @@ match the plain path.  Forward tolerances: 1e-5 (f32), 2e-2 (bf16).
 Backward: 1e-3 (f32; dfeats sums with atomics in an order that changes
 from run to run), 2e-2 (bf16).
 
-The CUDA flash-attention kernel against its plain version (2e-5 f32,
-3e-2 bf16, the tolerances of tests/test_flash_attn.py), its argument
-checks, and a small-config prefill that launches it once per layer."""
+The CUDA flash-attention kernels against their plain version (2e-5 f32,
+3e-2 bf16, the tolerances of tests/test_flash_attn.py; the tensor-core
+kernel also row by row against the plain version in f32, at most 2^-7 of
+each row, ``ref.row_rel_err``): every input goes
+to the kernel ``kernel_route`` names (the tensor-core kernel for bf16 at
+head dims 64-256, the f32 kernel for the rest), with cases that wrap the
+tensor-core kernel's ring and cross its masks, two calls bit-equal, the
+argument checks, and a small-config prefill that launches the routed
+kernel once per layer."""
 import dataclasses
 
 import numpy as np
@@ -235,13 +241,81 @@ def test_flash_kernel_matches_plain_version(cuda, s, window, d, dtype, tol):
     multiple of the 64-key tile, GQA 4/2."""
     from repro_torch.kernels.flash_attn import ops as fa
     q, k, v = _qkv(s + d + window, 2, s, 4, 2, d, dtype, cuda)
-    before = fa.launches
+    before, counts = fa.launches, fa.launch_counts()
     out = fa.flash_attention(q, k, v, window=window, use_kernel=True)
     assert fa.launches == before + 1
+    route = fa.kernel_route(dtype, d)
+    assert fa.launch_counts()[route] == counts[route] + 1
     want = fa.flash_attention(q, k, v, window=window, use_kernel=False)
     assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out.float(), want.float(), atol=tol,
                                rtol=tol)
+    if route == "wgmma":
+        _assert_rows_within_bf16_rounding(out, q, k, v, window)
+
+
+def _assert_rows_within_bf16_rounding(out, q, k, v, window):
+    """The tensor-core kernel against the plain version in f32 on the
+    same bf16 inputs, row by row: two bf16 roundings at most."""
+    from repro_torch.kernels.flash_attn import ops as fa
+    from repro_torch.kernels.flash_attn.ref import BF16_ROW_TOL, row_rel_err
+    ref32 = fa.flash_attention(q.float(), k.float(), v.float(),
+                               window=window, use_kernel=False)
+    err = row_rel_err(out, ref32)
+    assert err <= BF16_ROW_TOL, err
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,window", [
+    # ragged S around the 64-key tile and the 128-row query tile
+    (2, 1, 4, 2, 256, 0), (2, 63, 4, 2, 256, 0), (2, 65, 4, 2, 128, 0),
+    (2, 127, 4, 2, 64, 0), (1, 129, 4, 2, 256, 0), (1, 129, 4, 2, 64, 100),
+    # the ring wrapped many times (64 key tiles for the last query tile)
+    (1, 4096, 2, 1, 256, 0), (1, 4096, 2, 1, 128, 1000),
+    # MHA, and 16 query heads on one KV head
+    (1, 300, 4, 4, 256, 0), (1, 300, 16, 1, 128, 64),
+    # windows of 1, not a multiple of the tile, and longer than S
+    (1, 700, 4, 2, 256, 1), (2, 333, 4, 2, 64, 1), (1, 700, 4, 2, 128, 100),
+    (1, 1500, 4, 2, 256, 1000), (1, 200, 4, 2, 256, 5000),
+])
+def test_flash_wgmma_kernel_ring_and_masks(cuda, b, s, hq, hkv, d, window):
+    """bf16 at head dims 64-256 runs on the tensor-core kernel and matches
+    the plain version at 3e-2, and the plain version in f32 to 2^-7 of
+    each row."""
+    from repro_torch.kernels.flash_attn import ops as fa
+    q, k, v = _qkv(s + hq + d + window, b, s, hq, hkv, d, torch.bfloat16,
+                   cuda)
+    counts = fa.launch_counts()
+    out = fa.flash_attention(q, k, v, window=window, use_kernel=True)
+    assert fa.launch_counts() == dict(counts, wgmma=counts["wgmma"] + 1)
+    want = fa.flash_attention(q, k, v, window=window, use_kernel=False)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want.float(), atol=3e-2,
+                               rtol=3e-2)
+    _assert_rows_within_bf16_rounding(out, q, k, v, window)
+
+
+@pytest.mark.parametrize("window", [0, 1000])
+def test_flash_wgmma_kernel_is_deterministic(cuda, window):
+    from repro_torch.kernels.flash_attn import ops as fa
+    q, k, v = _qkv(7, 2, 2048, 8, 4, 256, torch.bfloat16, cuda)
+    a = fa.flash_attention(q, k, v, window=window, use_kernel=True)
+    b = fa.flash_attention(q, k, v, window=window, use_kernel=True)
+    assert torch.equal(a, b)
+
+
+def test_flash_kernels_agree_on_bf16(cuda):
+    """The two kernels on the same bf16 inputs (the f32 kernel launched
+    directly, as chip_smoke.py times it), each against the plain
+    version."""
+    from repro_torch.kernels.flash_attn import ops as fa
+    q, k, v = _qkv(9, 2, 700, 8, 4, 256, torch.bfloat16, cuda)
+    want = fa.flash_attention(q, k, v, window=300, use_kernel=False)
+    counts = fa.launch_counts()
+    for kern in fa.ROUTES:
+        out = fa._launch(q, k, v, 300, kern)
+        torch.testing.assert_close(out.float(), want.float(), atol=3e-2,
+                                   rtol=3e-2)
+    assert fa.launch_counts() == {r: n + 1 for r, n in counts.items()}
 
 
 def test_flash_kernel_rejects_bad_inputs(cuda):
@@ -277,10 +351,12 @@ def test_prefill_launches_flash_once_per_layer(cuda, dtype):
     params = M.init_model(torch.Generator(device=cuda).manual_seed(0), cfg,
                           cuda, dtype=M._dt(cfg))
     toks = torch.randint(0, cfg.vocab_size, (2, 128), device=cuda)
+    route = fa.kernel_route(M._dt(cfg), cfg.resolved_head_dim)
     with torch.inference_mode():
-        before = fa.launches
+        before, counts = fa.launches, fa.launch_counts()
         got, _ = M.prefill(params, cfg, {"tokens": toks}, kernel=True)
         assert fa.launches - before == cfg.n_layers
+        assert fa.launch_counts()[route] - counts[route] == cfg.n_layers
         want, _ = M.prefill(params, cfg, {"tokens": toks}, kernel=False)
         assert fa.launches - before == cfg.n_layers
     if dtype == "float32":
@@ -289,3 +365,27 @@ def test_prefill_launches_flash_once_per_layer(cuda, dtype):
         err = float((got.float() - want.float()).abs().max()
                     / want.float().abs().max())
         assert err <= 2e-2, err
+
+
+def test_prefill_launches_wgmma_kernel_once_per_layer(cuda):
+    """The small config at head dim 64 in bf16: every layer's prefill
+    attention runs on the tensor-core kernel and none on the f32 one;
+    relative max error against the plain path 2e-2."""
+    import dataclasses as dc
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attn import ops as fa
+    from repro_torch.models import model as M
+    cfg = dc.replace(get_config("gemma3-12b", smoke=True), dtype="bfloat16",
+                     head_dim=64)
+    params = M.init_model(torch.Generator(device=cuda).manual_seed(0), cfg,
+                          cuda, dtype=M._dt(cfg))
+    toks = torch.randint(0, cfg.vocab_size, (2, 192), device=cuda)
+    with torch.inference_mode():
+        counts = fa.launch_counts()
+        got, _ = M.prefill(params, cfg, {"tokens": toks}, kernel=True)
+        assert fa.launch_counts() == dict(
+            counts, wgmma=counts["wgmma"] + cfg.n_layers)
+        want, _ = M.prefill(params, cfg, {"tokens": toks}, kernel=False)
+    err = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    assert err <= 2e-2, err

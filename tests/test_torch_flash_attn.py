@@ -1,6 +1,7 @@
 """The port's flash attention against the live reference: the grid of
 tests/test_flash_attn.py (plus a window that is not a multiple of the
-tile, and MHA beside its GQA 4/2), run through the reference wrapper's
+tile, MHA beside its GQA 4/2, and every head dim the port's kernels
+take from 32 up), run through the reference wrapper's
 Pallas kernel in interpret mode and its oracle, and through the port's
 ``flash_attention`` (on these CPU tensors the kernel path takes the
 plain version) and its ``ref.py``.  Tolerances: 2e-5 (f32) and 3e-2
@@ -36,19 +37,28 @@ def _close(a, b, tol):
                                np.asarray(b, np.float32), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("s,qb,kb,window,hq,hkv", [
+SHAPES = [
     (128, 32, 32, 0, 4, 2),
     (128, 32, 64, 0, 4, 2),
     (256, 64, 64, 64, 4, 2),     # sliding-window banding
     (64, 64, 64, 0, 4, 2),       # single block
     (192, 64, 64, 100, 4, 2),    # window not a multiple of the tile
     (128, 32, 32, 48, 4, 4),     # MHA
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,qb,kb,window,hq,hkv,d", [
+    # head dim 32 (the reference test's), then those of the port's
+    # tensor-core kernel, with 16 query heads a KV head at 256
+    *(pytest.param(*x, 32, id="-".join(map(str, x))) for x in SHAPES),
+    *((*x, d) for d in (64, 128, 256) for x in SHAPES),
+    (128, 64, 64, 0, 16, 1, 256),
 ])
 def test_flash_matches_reference_kernel_and_oracle(s, qb, kb, window, hq,
-                                                   hkv, dtype, rng):
+                                                   hkv, dtype, d, rng):
     jdt, tdt, tol = DT[dtype]
-    q, k, v = _inputs(rng, 2, s, hq, hkv, 32)
+    q, k, v = _inputs(rng, 2, s, hq, hkv, d)
     jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
     ker = jax_flash(jq, jk, jv, window=window, use_kernel=True,
                     interpret=True, q_block=qb, k_block=kb)

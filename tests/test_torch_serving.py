@@ -304,7 +304,8 @@ def test_chip_smoke_rehearsal_on_cpu():
             "library_ms"}
     assert [k["name"] for k in result["kernels"]] == [
         "neighbor_agg_tiled", "neighbor_agg_tiled_fused",
-        "neighbor_agg_backward", "neighbor_agg_row", "flash_attention"]
+        "neighbor_agg_backward", "neighbor_agg_row", "flash_attention_wgmma",
+        "flash_attention"]
     for k in result["kernels"]:
         assert keys <= set(k) and k["route"] == "cuda"
         assert os.path.exists(k["source"])
@@ -312,5 +313,10 @@ def test_chip_smoke_rehearsal_on_cpu():
     # the gathers are bound by bytes; attention by bytes or operations
     # depending on S and D (operations at the full size)
     assert [k["bound_by"] for k in result["kernels"][:4]] == ["bytes"] * 4
-    assert result["kernels"][4]["bound_by"] in ("bytes", "operations")
-    assert result["kernels"][4]["launches_by_path"] == {"lm_serve": 0}
+    for k in result["kernels"][4:]:
+        assert k["bound_by"] in ("bytes", "operations")
+        assert k["launches"] == 0          # CPU: the plain version
+    assert result["kernels"][4]["launches_by_path"] == {
+        "lm_serve_bf16": 0, "lm_prefill_f32_model": 0}
+    rows = result["kernels"][4]["row_check"]
+    assert rows["cases"] > 0 and rows["limit"] == 2.0 ** -7

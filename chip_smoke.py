@@ -25,19 +25,46 @@ or of the reference package ``repro``.
    524,288-node graph (bf16, D = 172) and mini-batch layer 2 (identity
    ids, B = 8,192, K = 15, D = 256, f32, deterministic).  Tolerance:
    1e-3 (f32; atomics land in no fixed order) and 2e-2 (bf16).
+   The reverse-index backward kernel (``neighbor_agg_bwd_csr.cu``,
+   dfeats of the full-graph path) on the same inputs, against its plain
+   version (``neighbor_agg_backward_csr_ref``) run in f32, row by row
+   (``row_rel_err``): at most 1e-5 in f32 at the cell and ragged shapes
+   (K = 0, all-zero weights, an out-of-range id left out of the index,
+   rows with no edges, which must be exactly 0) and at most 2^-8 (one
+   bf16 rounding) in bf16, there and at the full-graph layer-2 shape,
+   with the mask weights and with random weights on the same edges;
+   the 2e-2 check against the atomic backward's plain version as well.
+   Planted faults at that shape (a dropped edge a row, a row's first
+   edge twice, every edge's b off by one, random weights in place of the
+   mask's) must each break the 2^-8 limit, and two calls must be
+   bit-equal.  The index build is timed once and its bytes stated.  The
+   tiled forward is timed at the full-graph shape (B = N = 524,288,
+   D = 128 and 172, bf16) as well.
    Every timed variant is timed with CUDA events beside its plain
    version, one PyTorch library call (``embedding_bag`` forward, or its
-   backward) and the bound.
+   backward) and the bound; at the full-graph shape the reverse-index
+   kernel beside the atomic one, both plain versions and
+   ``embedding_bag``'s backward.
 5. Training phase at full width: gnn-papers100m (GraphSAGE, feat 128,
    hidden 256, 172 classes, 2 layers, ELL K = 32, bf16 full-graph
    aggregation, kernels on) on a 524,288-node graph through the port's
    ``Trainer``: 5 full-graph GD steps and 20 mini-batch SGD steps at
-   b = 8192, fan-out (15, 10), prefetcher on.  The tiled-forward and
-   backward launch counts are reset just before and read just after;
-   both must be > 0.  Losses must be finite and the last full-graph loss
-   below the first; one step's parameter gradients with the kernels on
-   must match the plain path (relative max error 2e-2 for bf16
-   full-graph, 1e-4 for f32 mini-batch).
+   b = 8192, fan-out (15, 10), prefetcher on.  The launch counts are
+   reset just before and read after each paradigm: the full-graph steps
+   must launch the tiled forward and the reverse-index backward once a
+   step and the atomic backward never; the mini-batch steps the tiled
+   forward and the atomic backward, and the reverse-index kernel never.
+   Losses must be finite and the last full-graph loss below the first;
+   one step's parameter gradients with the kernels on must match the
+   plain path (relative max error 2e-2 for bf16 full-graph, 1e-4 for f32
+   mini-batch).  One full-graph step (forward, backward and update) is
+   timed with CUDA events with the reverse index and without it (the
+   atomic backward), in turns on the same parameters, and traced with
+   ``torch.profiler`` (device time by kernel).  The steady ms/step read
+   from ``History.times`` spans one step fewer than it divides by (with
+   the deferred sync each record is stamped when the next step has
+   ended; 3/4 of a step over 5 steps): it is printed as before, for
+   comparison with earlier runs.
 6. Full-width serving phase on the same graph: ``EmbeddingStore``
    build, 256 queries from 4 client threads through ``GNNServer``, two
    incremental ``update_features`` + ``refresh`` rounds, checked against
@@ -122,6 +149,7 @@ from repro_torch.kernels.neighbor_agg import ops  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import steps  # noqa: E402
 from repro_torch.kernels.neighbor_agg.ref import (  # noqa: E402
+    CSR_BF16_ROW_TOL, neighbor_agg_backward_csr_ref,
     neighbor_agg_backward_ref, neighbor_agg_ref)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
@@ -131,6 +159,10 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # gradients: dfeats sums with f32 atomics in no fixed order (f32); one
 # rounding of each cotangent to bf16 (bf16)
 GTOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+# the reverse-index backward, row by row against its plain version in
+# f32: f32 sums in another order (f32), one rounding to bf16 (bf16)
+CSR_ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: CSR_BF16_ROW_TOL}
+DFEATS = (True, False, False, False)     # what autograd asks on the paths
 TRAIN_LR = 0.3                 # the reference TrainPlan's default
 CSRC = "src/repro_torch/kernels/neighbor_agg/csrc/"
 FA_CSRC = "src/repro_torch/kernels/flash_attn/csrc/"
@@ -449,6 +481,164 @@ def row_phase(dev, sz: Sizes) -> dict:
     return measured
 
 
+def bound_bwd_csr(rev, d: int, el: int) -> tuple:
+    """The least time for one reverse-index backward call: g, the kept
+    edges' weights, indptr and edges read once, dfeats written once,
+    over the HBM rate, against its f32 multiply-adds (2 per kept edge
+    and column) over the f32 rate.  Returns (ms, "bytes" |
+    "operations", bytes)."""
+    nbytes = (rev.b * d * el + rev.nnz * el + (rev.n + 1) * 4
+              + rev.nnz * 4 + rev.n * d * el)
+    flops = 2 * rev.nnz * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def csr_dfeats(feats, idx, w, g, rev):
+    """dfeats through the reverse-index route of the kernel wrapper."""
+    return ops.neighbor_agg_backward(feats, idx, w, g, need=DFEATS,
+                                     rev=rev)[0]
+
+
+def check_csr(name, dtype, feats, idx, w, g) -> float:
+    """The reverse-index kernel's dfeats on its index of ``(idx, w)``:
+    row by row against its plain version run in f32 (``CSR_ROW_TOL``),
+    against the atomic backward's plain version (``GTOL``), and exactly
+    0 on rows with no edge.  Returns the row error and the number of
+    such rows."""
+    rev = ops.build_reverse_index(idx, w, feats.shape[0])
+    got = csr_dfeats(feats, idx, w, g, rev)
+    err = row_rel_err(got, neighbor_agg_backward_csr_ref(rev, w.float(),
+                                                         g.float()))
+    check(err <= CSR_ROW_TOL[dtype],
+          f"{name}: row error {err} beyond {CSR_ROW_TOL[dtype]}")
+    compare(name, dtype, got, neighbor_agg_backward_ref(
+        feats, idx, w, g, need=DFEATS)[0], GTOL[dtype])
+    empty = rev.indptr[1:] == rev.indptr[:-1]
+    check(bool((got[empty] == 0).all()), f"{name}: a row with no edge is "
+          f"not 0")
+    return err, int(empty.sum())
+
+
+def planted_index(rev, extra: int):
+    """A faulty copy of ``rev``: each row's first edge dropped
+    (``extra`` = -1) or counted twice (+1)."""
+    counts = (rev.indptr[1:] - rev.indptr[:-1]).long()
+    has = counts > 0
+    reps = torch.ones(rev.nnz, dtype=torch.long, device=counts.device)
+    reps[rev.indptr[:-1][has].long()] += extra
+    indptr = torch.zeros_like(rev.indptr)
+    indptr[1:] = torch.cumsum(counts + extra * has, 0)
+    return dataclasses.replace(
+        rev, indptr=indptr, edges=rev.edges.repeat_interleave(reps))
+
+
+def csr_full_graph(dev, sz: Sizes, gen, name, feats, idx, w, g) -> dict:
+    """The reverse-index kernel at the full-graph layer-2 shape: the index
+    build (timed once), the row check against the plain version in f32
+    with the mask weights and with random weights on the same edges,
+    the 2e-2 check, planted faults, determinism and timings beside its
+    plain version and the bound.  The atomic kernel and
+    ``embedding_bag``'s backward are timed on the same inputs by the
+    caller."""
+    dtype = feats.dtype
+    n, d = feats.shape
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    rev = ops.build_reverse_index(idx, w, n)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    got = csr_dfeats(feats, idx, w, g, rev)
+    check(torch.equal(got, csr_dfeats(feats, idx, w, g, rev)),
+          f"{name}: two calls of the reverse-index kernel differ")
+    ref32 = neighbor_agg_backward_csr_ref(rev, w.float(), g.float())
+    row_err = row_rel_err(got, ref32)
+    abs_err = compare(f"{name} reverse index", dtype, got,
+                      neighbor_agg_backward_ref(feats, idx, w, g,
+                                                need=DFEATS)[0], GTOL[dtype])
+    check(row_err <= CSR_BF16_ROW_TOL,
+          f"{name}: reverse-index row error {row_err} beyond "
+          f"{CSR_BF16_ROW_TOL}")
+    # random weights on the same edges, so that a weight fault shows
+    w_rand = ((torch.rand(w.shape, generator=gen, device=dev) * 0.9 + 0.1)
+              * (w != 0)).to(dtype)
+    ref_rand = neighbor_agg_backward_csr_ref(rev, w_rand.float(), g.float())
+    rand_err = row_rel_err(csr_dfeats(feats, idx, w_rand, g, rev), ref_rand)
+    check(rand_err <= CSR_BF16_ROW_TOL,
+          f"{name}: reverse-index row error with random weights {rand_err}"
+          f" beyond {CSR_BF16_ROW_TOL}")
+    del ref_rand
+    faults = {}
+    for fault, args in (
+            ("one dropped edge a row", (w, g, planted_index(rev, -1))),
+            ("a row's first edge twice", (w, g, planted_index(rev, 1))),
+            ("every edge's b off by one", (w, g.roll(1, 0), rev)),
+            ("random weights for the mask's", (w_rand, g, rev))):
+        r = row_rel_err(csr_dfeats(feats, idx, args[0], args[1], args[2]),
+                        ref32)
+        check(r > CSR_BF16_ROW_TOL, f"{name}: the row check passes the "
+              f"planted fault '{fault}' ({r} <= {CSR_BF16_ROW_TOL})")
+        faults[fault] = r
+    del got, ref32, w_rand
+    k_ms = time_ms(lambda: csr_dfeats(feats, idx, w, g, rev), dev,
+                   sz.path_iters, 1)
+    p_ms = time_ms(lambda: neighbor_agg_backward_csr_ref(rev, w, g), dev,
+                   sz.path_iters, 1)
+    b_ms, b_by, nbytes = bound_bwd_csr(rev, d, feats.element_size())
+    print(f"{name} (reverse-index kernel): index of {rev.nnz} kept edges "
+          f"built in {build_ms:.3f} ms ({rev.nbytes} B: indptr "
+          f"{4 * (rev.n + 1)} + edges {4 * rev.nnz} + mask {rev.b * rev.k}); "
+          f"row error {row_err:.4g} (random weights {rand_err:.4g}; limit "
+          f"{CSR_BF16_ROW_TOL}), max_err={abs_err:.3g} (limit "
+          f"{GTOL[dtype]}), bit-equal repeat; planted faults {faults}; "
+          f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} "
+          f"(bound by {b_by}: {nbytes} B = g + kept w + indptr + edges + "
+          f"dfeats)", flush=True)
+    return dict(max_abs_err=abs_err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, row_rel_err=row_err,
+                row_rel_err_random_weights=rand_err,
+                row_check_limit=CSR_BF16_ROW_TOL, planted_faults=faults,
+                deterministic=True, index_build_ms=build_ms,
+                index_bytes=rev.nbytes, index_nnz=rev.nnz)
+
+
+def fullgraph_forward_times(dev, sz: Sizes, gen, idx, w) -> dict:
+    """The tiled forward at the full-graph shape (B = N, the real ELL),
+    bf16 at layer 1's and layer 2's gather widths: checked against its
+    plain version and timed beside it, ``embedding_bag`` and the bound."""
+    out = {}
+    n = idx.shape[0]
+    for d in sz.agg_d:
+        feats = torch.randn(n, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        name = (f"tiled forward at the full-graph shape: bf16 N=B={n} "
+                f"K={idx.shape[1]} D={d}")
+        run = lambda: ops.neighbor_agg(feats, idx, w,  # noqa: E731
+                                       use_kernel=True)
+        err = compare(name, torch.bfloat16, run(),
+                      neighbor_agg_ref(feats, idx, w))
+        k_ms = time_ms(run, dev, sz.path_iters, 1)
+        p_ms = time_ms(lambda: neighbor_agg_ref(feats, idx, w), dev,
+                       sz.path_iters, 1)
+        lib = library_ms(lambda: torch.nn.functional.embedding_bag(
+            idx, feats, mode="sum", per_sample_weights=w), dev,
+            sz.path_iters)
+        b_ms, b_by, nbytes = bound(feats, idx, None)
+        out[d] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                      bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                      shape=name[len("tiled forward at the full-graph "
+                                     "shape: "):])
+        print(f"{name}: max_err={err:.3g} kernel_ms={k_ms:.4f} "
+              f"plain_ms={p_ms:.4f} library_ms={fmt(lib)} (embedding_bag) "
+              f"bound_ms={b_ms:.4f} (bound by {b_by}: {nbytes} B)",
+              flush=True)
+        del feats
+    return out
+
+
 def backward_phase(dev, sz: Sizes, graph) -> dict:
     """The backward kernel against the plain backward: every cotangent at
     the kernel-cell shapes and ragged ones (through the autograd
@@ -472,6 +662,7 @@ def backward_phase(dev, sz: Sizes, graph) -> dict:
                       for c, a, b in zip(names, got, want))
 
     measured = {}
+    csr_errs = {torch.float32: [], torch.bfloat16: []}
     for dtype in (torch.float32, torch.bfloat16):
         for d in sz.agg_d:
             for fused in (False, True):
@@ -482,6 +673,9 @@ def backward_phase(dev, sz: Sizes, graph) -> dict:
                         f"{'fused' if fused else 'unfused'} "
                         f"B={sz.agg_b} K={sz.agg_k} N={sz.agg_n}")
                 g, err = check_grads(name, dtype, case)
+                if not fused:
+                    csr_errs[dtype].append(check_csr(
+                        f"{name} reverse index", dtype, feats, idx, w, g))
                 k_ms = time_ms(lambda: ops.neighbor_agg_backward(
                     feats, idx, w, g, sr, ws, need=all4), dev, sz.iters)
                 p_ms = time_ms(lambda: neighbor_agg_backward_ref(
@@ -508,7 +702,10 @@ def backward_phase(dev, sz: Sizes, graph) -> dict:
                 case = make_case(gen, dev, n, b, k, d, dtype, fused)
                 name = (f"backward ragged {str(dtype)[6:]} N={n} B={b} K={k}"
                         f" D={d} {'fused' if fused else 'unfused'}")
-                _, err = check_grads(name, dtype, case)
+                g, err = check_grads(name, dtype, case)
+                if not fused:
+                    csr_errs[dtype].append(check_csr(
+                        f"{name} reverse index", dtype, *case[:3], g))
                 print(f"{name}: max_err={err:.3g}", flush=True)
         feats, idx, w, _, _ = make_case(gen, dev, 64, 100, sz.agg_k, 172,
                                         dtype, False, zero=True)
@@ -516,6 +713,10 @@ def backward_phase(dev, sz: Sizes, graph) -> dict:
         df = ops.neighbor_agg_backward(feats, idx, w, g, need=all4)[0]
         check(bool((df == 0).all()), f"backward zero weights {dtype}: "
               f"dfeats not all 0")
+        rev = ops.build_reverse_index(idx, w, 64)
+        check(rev.nnz == 0 and bool((csr_dfeats(feats, idx, w, g, rev) == 0
+                                     ).all()),
+              f"reverse index, zero weights {dtype}: dfeats not all 0")
         if dev.type == "cuda":
             feats, idx, w, _, _ = make_case(gen, dev, 64, 16, 5, 40, dtype,
                                             False)
@@ -526,15 +727,31 @@ def backward_phase(dev, sz: Sizes, graph) -> dict:
             check(bool(torch.isnan(dw[3, 2])) and
                   int(torch.isnan(dw).sum()) == 1,
                   "backward: out-of-range id did not poison its dw only")
+            # the index leaves the out-of-range edge out, as the atomics
+            # do; a nonzero weight on it would fail the wrapper's device
+            # assert, so the reverse-index call gets it as 0
+            rev = ops.build_reverse_index(idx, w, 64)
+            check(not bool(rev.kept[3, 2]),
+                  "reverse index kept an out-of-range id")
+            w0 = w.clone()
+            w0[3, 2] = 0
+            compare(f"reverse index out-of-range id {dtype} dfeats", dtype,
+                    csr_dfeats(feats, idx, w0, g, rev), df, GTOL[dtype])
             idx[3, 2], w[3, 2] = 0, 0
             compare(f"backward out-of-range id {dtype} dfeats", dtype, df,
                     neighbor_agg_backward_ref(feats, idx, w, g)[0],
                     GTOL[dtype])
-        print(f"backward zero-weights {str(dtype)[6:]}: dfeats exactly 0; "
-              f"out-of-range id: NaN dw, no atomics", flush=True)
+        print(f"backward zero-weights {str(dtype)[6:]}: dfeats exactly 0 "
+              f"(both kernels); out-of-range id: NaN dw, no atomics, left "
+              f"out of the reverse index", flush=True)
+        errs, empties = zip(*csr_errs[dtype])
+        print(f"reverse-index kernel {str(dtype)[6:]}: {len(errs)} cases, "
+              f"largest row error {max(errs):.4g} (limit "
+              f"{CSR_ROW_TOL[dtype]}); {sum(empties)} rows with no edge, "
+              f"all exactly 0", flush=True)
 
     # ---- the training-path shapes: autograd asks for dfeats only
-    need = (True, False, False, False)
+    need = DFEATS
     idx_h, w_h, _ = to_ell(graph, max_deg=32)
     n = graph.n
     mb_k, mb_b = sz.mb_fanout[0], sz.mb_b
@@ -589,6 +806,12 @@ def backward_phase(dev, sz: Sizes, graph) -> dict:
               f"= g + idx + w + dfeats)"
               f"{', deterministic' if key == 'minibatch_l2' else ''}",
               flush=True)
+        if key == "fullgraph_l2":
+            measured["csr"] = dict(
+                csr_full_graph(dev, sz, gen, name, feats, idx, w, g),
+                library_ms=lib, shape=measured[key]["shape"])
+            measured["fullgraph_fwd"] = fullgraph_forward_times(
+                dev, sz, gen, idx, w)
     del paths
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -652,8 +875,10 @@ def training_phase(dev, sz: Sizes, graph) -> dict:
           f"{[round(x, 5) for x in lf]}, {per_step_ms(res_f.history):.2f} "
           f"ms/step steady, run {wall_f:.3f} s, launches {after_f} "
           f"({after_f['tiled'] / len(lf):.2f} tiled + "
-          f"{after_f['backward'] / len(lf):.2f} backward per step, eval "
-          f"included), test_acc={res_f.final_test_acc:.4f}", flush=True)
+          f"{after_f['backward_csr'] / len(lf):.2f} reverse-index "
+          f"backward + {after_f['backward'] / len(lf):.2f} atomic backward "
+          f"per step, eval included), test_acc={res_f.final_test_acc:.4f}",
+          flush=True)
     tm = src_m.timing
     nb = max(tm["batches"], 1)
     print(f"train: mini-batch SGD, {len(lm)} steps, b={sz.mb_b} fan-out "
@@ -661,8 +886,9 @@ def training_phase(dev, sz: Sizes, graph) -> dict:
           f"{lm[-1]:.5f}, {per_step_ms(res_m.history):.2f} ms/step steady, "
           f"run {wall_m:.3f} s, launches {launches_m} "
           f"({launches_m['tiled'] / len(lm):.2f} tiled + "
-          f"{launches_m['backward'] / len(lm):.2f} backward per step, eval "
-          f"included), test_acc={res_m.final_test_acc:.4f}", flush=True)
+          f"{launches_m['backward'] / len(lm):.2f} atomic backward per "
+          f"step, eval included), test_acc={res_m.final_test_acc:.4f}",
+          flush=True)
     print(f"train: mini-batch per batch: host sampling "
           f"{1e3 * tm['sample_s'] / nb:.2f} ms + staging (gather into "
           f"pinned buffers) {1e3 * tm['stage_s'] / nb:.2f} ms on the "
@@ -678,13 +904,20 @@ def training_phase(dev, sz: Sizes, graph) -> dict:
     check(0.0 <= res_f.final_test_acc <= 1.0
           and 0.0 <= res_m.final_test_acc <= 1.0, "test accuracy out of range")
     if dev.type == "cuda":
-        check(counts["tiled"] > 0 and counts["backward"] > 0,
-              f"training path launched the kernels {counts}")
+        check(after_f["tiled"] > 0 and after_f["backward"] == 0
+              and after_f["backward_csr"] == len(lf),
+              f"full-graph steps launched the kernels {after_f}: not the "
+              f"reverse-index backward once a step and the atomic one never")
+        check(launches_m["tiled"] > 0 and launches_m["backward"] > 0
+              and launches_m["backward_csr"] == 0,
+              f"mini-batch steps launched the kernels {launches_m}: not "
+              f"the atomic backward alone")
 
     # ---- checks and timings outside the counted window
     params = res_m.params
     leaves = [v for p in params for v in p.values()]
-    out = {"counts": counts, "full_ms": per_step_ms(res_f.history),
+    out = {"counts": counts, "counts_full": after_f,
+           "counts_mb": launches_m, "full_ms": per_step_ms(res_f.history),
            "mb_ms": per_step_ms(res_m.history)}
     for label, src, tol in (
             ("full-graph (bf16 aggregation)",
@@ -705,6 +938,40 @@ def training_phase(dev, sz: Sizes, graph) -> dict:
               f"vs the plain path: relative max error {err:.3g} "
               f"(limit {tol})", flush=True)
         check(err <= tol, f"{label}: gradient rel err {err} beyond {tol}")
+        if label.startswith("full"):
+            # one full-graph step (forward + backward + update) timed with
+            # CUDA events and traced, through a Trainer bound like tr_f
+            # through a Trainer bound like tr_f; in turns with its source's
+            # reverse index and without it (the atomic backward, as before
+            # the index), on the same parameters
+            tr_p = E.Trainer(graph, cfg, plan_f, source=E.FullGraphSource(
+                max_deg=cfg.max_degree), device=dev)
+            opt_state = tr_p.opt.init(params)
+            rev = tr_p.source.rev
+
+            def step(r=rev):
+                tr_p.source.rev = r
+                return tr_p._step(params, opt_state, None)
+
+            turns = {"reverse_index": [], "atomic": []}
+            for which in ("reverse_index", "atomic", "atomic",
+                          "reverse_index"):
+                r = rev if which == "reverse_index" else None
+                turns[which].append(time_ms(lambda: step(r), dev, 5, 1))
+            out["full_device_ms"] = float(np.mean(turns["reverse_index"]))
+            out["full_device_ms_atomic"] = float(np.mean(turns["atomic"]))
+            print(f"train: full-graph device step (forward + backward + "
+                  f"update, CUDA events, in turns on the same parameters): "
+                  f"{turns['reverse_index']} ms with the reverse-index "
+                  f"backward, {turns['atomic']} ms with the atomic one",
+                  flush=True)
+            prof = profile_device(dev, step) if dev.type == "cuda" else {}
+            if prof:
+                print(f"train: profiled full-graph step: wall "
+                      f"{prof['wall_ms']:.2f} ms (traced), device time "
+                      f"{prof['device_ms']:.2f} ms; largest kernels (name, "
+                      f"ms, calls): {prof['top']}", flush=True)
+            tr_p.close()
         if label.startswith("mini"):
             src.cfg = cfg
             opt_state = tr_m.opt.init(params)
@@ -1136,7 +1403,7 @@ def profile_device(dev, fn) -> dict:
         return {}
     total = sum(_device_us(e) for e in evs)
     flash = sum(_device_us(e) for e in evs if "flash_attn" in e.key)
-    top = sorted(evs, key=_device_us, reverse=True)[:6]
+    top = sorted(evs, key=_device_us, reverse=True)[:8]
     return {"wall_ms": 1e3 * wall, "device_ms": total / 1e3,
             "flash_ms": flash / 1e3,
             "top": [(e.key[:70], round(_device_us(e) / 1e3, 3), e.count)
@@ -1357,15 +1624,22 @@ def run(dev: torch.device, sz: Sizes) -> dict:
     b, s, hq, hkv, hd = sz.fa_shape
     w1 = sz.fa_windows[1]
     cell = f"B={sz.agg_b} K={sz.agg_k} D={d} N={sz.agg_n}"
+    tf, tm = train["counts_full"], train["counts_mb"]
     kernels = [
         {"name": "neighbor_agg_tiled", "route": "cuda",
          "source": CSRC + "neighbor_agg.cu",
          "replaces": REF_AGG + "neighbor_agg.py:192",
          "launches": train["counts"]["tiled"],
-         "launches_by_path": {"train": train["counts"]["tiled"],
+         "launches_by_path": {"train_fullgraph": tf["tiled"],
+                              "train_minibatch": tm["tiled"],
                               "serve": serve["launches"]},
          **measured[(torch.bfloat16, d, False)],
-         "shape": f"bf16, unfused, {cell}"},
+         "shape": f"bf16, unfused, {cell} (the serving chunk)",
+         "by_shape": {
+             f"fullgraph_d{dd}": dict(
+                 m, launches=f"{tf['tiled']} over both widths (one each "
+                             f"a full-graph forward)")
+             for dd, m in bwd["fullgraph_fwd"].items()}},
         {"name": "neighbor_agg_tiled_fused", "route": "cuda",
          "source": CSRC + "neighbor_agg.cu",
          "replaces": REF_AGG + "neighbor_agg.py:192",
@@ -1377,8 +1651,26 @@ def run(dev: torch.device, sz: Sizes) -> dict:
          "source": CSRC + "neighbor_agg_bwd.cu",
          "replaces": REF_AGG + "ops.py:55",
          "launches": train["counts"]["backward"],
-         "launches_by_path": {"train": train["counts"]["backward"]},
-         **bwd["fullgraph_l2"]},
+         "launches_by_path": {"train_fullgraph": tf["backward"],
+                              "train_minibatch": tm["backward"]},
+         **bwd["minibatch_l2"],
+         "by_shape": {
+             "minibatch_l2": dict(bwd["minibatch_l2"],
+                                  launches=tm["backward"]),
+             "fullgraph_l2": dict(
+                 bwd["fullgraph_l2"], launches=tf["backward"],
+                 note="dfeats of the full-graph path goes to "
+                      "neighbor_agg_backward_csr; timed here on its "
+                      "inputs")}},
+        {"name": "neighbor_agg_backward_csr", "route": "cuda",
+         "source": CSRC + "neighbor_agg_bwd_csr.cu",
+         "replaces": REF_AGG + "ops.py:55",
+         "launches": train["counts"]["backward_csr"],
+         "launches_by_path": {"train_fullgraph": tf["backward_csr"],
+                              "train_minibatch": tm["backward_csr"]},
+         **bwd["csr"],
+         "atomic_ms_same_inputs": bwd["fullgraph_l2"]["ms"],
+         "atomic_plain_ms_same_inputs": bwd["fullgraph_l2"]["plain_ms"]},
         {"name": "neighbor_agg_row", "route": "cuda",
          "source": CSRC + "neighbor_agg_row.cu",
          "replaces": REF_AGG + "neighbor_agg.py:85",

@@ -77,15 +77,17 @@ def _graph_cache(graph: Graph) -> dict:
 
 
 def drop_device_cache(graph: Graph) -> None:
-    """Forget the device uploads memoized on ``graph`` (ELL, features,
-    labels, node splits), so their memory can be freed."""
+    """Forget the device uploads memoized on ``graph`` (ELL, its reverse
+    index, features, labels, node splits), so their memory can be
+    freed."""
     object.__setattr__(graph, "_torch_cache", {})
 
 
 def _device_ell(graph: Graph, max_deg: Optional[int], device):
     """``(idx, w, w_self, feats, labels)`` on ``device``, memoized on the
     graph.  At most one ELL width stays resident per device besides the
-    width-independent feature and label uploads."""
+    width-independent feature and label uploads; another width evicts it
+    together with its reverse index."""
     dev = torch.device(device)
     key = ("ell", str(dev), _resolve_max_deg(graph, max_deg))
     base = ("base", str(dev))
@@ -94,11 +96,25 @@ def _device_ell(graph: Graph, max_deg: Optional[int], device):
         cache[base] = (torch.as_tensor(graph.feats).to(dev),
                        torch.as_tensor(graph.labels).long().to(dev))
     if key not in cache:
-        for stale in [k for k in cache if k[0] == "ell" and k[1] == str(dev)]:
+        for stale in [k for k in cache
+                      if k[0] in ("ell", "rev") and k[1] == str(dev)]:
             del cache[stale]
         cache[key] = tuple(torch.as_tensor(a).to(dev)
                            for a in to_ell(graph, max_deg=max_deg))
     return cache[key] + cache[base]
+
+
+def _device_reverse_index(graph: Graph, max_deg: Optional[int], device):
+    """The reverse index (``ops.ReverseIndex``) of the device ELL of this
+    width, built on ``device`` from that ELL's ``idx`` and ``w`` and
+    memoized beside it."""
+    from repro_torch.kernels.neighbor_agg.ops import build_reverse_index
+    idx, w = _device_ell(graph, max_deg, device)[:2]
+    key = ("rev", str(torch.device(device)), _resolve_max_deg(graph, max_deg))
+    cache = _graph_cache(graph)
+    if key not in cache:
+        cache[key] = build_reverse_index(idx, w, graph.n)
+    return cache[key]
 
 
 def _device_nodes(graph: Graph, which: str, device):
@@ -311,7 +327,9 @@ class BatchSource:
 
 class FullGraphSource(BatchSource):
     """The (b=n_train, β=d_max) limit: every iteration is GD over ALL
-    training nodes on the device ELL; the "batch" is empty."""
+    training nodes on the device ELL; the "batch" is empty.  With
+    ``cfg.use_agg_kernel`` it also holds the ELL's reverse index, so the
+    aggregation's backward is the reverse-index kernel."""
 
     loss_is_full_loss = True
     name = "fullgraph"
@@ -319,10 +337,13 @@ class FullGraphSource(BatchSource):
     def __init__(self, max_deg: Optional[int] = None):
         self.max_deg = max_deg
         self.ell = None
+        self.rev = None
 
     def bind(self, graph, cfg, plan, device):
         self.graph, self.cfg, self.device = graph, cfg, device
         self.ell = _device_ell(graph, self.max_deg, device)
+        self.rev = (_device_reverse_index(graph, self.max_deg, device)
+                    if cfg.use_agg_kernel else None)
         self.train_nodes = self.node_split("train")
         self.n_nodes = len(graph.train_nodes)
         return self
@@ -330,7 +351,7 @@ class FullGraphSource(BatchSource):
     def loss(self, params, batch):
         idx, w, w_self, feats, labels = self.ell
         logits = G.full_graph_forward(params, self.cfg, feats, idx, w,
-                                      w_self)
+                                      w_self, rev=self.rev)
         sel = self.train_nodes
         return G.gnn_loss(logits[sel], labels[sel], self.cfg.loss,
                           self.cfg.n_classes)
@@ -340,7 +361,7 @@ class FullGraphSource(BatchSource):
             yield None, self.n_nodes
 
     def close(self) -> None:
-        self.ell = None
+        self.ell = self.rev = None
 
 
 class SampledSource(BatchSource):

@@ -91,14 +91,15 @@ def params_from_numpy(params: Sequence[Dict[str, Any]], device="cuda"
 # ---------------------------------------------------------------------------
 
 def _kernel_agg(cfg: GNNConfig, table, idx, w, self_rows=None,
-                w_self=None):
+                w_self=None, rev=None):
     """Σ_k w[b,k] · table[idx[b,k]] (+ fused w_self[b] · self_rows[b]
     epilogue) through the hand-written kernel (its plain version on a
-    CPU tensor).  The reference's ``agg_*`` tile fields have no meaning
-    for it."""
+    CPU tensor); ``rev``, the reverse index of ``(idx, w)``, sends the
+    table's gradient through the reverse-index backward kernel.  The
+    reference's ``agg_*`` tile fields have no meaning for it."""
     from repro_torch.kernels.neighbor_agg.ops import neighbor_agg
     return neighbor_agg(table, idx, w, self_rows, w_self, use_kernel=True,
-                        kernel="tiled")
+                        kernel="tiled", rev=rev)
 
 
 def _wsum(cfg: GNNConfig, w_edge, h_nb, h_self=None, w_self=None):
@@ -181,10 +182,11 @@ def agg_dtype(cfg: GNNConfig, h_dtype: torch.dtype) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def full_graph_forward(params, cfg: GNNConfig, feats, ell_idx, ell_w,
-                       w_self, return_layers=False):
+                       w_self, return_layers=False, rev=None):
     """feats [n, r]; ell_idx [n, K] int32; ell_w [n, K]; w_self [n] ->
     logits [n, C] (reference ``gnn.py:165-298`` without ``mesh`` /
-    ``feats_plan``).
+    ``feats_plan``).  ``rev``: the reverse index of ``(ell_idx, ell_w)``
+    (``ops.build_reverse_index``), or None.
 
     * When a layer narrows (d_out < d_in) the linear transform runs
       BEFORE aggregation (Ã(hW) == (Ãh)W for GCN and the GraphSAGE
@@ -194,7 +196,10 @@ def full_graph_forward(params, cfg: GNNConfig, feats, ell_idx, ell_w,
     * With ``cfg.use_agg_kernel`` the gcn/graphsage aggregation runs
       through the CUDA gather kernel (no [n, K, d] gather is
       materialized), GCN's self term through its fused epilogue.  GAT
-      keeps the einsum path.
+      keeps the einsum path.  With ``rev`` as well, the tables'
+      gradients come from the reverse-index backward kernel: both
+      aggregations' weights (GraphSAGE's mask, GCN's ``ell_w``) are zero
+      wherever ``ell_w`` is, so the index fits them.
 
     ``return_layers`` also returns every layer's POST-activation table
     ``[h_1, ..., h_L]`` (``h_L`` = the logits).
@@ -211,8 +216,8 @@ def full_graph_forward(params, cfg: GNNConfig, feats, ell_idx, ell_w,
         """Σ_k w_edge[n,k] · srcr[ell_idx[n,k]]; ``srcr`` is the already
         cast table."""
         if cfg.use_agg_kernel:
-            return _kernel_agg(cfg, srcr, ell_idx,
-                               w_edge.to(agg_dt)).to(h.dtype)
+            return _kernel_agg(cfg, srcr, ell_idx, w_edge.to(agg_dt),
+                               rev=rev).to(h.dtype)
         return torch.einsum("nk,nkd->nd", w_edge.to(agg_dt),
                             srcr[ell_idx.long()]).to(h.dtype)
 
@@ -227,8 +232,8 @@ def full_graph_forward(params, cfg: GNNConfig, feats, ell_idx, ell_w,
             if cfg.use_agg_kernel:
                 # fused epilogue: the self row IS the source table row b
                 agg = _kernel_agg(cfg, srcr, ell_idx, ell_w.to(agg_dt),
-                                  self_rows=srcr,
-                                  w_self=w_self.to(agg_dt)).to(h.dtype)
+                                  self_rows=srcr, w_self=w_self.to(agg_dt),
+                                  rev=rev).to(h.dtype)
             else:
                 agg = agg_w(srcr, ell_w) + (w_self.to(agg_dt)[:, None]
                                             * srcr).to(h.dtype)

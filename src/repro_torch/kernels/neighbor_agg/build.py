@@ -1,6 +1,7 @@
 """The neighbor-aggregation CUDA library (every ``csrc/*.cu`` here: the
-tiled forward, the backward and the row kernel), built and loaded by the
-shared builder ``repro_torch.kernels.build``."""
+tiled forward, the backward, the reverse-index backward and the row
+kernel), built and loaded by the shared builder
+``repro_torch.kernels.build``."""
 from __future__ import annotations
 
 import ctypes
@@ -14,6 +15,7 @@ def _declare(lib: ctypes.CDLL) -> None:
             ctypes.c_int, ctypes.c_void_p]     # n, b, k, d, stream
     for name, n_ptrs in (("neighbor_agg_forward", 6),
                          ("neighbor_agg_backward", 10),
+                         ("neighbor_agg_backward_csr", 5),
                          ("neighbor_agg_row_forward", 4)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + tail

@@ -8,13 +8,15 @@ parameters are stacked on a leading dim, as in the reference, so its
 arrays load unchanged.  Where the reference scans over that dim, the
 port loops over it.
 
-The ring caches follow the reference exactly, including a fault it has:
-``prefill`` puts the newest ``cap`` positions in slots ``0..cap-1`` while
-``decode_step`` writes position ``pos`` to slot ``pos % cap``; when the
-prompt length is not a multiple of a local layer's window, the second
-decode step on overwrites a key still inside the window (ROADMAP.md
-Queue 3).  ``decode_step`` updates the cache tensors in place (the
-reference returns new arrays) and returns the same cache.
+Ring caches: ``decode_step`` writes position ``pos`` to slot
+``pos % cap`` and ``prefill`` puts each kept position p in slot
+``p % cap`` too.  Here the port departs from the reference on purpose:
+the reference's prefill puts the newest ``cap`` positions in slots
+``0..cap-1``, so when the prompt length is not a multiple of a local
+layer's window its second decode step on overwrites a key still inside
+the window.  Where the prompt is a multiple of the capacity the two
+layouts are the same.  ``decode_step`` updates the cache tensors in
+place (the reference returns new arrays) and returns the same cache.
 
 MoE, mamba, the encoder with cross-attention and the VLM frontend are
 later slices and raise ``NotImplementedError``.
@@ -282,10 +284,17 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
     cache = init_cache(cfg, x.shape[0], cache_len, x.device)
     for run, rc, (k, v) in zip(build_plan(cfg), cache["runs"], kvs):
         cap = cache_capacity(cfg, run, cache_len)     # k, v: [L,B,S,Hkv,D]
-        if cap <= s:                    # the ring holds the newest `cap`
-            rc["k"] = k[:, :, s - cap:].contiguous()
-            rc["v"] = v[:, :, s - cap:].contiguous()
-            rc["slot_pos"] = positions[s - cap:].to(torch.int32).expand(
+        if cap <= s:
+            # the ring holds the newest `cap` positions, position p in
+            # slot p % cap as decode writes it: the kept tail rolled by
+            # s % cap (the reference puts them in slots 0..cap-1, so its
+            # decode overwrites a key still in the window when cap does
+            # not divide s)
+            shift = s % cap
+            rc["k"] = torch.roll(k[:, :, s - cap:], shift, dims=2)
+            rc["v"] = torch.roll(v[:, :, s - cap:], shift, dims=2)
+            rc["slot_pos"] = torch.roll(
+                positions[s - cap:].to(torch.int32), shift).expand(
                 run.count, cap).contiguous()
         else:                           # headroom for decode
             rc["k"][:, :, :s] = k

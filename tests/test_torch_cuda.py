@@ -9,7 +9,11 @@ build whose kernel path must launch the kernel and match the plain
 forward, and one training step whose gradients through the kernels must
 match the plain path.  Forward tolerances: 1e-5 (f32), 2e-2 (bf16).
 Backward: 1e-3 (f32; dfeats sums with atomics in an order that changes
-from run to run), 2e-2 (bf16).
+from run to run), 2e-2 (bf16).  The reverse-index backward kernel (the
+full-graph path's dfeats) row by row against its plain version in f32
+(``row_rel_err``): 1e-5 in f32, 2^-8 (one bf16 rounding) in bf16, rows
+with no edge exactly 0, repeat calls bit-equal, and a full-graph training
+step that launches it once and the atomic kernel never.
 
 The CUDA flash-attention kernels against their plain version (2e-5 f32,
 3e-2 bf16, the tolerances of tests/test_flash_attn.py; the tensor-core
@@ -209,15 +213,124 @@ def test_training_step_grads_kernel_match_plain(cuda, model, dtype):
         grads = {}
         for kernel in (True, False):
             src.cfg = dataclasses.replace(cfg, use_agg_kernel=kernel)
-            before = ops.backward_launches
+            ops.reset_launches()
             grads[kernel] = torch.autograd.grad(src.loss(params, batch),
                                                 leaves)
-            assert (ops.backward_launches > before) == kernel
+            n = ops.launch_counts()
+            if not kernel:
+                assert n["backward"] == n["backward_csr"] == 0
+            elif isinstance(src, E.FullGraphSource):
+                # dfeats by the reverse index; GCN's dself by the atomic
+                # kernel, which then sends no atomics
+                assert n["backward_csr"] == 1
+                assert n["backward"] == (1 if model == "gcn" else 0)
+            else:
+                assert n["backward"] > 0 and n["backward_csr"] == 0
         for a, b in zip(grads[True], grads[False]):
             err = float((a - b).abs().max() / b.abs().max())
             assert err <= tol, (type(src).__name__, err)
         src.done(batch)
         src.close()
+
+
+def _csr_case(seed, n, b, k, d, dtype, device, empty_rows=0):
+    """Inputs of the reverse-index backward: ids avoiding the last
+    ``empty_rows`` rows (so they have no edge), 30 % zero weights."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, max(n - empty_rows, 1), (b, k)).astype(np.int32)
+    w = (rng.random((b, k)) * (rng.random((b, k)) > 0.3)).astype(np.float32)
+    g = rng.normal(size=(b, d)).astype(np.float32)
+    feats = torch.zeros(n, d, device=device, dtype=dtype)
+    return (feats, torch.tensor(idx, device=device),
+            torch.tensor(w, device=device).to(dtype),
+            torch.tensor(g, device=device).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,b,k,d,empty", [(4096, 4096, 32, 172, 0),
+                                           (4096, 1000, 32, 128, 96),
+                                           (1000, 1001, 7, 37, 10),
+                                           (300, 13, 33, 300, 0),
+                                           (50, 5, 0, 20, 0),
+                                           (100, 77, 45, 256, 3)])
+def test_backward_csr_kernel_matches_plain_version(cuda, n, b, k, d, empty,
+                                                   dtype):
+    from repro_torch.kernels.flash_attn.ref import row_rel_err
+    from repro_torch.kernels.neighbor_agg.ref import (
+        CSR_BF16_ROW_TOL, neighbor_agg_backward_csr_ref)
+    feats, idx, w, g = _csr_case(n + b + k + d, n, b, k, d, dtype, cuda,
+                                 empty)
+    rev = ops.build_reverse_index(idx, w, n)
+    before = ops.backward_csr_launches
+    got = ops.neighbor_agg_backward(feats, idx, w, g, rev=rev,
+                                    need=(True, False, False, False))[0]
+    assert ops.backward_csr_launches == before + 1
+    assert got.dtype == dtype
+    ref32 = neighbor_agg_backward_csr_ref(rev, w.float(), g.float())
+    tol = CSR_BF16_ROW_TOL if dtype == torch.bfloat16 else 1e-5
+    assert row_rel_err(got, ref32) <= tol
+    no_edge = rev.indptr[1:] == rev.indptr[:-1]
+    assert int(no_edge.sum()) >= empty
+    assert bool((got[no_edge] == 0).all())
+    want = neighbor_agg_backward_ref(feats, idx, w, g,
+                                     need=(True, False, False, False))[0]
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_csr_kernel_is_deterministic(cuda, dtype):
+    """Edges added in the index's order: repeat calls are bit-equal, also
+    where many edges share a row (the atomic kernel's are not)."""
+    feats, idx, w, g = _csr_case(5, 2000, 20000, 32, 172, dtype, cuda)
+    rev = ops.build_reverse_index(idx, w, 2000)
+    runs = [ops.neighbor_agg_backward(feats, idx, w, g, rev=rev,
+                                      need=(True, False, False, False))[0]
+            for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
+def test_backward_csr_kernel_skips_zero_weights_on_bad_rows(cuda):
+    """A non-finite g row behind an edge of weight 0 adds nothing, as in
+    the atomic kernel."""
+    feats, idx, w, g = _csr_case(6, 64, 16, 5, 40, torch.float32, cuda)
+    rev = ops.build_reverse_index(idx, w, 64)
+    w[0].zero_()
+    g[0] = float("nan")
+    got = ops.neighbor_agg_backward(feats, idx, w, g, rev=rev,
+                                    need=(True, False, False, False))[0]
+    assert bool(torch.isfinite(got).all())
+    g[0] = 0
+    want = neighbor_agg_backward_ref(feats, idx, w, g,
+                                     need=(True, False, False, False))[0]
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_fullgraph_step_launches_reverse_index_kernel(cuda):
+    """One full-graph GraphSAGE step (bf16 aggregation) through the
+    Trainer: the tiled forward, the reverse-index backward once, the
+    atomic backward never; a mini-batch step the reverse."""
+    from repro_torch.core import engine as E
+    g = make_sbm_graph(n=3000, n_classes=6, avg_degree=12, feat_dim=48,
+                       seed=4)
+    cfg = GNNConfig(name="c", model="graphsage", n_nodes=g.n, feat_dim=48,
+                    hidden=64, n_classes=g.n_classes, n_layers=2,
+                    fanout=(5, 3), batch_size=256, dtype="bfloat16",
+                    use_agg_kernel=True)
+    plan = E.TrainPlan(n_iters=1, eval_every=1, seed=0)
+    for src, want in ((E.FullGraphSource(max_deg=16),
+                       {"backward_csr": 1, "backward": 0}),
+                      (E.SampledSource(prefetch=False),
+                       {"backward_csr": 0, "backward": 1})):
+        tr = E.Trainer(g, cfg, plan, source=src, device=cuda)
+        ops.reset_launches()
+        res = tr.run()
+        n = ops.launch_counts()
+        assert np.isfinite(res.history.losses).all()
+        assert n["tiled"] > 0
+        assert {key: n[key] for key in want} == want, n
+        tr.close()
 
 
 # ---------------------------------------------------------------------------

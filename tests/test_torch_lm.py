@@ -341,18 +341,24 @@ def test_serve_cli_prints_reference_keys():
     assert all(0 <= t < 512 for t in res["sample_tokens"])
 
 
-def test_ring_placement_mirrors_reference_at_ragged_prompt(rng):
-    """A prompt that is not a multiple of the window (s = 96, smoke window
-    64): the reference's prefill puts the newest 64 positions in slots
-    0..63 while decode writes position p to slot p % 64, so from the
-    second step on a key still inside the window is overwritten
-    (ROADMAP.md Queue 3).  The port mirrors the reference: its decode
-    equals the reference's at 1e-4, and both leave the full forward."""
+@pytest.mark.parametrize("s", [96, 100, 128])
+def test_ring_placement_mirrors_reference_at_ragged_prompt(rng, s):
+    """The ring caches hold position p in slot p % cap after prefill as
+    after decode, also when the prompt (s = 96, 100) is not a multiple of
+    the smoke window 64: 8 decode steps equal the port's full forward
+    over the extended sequence at 1e-4.  The reference's prefill puts the
+    newest 64 positions in slots 0..63, so from its second decode step on
+    it overwrites a key still inside the window (ROADMAP.md Queue 3): the
+    port leaves it there on purpose, and equals its decode only where the
+    layouts agree, at a multiple of the window (s = 128), at 1e-4."""
     rcfg, cfg, ref, port = _models("gemma3-12b")
-    b, s, extra = 2, 96, 3
+    b, extra = 2, 8
     toks = rng.integers(0, cfg.vocab_size, (b, s + extra)).astype(np.int32)
-    _, wcache = RM.prefill(ref, rcfg, {"tokens": jnp.asarray(toks[:, :s])},
-                           max_len=s + extra)
+    with_ref = s % cfg.sliding_window == 0  # (its prefill takes no s = 100)
+    if with_ref:
+        _, wcache = RM.prefill(ref, rcfg,
+                               {"tokens": jnp.asarray(toks[:, :s])},
+                               max_len=s + extra)
     with torch.inference_mode():
         _, cache = M.prefill(port, cfg, {"tokens": torch.tensor(
             toks[:, :s])}, s + extra)
@@ -361,8 +367,10 @@ def test_ring_placement_mirrors_reference_at_ragged_prompt(rng):
         fwd = M.logits_fn(port, cfg, hid)
     for t in range(extra):
         nxt = toks[:, s + t:s + t + 1]
-        want, wcache = RM.decode_step(ref, rcfg, wcache, jnp.asarray(nxt))
         with torch.inference_mode():
             got, cache = M.decode_step(port, cfg, cache, torch.tensor(nxt))
-        _close(got, want, 1e-4)
-    assert float((got - fwd[:, s + extra - 1]).abs().max()) > 0.1
+        _close(got, fwd[:, s + t], 1e-4)
+        if with_ref:
+            want, wcache = RM.decode_step(ref, rcfg, wcache,
+                                          jnp.asarray(nxt))
+            _close(got, want, 1e-4)

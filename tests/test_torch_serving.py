@@ -304,19 +304,29 @@ def test_chip_smoke_rehearsal_on_cpu():
             "library_ms"}
     assert [k["name"] for k in result["kernels"]] == [
         "neighbor_agg_tiled", "neighbor_agg_tiled_fused",
-        "neighbor_agg_backward", "neighbor_agg_row", "flash_attention_wgmma",
-        "flash_attention"]
+        "neighbor_agg_backward", "neighbor_agg_backward_csr",
+        "neighbor_agg_row", "flash_attention_wgmma", "flash_attention"]
     for k in result["kernels"]:
         assert keys <= set(k) and k["route"] == "cuda"
         assert os.path.exists(k["source"])
         assert os.path.exists(k["replaces"].split(":")[0])
     # the gathers are bound by bytes; attention by bytes or operations
     # depending on S and D (operations at the full size)
-    assert [k["bound_by"] for k in result["kernels"][:4]] == ["bytes"] * 4
-    for k in result["kernels"][4:]:
+    assert [k["bound_by"] for k in result["kernels"][:5]] == ["bytes"] * 5
+    for k in result["kernels"][5:]:
         assert k["bound_by"] in ("bytes", "operations")
         assert k["launches"] == 0          # CPU: the plain version
-    assert result["kernels"][4]["launches_by_path"] == {
+    assert result["kernels"][5]["launches_by_path"] == {
         "lm_serve_bf16": 0, "lm_prefill_f32_model": 0}
-    rows = result["kernels"][4]["row_check"]
+    rows = result["kernels"][5]["row_check"]
     assert rows["cases"] > 0 and rows["limit"] == 2.0 ** -7
+    # the aggregation backward by shape, the reverse-index kernel's row
+    # check and planted faults
+    bwd, csr = result["kernels"][2], result["kernels"][3]
+    assert set(bwd["by_shape"]) == {"minibatch_l2", "fullgraph_l2"}
+    assert csr["row_check_limit"] == 2.0 ** -8
+    assert csr["row_rel_err"] <= 2.0 ** -8 < min(
+        csr["planted_faults"].values())
+    assert len(csr["planted_faults"]) == 4 and csr["deterministic"]
+    assert set(result["kernels"][0]["by_shape"]) == {"fullgraph_d128",
+                                                     "fullgraph_d172"}

@@ -14,7 +14,17 @@ or of the reference package ``repro``.
    version (``neighbor_agg_ref``) — D = 128 and 172, K = 32, B = 65,536,
    f32 and bf16, fused epilogue on and off — plus ragged B/K/D, K = 0,
    an out-of-range id and an all-zero-weight case that must be exactly
-   0.  Tolerance: 1e-5 (f32) and 2e-2 (bf16), atol = rtol.
+   0.  Tolerance: 1e-5 (f32) and 2e-2 (bf16), atol = rtol.  Both routes
+   of the tiled forward (``ops.tiled_plan``: the slab route,
+   ``neighbor_agg_slab.cu``, and the direct route, ``neighbor_agg.cu``)
+   on every case, forced through ``ops._tiled_route``: row by row
+   against the plain version run in f32 (``row_rel_err`` at most
+   ``FWD_ROW_TOL``: 2^-8 in bf16, 1e-5 in f32), the slab route bit-equal
+   to the direct route and to a second call; the out-of-range id's row
+   NaN in every slab at every slab width.  Both routes timed beside each
+   other, back to back and with a 128 MB L2 flush before each launch; a
+   sweep of tables from 8 to 256 MiB times both routes (the plan's L2
+   budget).
 3. Row-kernel phase: ``kernel="row"`` forward and its gradients against
    the plain versions at the same shapes and ragged ones.
 4. Backward-kernel phase: every cotangent (dfeats, dw, dself, dw_self)
@@ -38,8 +48,12 @@ or of the reference package ``repro``.
    edge twice, every edge's b off by one, random weights in place of the
    mask's) must each break the 2^-8 limit, and two calls must be
    bit-equal.  The index build is timed once and its bytes stated.  The
-   tiled forward is timed at the full-graph shape (B = N = 524,288,
-   D = 128 and 172, bf16) as well.
+   tiled forward at the full-graph shape (B = N = 524,288, D = 128 and
+   172, bf16, the real ELL): both routes row by row as in phase 2, four
+   planted faults (a dropped edge a row, a row's first edge twice, slab
+   0 read one column off, the last slab skipped over random values) that
+   must each break 2^-8, the routes timed as in phase 2 and the slab
+   route at every width (32, 64, 128, 256 B).
    Every timed variant is timed with CUDA events beside its plain
    version, one PyTorch library call (``embedding_bag`` forward, or its
    backward) and the bound; at the full-graph shape the reverse-index
@@ -54,12 +68,18 @@ or of the reference package ``repro``.
    must launch the tiled forward and the reverse-index backward once a
    step and the atomic backward never; the mini-batch steps the tiled
    forward and the atomic backward, and the reverse-index kernel never.
+   The tiled forward's route counts must be the plan's: at the full-graph
+   widths (slab at D = 128, direct at D = 172) in every full-graph
+   forward, evaluations included, and direct at every mini-batch level.
+   The mini-batch levels' own shapes (f32, identity ids) are checked and
+   timed on both routes as in phase 2.
    Losses must be finite and the last full-graph loss below the first;
    one step's parameter gradients with the kernels on must match the
    plain path (relative max error 2e-2 for bf16 full-graph, 1e-4 for f32
    mini-batch).  One full-graph step (forward, backward and update) is
    timed with CUDA events with the reverse index and without it (the
-   atomic backward), in turns on the same parameters, and traced with
+   atomic backward), in turns on the same parameters, then in turns with
+   the tiled forward as planned and forced to each route, and traced with
    ``torch.profiler`` (device time by kernel).  The steady ms/step read
    from ``History.times`` spans one step fewer than it divides by (with
    the deferred sync each record is stamped when the next step has
@@ -69,8 +89,11 @@ or of the reference package ``repro``.
    build, 256 queries from 4 client threads through ``GNNServer``, two
    incremental ``update_features`` + ``refresh`` rounds, checked against
    the plain forward (2e-2), the snapshot's argmax and a fresh rebuild.
+   Its gathers (chunks and refreshed rows, B < N) must all take the
+   direct route.
 7. GCN phase (fused epilogue on the path): GCN in f32, hidden 256, at
-   n = 65,536, checked against the plain forward at 1e-4.
+   n = 65,536, checked against the plain forward at 1e-4; both routes at
+   its two gathers' shapes checked and timed as in phase 2.
 8. Flash-attention phase: the two CUDA kernels against their plain
    version (``flash_attention_ref``).  Every call goes to the kernel
    ``kernel_route`` names, and the per-kernel launch counts must show
@@ -113,12 +136,18 @@ or of the reference package ``repro``.
 
 Every failed check raises.  The last stdout line is
 ``{"ok": true, "device": {...}}``; the line before it names the card and
-its power limit, and a ``{"kernels": [...]}`` line precedes that.
+its power limit, and a ``{"kernels": [...]}`` line precedes that.  In
+it ``neighbor_agg_tiled`` keeps its top-level numbers on the serving
+chunk at D = 172 (bf16, unfused), with both routes by shape under
+``by_shape``; the slab kernel (``neighbor_agg_slab.cu``) has an entry of
+its own, ``neighbor_agg_tiled_slab``, at the full-graph shape of layer 1.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -149,7 +178,7 @@ from repro_torch.kernels.neighbor_agg import ops  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import steps  # noqa: E402
 from repro_torch.kernels.neighbor_agg.ref import (  # noqa: E402
-    CSR_BF16_ROW_TOL, neighbor_agg_backward_csr_ref,
+    CSR_BF16_ROW_TOL, FWD_ROW_TOL, neighbor_agg_backward_csr_ref,
     neighbor_agg_backward_ref, neighbor_agg_ref)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
@@ -167,6 +196,8 @@ TRAIN_LR = 0.3                 # the reference TrainPlan's default
 CSRC = "src/repro_torch/kernels/neighbor_agg/csrc/"
 FA_CSRC = "src/repro_torch/kernels/flash_attn/csrc/"
 REF_AGG = "src/repro/kernels/neighbor_agg/"
+# zeroed between timed launches to take the 50 MB L2 cold
+L2_FLUSH_BYTES = 128 * 2 ** 20
 # flash attention: the tolerances of tests/test_flash_attn.py
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # LM checks, relative max error (max|a - b| / max|b|) of logits.  The plain
@@ -194,6 +225,8 @@ class Sizes:
     updates: int = 64
     iters: int = 20
     path_iters: int = 5            # timing runs at the training shapes
+    # tables of the direct-vs-slab sweep (B = N rows, K = agg_k)
+    sweep_n: tuple = (32_768, 65_536, 131_072, 262_144)
     full_steps: int = 5
     mb_steps: int = 20
     mb_b: int = 8192
@@ -213,7 +246,8 @@ class Sizes:
 
 
 FULL = Sizes()
-TINY = Sizes(agg_n=600, agg_b=300, n_serve=3_000, chunk=700,
+TINY = Sizes(agg_n=600, agg_b=300, sweep_n=(64, 128), n_serve=3_000,
+             chunk=700,
              n_gcn=1_000, queries=24, updates=8, iters=2, path_iters=1,
              full_steps=3, mb_steps=4, mb_b=64, fa_shape=(1, 192, 4, 2, 64),
              fa_windows=(0, 64), fa_iters=2, fa_long=(1, 640, 2, 1, 64),
@@ -234,9 +268,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, dev: torch.device, iters: int, warmup: int = 3) -> float:
+def time_ms(fn, dev: torch.device, iters: int, warmup: int = 3,
+            flush=None) -> float:
     """Mean time of one ``fn()`` over ``iters`` back-to-back runs: CUDA
-    events on the card, the host clock on the CPU (rehearsal only)."""
+    events on the card, the host clock on the CPU (rehearsal only).  With
+    ``flush`` (a tensor larger than L2), the tensor is zeroed before each
+    run and an event pair times each run alone."""
     for _ in range(warmup):
         fn()
     if dev.type != "cuda":
@@ -245,6 +282,17 @@ def time_ms(fn, dev: torch.device, iters: int, warmup: int = 3) -> float:
             fn()
         return (time.perf_counter() - t0) * 1e3 / iters
     torch.cuda.synchronize(dev)
+    if flush is not None:
+        pairs = []
+        for _ in range(iters):
+            flush.zero_()
+            pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            pair[0].record()
+            fn()
+            pair[1].record()
+            pairs.append(pair)
+        torch.cuda.synchronize(dev)
+        return sum(a.elapsed_time(b) for a, b in pairs) / iters
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -325,6 +373,89 @@ def compare(name, dtype, out, ref, tol=None) -> float:
     return err
 
 
+_FLUSH = {}
+
+
+def flush_buffer(dev):
+    """A tensor larger than L2, zeroed between timed launches (a small
+    one on the CPU, where nothing is cached that matters)."""
+    if dev not in _FLUSH:
+        n = L2_FLUSH_BYTES // 4 if dev.type == "cuda" else 1024
+        _FLUSH[dev] = torch.empty(n, dtype=torch.float32, device=dev)
+    return _FLUSH[dev]
+
+
+def tiled(case, route=None, slab_bytes=None):
+    """The tiled forward through its wrapper: on the route ``tiled_plan``
+    gives, or forced to ``route`` (at ``slab_bytes``) for the
+    side-by-side checks and times."""
+    if route is None:
+        return ops.neighbor_agg(*case, use_kernel=True)
+    with ops._tiled_route(route, slab_bytes):
+        return ops.neighbor_agg(*case, use_kernel=True)
+
+
+def as_f32(case):
+    return [x if x is None or x.dtype == torch.int32 else x.float()
+            for x in case]
+
+
+def plan_of(case):
+    feats, idx = case[0], case[1]
+    return ops.tiled_plan(feats.shape[0], idx.shape[0], idx.shape[1],
+                          feats.shape[1], feats.dtype)
+
+
+def check_routes(name, case, ref32=None) -> dict:
+    """Both routes of the tiled forward on ``case``, row by row against
+    the plain version run in f32 (``FWD_ROW_TOL``); the slab route
+    bit-equal to the direct route and to a second call of itself.
+    Returns each route's row error."""
+    dtype = case[0].dtype
+    want = neighbor_agg_ref(*as_f32(case)) if ref32 is None else ref32
+    got = {r: tiled(case, r) for r in ops.TILED_ROUTES}
+    errs = {r: row_rel_err(out, want) for r, out in got.items()}
+    for r, err in errs.items():
+        check(err <= FWD_ROW_TOL[dtype], f"{name}: {r} route row error "
+              f"{err} beyond {FWD_ROW_TOL[dtype]}")
+    check(torch.equal(got["slab"], got["direct"]),
+          f"{name}: the slab and direct routes differ")
+    check(torch.equal(got["slab"], tiled(case, "slab")),
+          f"{name}: two calls of the slab route differ")
+    return errs
+
+
+def time_routes(case, dev, iters, warmup=3, widths=False) -> dict:
+    """Both routes on the same inputs, back to back and with L2 flushed
+    before each launch; beside them the route and slab layout the plan
+    gives.  With ``widths``, the slab route at every slab width too (back
+    to back)."""
+    plan = plan_of(case)
+    flush = flush_buffer(dev)
+    out = {"planned": plan.route, "slab_bytes": ops.SLAB_BYTES,
+           "slab_passes": len(plan.bounds)}
+    for r in ops.TILED_ROUTES:
+        out[r] = {"ms": time_ms(lambda: tiled(case, r), dev, iters, warmup),
+                  "ms_l2_flushed": time_ms(lambda: tiled(case, r), dev,
+                                           iters, 1, flush)}
+    if widths:
+        out["slab_width_ms"] = {
+            str(sb): time_ms(lambda: tiled(case, "slab", sb), dev, iters, 1)
+            for sb in ops.SLAB_WIDTHS}
+    return out
+
+
+def routes_line(t: dict, errs: dict) -> str:
+    return (f"planned {t['planned']}; slab {t['slab']['ms']:.4f} ms "
+            f"({t['slab']['ms_l2_flushed']:.4f} L2 flushed, row error "
+            f"{errs['slab']:.4g}), direct {t['direct']['ms']:.4f} ms "
+            f"({t['direct']['ms_l2_flushed']:.4f} L2 flushed, row error "
+            f"{errs['direct']:.4g}), bit-equal"
+            + (f"; slab by width (B): "
+               f"{ {k: round(v, 4) for k, v in t['slab_width_ms'].items()} }"
+               if "slab_width_ms" in t else ""))
+
+
 def kernel_phase(dev, sz: Sizes) -> dict:
     """Kernel vs plain version at the serving path's shapes and ragged
     ones; returns the measured main variants keyed (dtype, d, fused)."""
@@ -352,9 +483,16 @@ def kernel_phase(dev, sz: Sizes) -> dict:
                             idx, feats, mode="sum", per_sample_weights=w),
                         dev, sz.iters)
                 b_ms, b_by, nbytes = bound(feats, idx, self_rows)
+                rows = check_routes(name, case)
+                routes = time_routes(case, dev, sz.iters)
                 measured[(dtype, d, fused)] = dict(
                     max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                    bound_by=b_by, library_ms=lib_ms)
+                    bound_by=b_by, library_ms=lib_ms,
+                    row_rel_err=rows[routes["planned"]],
+                    row_rel_err_by_route=rows,
+                    row_check_limit=FWD_ROW_TOL[dtype], routes=routes)
+                print(f"kernel {name}: routes: {routes_line(routes, rows)}",
+                      flush=True)
                 print(f"kernel {name}: max_err={err:.3g} "
                       f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                       f"library_ms="
@@ -373,13 +511,19 @@ def kernel_phase(dev, sz: Sizes) -> dict:
                         f"{'fused' if fused else 'unfused'}")
                 err = compare(name, dtype, agg(*case),
                               neighbor_agg_ref(*case))
-                print(f"kernel {name}: max_err={err:.3g}", flush=True)
+                rows = check_routes(name, case)
+                print(f"kernel {name}: max_err={err:.3g}; row error slab "
+                      f"{rows['slab']:.4g} direct {rows['direct']:.4g} "
+                      f"(limit {FWD_ROW_TOL[dtype]}), bit-equal", flush=True)
         # all-zero weights: exactly 0, not merely close
         feats, idx, w, _, _ = make_case(gen, dev, 64, 100, sz.agg_k, 172,
                                         dtype, False, zero=True)
-        out = agg(feats, idx, w)
-        check(bool((out == 0).all()), f"zero weights {dtype}: not all 0")
-        print(f"kernel zero-weights {str(dtype)[6:]}: exactly 0", flush=True)
+        for route in (None,) + ops.TILED_ROUTES:
+            out = tiled((feats, idx, w), route)
+            check(bool((out == 0).all()),
+                  f"zero weights {dtype} ({route or 'planned'}): not all 0")
+        print(f"kernel zero-weights {str(dtype)[6:]}: exactly 0 (both "
+              f"routes)", flush=True)
         # an id outside [0, N) poisons its row instead of reading memory
         feats, idx, w, _, _ = make_case(gen, dev, 64, 16, 5, 40, dtype,
                                         False)
@@ -392,9 +536,41 @@ def kernel_phase(dev, sz: Sizes) -> dict:
             keep[3] = False
             compare(f"out-of-range id {dtype}", dtype, out[keep],
                     neighbor_agg_ref(feats, idx[keep], w[keep]))
+            # D = 40 spans 2 (bf16) or 3 (f32) slabs of 32 B and more of
+            # narrower ones: the row is NaN in every slab
+            for sb in ops.SLAB_WIDTHS:
+                slab = tiled((feats, idx, w), "slab", sb)
+                check(bool(torch.isnan(slab[3]).all())
+                      and torch.equal(slab[keep], out[keep]),
+                      f"slab route at {sb} B: out-of-range id did not "
+                      f"poison its whole row, or other rows moved")
+    measured["sweep"] = table_sweep(dev, sz, gen)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return measured
+
+
+def table_sweep(dev, sz: Sizes, gen) -> list:
+    """Both routes at tables around L2's size (B = N rows, K = agg_k,
+    random ids): where the direct route keeps up, the plan's
+    ``L2_TABLE_BYTES``."""
+    rows = []
+    for dtype, d in ((torch.bfloat16, 128), (torch.float32, 128),
+                     (torch.float32, 256)):
+        for n in sz.sweep_n:
+            case = make_case(gen, dev, n, n, sz.agg_k, d, dtype, False)
+            t = {r: time_ms(lambda: tiled(case, r), dev, sz.iters)
+                 for r in ops.TILED_ROUTES}
+            table = n * d * case[0].element_size()
+            rows.append(dict(dtype=str(dtype)[6:], n=n, d=d,
+                             table_bytes=table, planned=plan_of(case).route,
+                             slab_ms=t["slab"], direct_ms=t["direct"]))
+            print(f"kernel sweep {str(dtype)[6:]} B=N={n} K={sz.agg_k} D={d}"
+                  f" (table {table / 2 ** 20:.0f} MiB): slab "
+                  f"{t['slab']:.4f} ms, direct {t['direct']:.4f} ms, "
+                  f"planned {rows[-1]['planned']}", flush=True)
+            del case
+    return rows
 
 
 def library_ms(fn, dev, iters):
@@ -605,21 +781,61 @@ def csr_full_graph(dev, sz: Sizes, gen, name, feats, idx, w, g) -> dict:
                 index_bytes=rev.nbytes, index_nnz=rev.nnz)
 
 
+def forward_faults(name, case, ref32) -> dict:
+    """Outputs a faulty slab kernel could give at this shape, each of
+    which the row check must reject: one dropped edge a row (edge 0),
+    a row's first edge taken twice, slab 0 reading its columns shifted by
+    one (the last of them its neighbour's first column), and the last
+    slab skipped over an output of random values.  Returns each fault's
+    row error."""
+    feats, idx, w = case[:3]
+    dtype = feats.dtype
+    lo, hi = plan_of(case).bounds[0]
+    shifted = feats.clone()
+    shifted[:, lo:hi] = feats[:, lo + 1:hi + 1]
+    skipped = tiled(case, "slab").clone()
+    last = plan_of(case).bounds[-1][0]
+    skipped[:, last:] = torch.randn_like(skipped[:, last:].float()).to(dtype)
+    bad = {"one dropped edge a row": tiled(
+               (feats, idx, torch.cat([torch.zeros_like(w[:, :1]), w[:, 1:]],
+                                      1)), "slab"),
+           "a row's first edge twice": tiled(
+               (feats, idx, torch.cat([w[:, :1] * 2, w[:, 1:]], 1)), "slab"),
+           "slab 0 shifted by one column": tiled((shifted, idx, w), "slab"),
+           "last slab skipped": skipped}
+    faults = {}
+    for fault, out in bad.items():
+        r = row_rel_err(out, ref32)
+        check(r > FWD_ROW_TOL[dtype], f"{name}: the row check passes the "
+              f"planted fault '{fault}' ({r} <= {FWD_ROW_TOL[dtype]})")
+        faults[fault] = r
+    return faults
+
+
 def fullgraph_forward_times(dev, sz: Sizes, gen, idx, w) -> dict:
     """The tiled forward at the full-graph shape (B = N, the real ELL),
     bf16 at layer 1's and layer 2's gather widths: checked against its
-    plain version and timed beside it, ``embedding_bag`` and the bound."""
+    plain version (2e-2, and row by row against it in f32 on both
+    routes, with planted faults), and timed beside it, ``embedding_bag``
+    and the bound, both routes with and without an L2 flush and the slab
+    route at every width."""
     out = {}
     n = idx.shape[0]
     for d in sz.agg_d:
         feats = torch.randn(n, d, generator=gen, device=dev).to(
             torch.bfloat16)
+        case = (feats, idx, w)
         name = (f"tiled forward at the full-graph shape: bf16 N=B={n} "
                 f"K={idx.shape[1]} D={d}")
         run = lambda: ops.neighbor_agg(feats, idx, w,  # noqa: E731
                                        use_kernel=True)
         err = compare(name, torch.bfloat16, run(),
                       neighbor_agg_ref(feats, idx, w))
+        ref32 = neighbor_agg_ref(*as_f32(case))
+        rows = check_routes(name, case, ref32)
+        faults = forward_faults(name, case, ref32)
+        del ref32
+        routes = time_routes(case, dev, sz.path_iters, 1, widths=True)
         k_ms = time_ms(run, dev, sz.path_iters, 1)
         p_ms = time_ms(lambda: neighbor_agg_ref(feats, idx, w), dev,
                        sz.path_iters, 1)
@@ -629,13 +845,72 @@ def fullgraph_forward_times(dev, sz: Sizes, gen, idx, w) -> dict:
         b_ms, b_by, nbytes = bound(feats, idx, None)
         out[d] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                       bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                      row_rel_err=rows[routes["planned"]],
+                      row_rel_err_by_route=rows,
+                      row_check_limit=FWD_ROW_TOL[torch.bfloat16],
+                      planted_faults=faults, routes=routes,
                       shape=name[len("tiled forward at the full-graph "
                                      "shape: "):])
+        print(f"{name}: routes: {routes_line(routes, rows)}; planted "
+              f"faults (slab route, row error) {faults}", flush=True)
         print(f"{name}: max_err={err:.3g} kernel_ms={k_ms:.4f} "
               f"plain_ms={p_ms:.4f} library_ms={fmt(lib)} (embedding_bag) "
               f"bound_ms={b_ms:.4f} (bound by {b_by}: {nbytes} B)",
               flush=True)
-        del feats
+        del feats, case
+    return out
+
+
+def minibatch_levels(sz: Sizes, widths) -> list:
+    """The tiled forwards of one mini-batch step (``core/gnn.py``
+    ``minibatch_forward``: layer l aggregates hop h+1 into hop h for
+    h < L - l, through ``_wsum`` with identity ids over the flattened
+    fan-out tree, so N = B * K): (label, B, K, D) with D the layer's
+    input width."""
+    fan = tuple(sz.mb_fanout)
+    out = []
+    for layer, d in enumerate(widths):
+        for hop in range(len(fan) - layer):
+            out.append((f"minibatch_l{layer + 1}_hop{hop}",
+                        sz.mb_b * math.prod(fan[:hop]), fan[hop], d))
+    return out
+
+
+def minibatch_forward_times(dev, sz: Sizes, widths) -> dict:
+    """The tiled forward at the mini-batch levels' own shapes (f32,
+    identity ids, GraphSAGE mask weights): both routes checked and timed
+    beside the plain version, ``embedding_bag`` and the bound."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = {}
+    for label, b, k, d in minibatch_levels(sz, widths):
+        feats = torch.randn(b * k, d, generator=gen, device=dev)
+        idx = torch.arange(b * k, dtype=torch.int32,
+                           device=dev).reshape(b, k)
+        w = (torch.rand(b, k, generator=gen, device=dev) > 0.1).float()
+        case = (feats, idx, w)
+        name = (f"tiled forward at the mini-batch level {label}: f32 "
+                f"N={b * k} B={b} K={k} D={d}, identity ids")
+        err = compare(name, torch.float32, tiled(case),
+                      neighbor_agg_ref(*case))
+        rows = check_routes(name, case)
+        routes = time_routes(case, dev, sz.iters)
+        p_ms = time_ms(lambda: neighbor_agg_ref(*case), dev, sz.iters)
+        lib = library_ms(lambda: torch.nn.functional.embedding_bag(
+            idx, feats, mode="sum", per_sample_weights=w), dev, sz.iters)
+        b_ms, b_by, nbytes = bound(feats, idx, None)
+        out[label] = dict(max_abs_err=err,
+                          ms=routes[routes["planned"]]["ms"], plain_ms=p_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                          row_rel_err=rows[routes["planned"]],
+                          row_rel_err_by_route=rows,
+                          row_check_limit=FWD_ROW_TOL[torch.float32],
+                          routes=routes, shape=name[len(
+                              "tiled forward at the mini-batch level "):])
+        print(f"{name}: routes: {routes_line(routes, rows)}; "
+              f"max_err={err:.3g} plain_ms={p_ms:.4f} library_ms={fmt(lib)} "
+              f"(embedding_bag) bound_ms={b_ms:.4f} (bound by {b_by}: "
+              f"{nbytes} B)", flush=True)
+        del feats, idx, w, case
     return out
 
 
@@ -903,22 +1178,57 @@ def training_phase(dev, sz: Sizes, graph) -> dict:
     check(lf[-1] < lf[0], f"full-graph loss did not fall: {lf}")
     check(0.0 <= res_f.final_test_acc <= 1.0
           and 0.0 <= res_m.final_test_acc <= 1.0, "test accuracy out of range")
+    # the tiled forward's routes the plan gives at the full-graph widths
+    # (layer 1 gathers the input width, layer 2 the classes: GraphSAGE's
+    # narrowing layer transforms first) and at the mini-batch levels.
+    # Evaluation runs full-graph forwards in both runs: the mini-batch
+    # run's launches are its steps' levels, then those forwards.
+    fg_routes = [ops.tiled_plan(graph.n, graph.n, cfg.max_degree, d,
+                                torch.bfloat16).route
+                 for d in (cfg.feat_dim, cfg.n_classes)]
+    levels = minibatch_levels(sz, (cfg.feat_dim, cfg.hidden))
+    mb_routes = {ops.tiled_plan(b * k, b, k, d, torch.float32).route
+                 for _, b, k, d in levels}
+    mb_steps = len(lm) * len(levels)
+
+    def want_routes(forwards, direct=0):
+        return {f"tiled_{r}": forwards * fg_routes.count(r)
+                + (direct if r == "direct" else 0) for r in ops.TILED_ROUTES}
+    want_f = want_routes(after_f["tiled"] // len(fg_routes))
+    want_m = want_routes((launches_m["tiled"] - mb_steps) // len(fg_routes),
+                         mb_steps)
+    print(f"train: tiled forward routes: full-graph {fg_routes} (layers 1, "
+          f"2), mini-batch levels {sorted(mb_routes)}; expected launches "
+          f"{want_f} full-graph run, {want_m} mini-batch run ({mb_steps} at "
+          f"the levels, the rest its full-graph evaluations)", flush=True)
     if dev.type == "cuda":
         check(after_f["tiled"] > 0 and after_f["backward"] == 0
               and after_f["backward_csr"] == len(lf),
               f"full-graph steps launched the kernels {after_f}: not the "
               f"reverse-index backward once a step and the atomic one never")
+        check(after_f["tiled"] % len(fg_routes) == 0
+              and {k: after_f[k] for k in want_f} == want_f,
+              f"full-graph steps launched the tiled forward's routes "
+              f"{after_f}, not the planned {fg_routes} in every forward")
+        check(mb_routes == {"direct"}
+              and (launches_m["tiled"] - mb_steps) % len(fg_routes) == 0
+              and {k: launches_m[k] for k in want_m} == want_m,
+              f"mini-batch run launched the tiled forward's routes "
+              f"{launches_m}: not the direct route at every level "
+              f"({mb_steps}) and the planned {fg_routes} in its "
+              f"evaluations")
         check(launches_m["tiled"] > 0 and launches_m["backward"] > 0
               and launches_m["backward_csr"] == 0,
               f"mini-batch steps launched the kernels {launches_m}: not "
               f"the atomic backward alone")
 
     # ---- checks and timings outside the counted window
+    out_mb = minibatch_forward_times(dev, sz, (cfg.feat_dim, cfg.hidden))
     params = res_m.params
     leaves = [v for p in params for v in p.values()]
     out = {"counts": counts, "counts_full": after_f,
            "counts_mb": launches_m, "full_ms": per_step_ms(res_f.history),
-           "mb_ms": per_step_ms(res_m.history)}
+           "mb_ms": per_step_ms(res_m.history), "mb_forward": out_mb}
     for label, src, tol in (
             ("full-graph (bf16 aggregation)",
              E.FullGraphSource(max_deg=cfg.max_degree), 2e-2),
@@ -965,6 +1275,20 @@ def training_phase(dev, sz: Sizes, graph) -> dict:
                   f"{turns['reverse_index']} ms with the reverse-index "
                   f"backward, {turns['atomic']} ms with the atomic one",
                   flush=True)
+            # the tiled forward's routes in turns: as planned, and every
+            # forward forced to one route
+            by_route = {"planned": [], "direct": [], "slab": []}
+            for which in ("planned", "direct", "slab", "slab", "direct",
+                          "planned"):
+                with (contextlib.nullcontext() if which == "planned"
+                      else ops._tiled_route(which)):
+                    by_route[which].append(time_ms(lambda: step(rev), dev,
+                                                   5, 1))
+            out["full_device_ms_by_route"] = {
+                k: float(np.mean(v)) for k, v in by_route.items()}
+            print(f"train: full-graph device step by tiled-forward route "
+                  f"(CUDA events, in turns on the same parameters): "
+                  f"{by_route} ms", flush=True)
             prof = profile_device(dev, step) if dev.type == "cuda" else {}
             if prof:
                 print(f"train: profiled full-graph step: wall "
@@ -1049,13 +1373,16 @@ def serving_phase(dev, sz: Sizes, graph) -> dict:
         t0 = time.perf_counter()
         infos.append((store.refresh(), time.perf_counter() - t0))
     launches = ops.launches
+    counts = ops.launch_counts()
     # ---- end of the main path
 
     print(f"serve: build {build_s:.3f} s "
           f"({1e3 * build_s / graph.n:.6f} ms/node, per layer "
           f"{run.stats['per_layer_s']}, {run.stats['n_chunks']} chunks of "
           f"{run.stats['chunk_size']}), kernel launches: build "
-          f"{build_launches}, main path {launches}", flush=True)
+          f"{build_launches}, main path {launches} (tiled forward by "
+          f"route: slab {counts['tiled_slab']}, direct "
+          f"{counts['tiled_direct']})", flush=True)
     print(f"serve: {st['n_requests']} requests / {st['n_queries']} nodes "
           f"in {st['n_batches']} batches: p50_ms={st['p50_ms']:.4f} "
           f"p99_ms={st['p99_ms']:.4f} qps={st['qps']:.1f}", flush=True)
@@ -1066,6 +1393,11 @@ def serving_phase(dev, sz: Sizes, graph) -> dict:
     if dev.type == "cuda":
         check(launches > 0 and build_launches > 0,
               f"serving path launched the kernel {launches} times")
+        # the build's chunks and the refreshes gather for fewer rows than
+        # the table has (B < N): the plan's direct route
+        check(sz.chunk >= graph.n or counts["tiled_slab"] == 0,
+              f"serving path launched the tiled forward's routes {counts}: "
+              f"not the direct route at B < N")
 
     # ---- checks (outside the counted window)
     plain = dataclasses.replace(cfg, use_agg_kernel=False)
@@ -1102,7 +1434,7 @@ def serving_phase(dev, sz: Sizes, graph) -> dict:
                       torch.bfloat16, a, b)
         print(f"serve: refreshed layer {li + 1} max_abs_err vs full "
               f"rebuild {err:.4g}", flush=True)
-    return dict(launches=launches, build_s=build_s, stats=st)
+    return dict(launches=launches, counts=counts, build_s=build_s, stats=st)
 
 
 def gcn_phase(dev, sz: Sizes) -> dict:
@@ -1121,9 +1453,11 @@ def gcn_phase(dev, sz: Sizes) -> dict:
     run = store.build()
     build_s = time.perf_counter() - t0
     launches = ops.launches
+    counts = ops.launch_counts()
     print(f"gcn: n={graph.n} build {build_s:.3f} s, per layer "
-          f"{run.stats['per_layer_s']}, kernel launches {launches}",
-          flush=True)
+          f"{run.stats['per_layer_s']}, kernel launches {launches} (tiled "
+          f"forward by route: slab {counts['tiled_slab']}, direct "
+          f"{counts['tiled_direct']})", flush=True)
     if dev.type == "cuda":
         check(launches > 0, f"GCN path launched the kernel {launches} times")
     t0 = time.perf_counter()
@@ -1140,7 +1474,29 @@ def gcn_phase(dev, sz: Sizes) -> dict:
               f"gcn layer {li + 1}: max_abs_err {err} beyond 1e-4")
         print(f"gcn: layer {li + 1} {tuple(a.shape)} max_abs_err vs plain "
               f"forward {err:.4g}", flush=True)
-    return dict(launches=launches)
+    # both routes at the build's own shapes: each layer's gather source
+    # (layer 2 transforms first: 256 -> 172 narrows), the chunk's ELL
+    # rows, its self rows fused
+    idx, w, w_self = t[1:]
+    by_shape = {}
+    for li, table in enumerate((t[0], run.layers[0] @ params[1]["w"])):
+        c = sz.chunk
+        case = (table, idx[:c], w[:c], table[:c], w_self[:c])
+        name = (f"gcn layer {li + 1} gather: f32 fused N={graph.n} B={c} "
+                f"K={idx.shape[1]} D={table.shape[1]}")
+        rows = check_routes(name, case)
+        routes = time_routes(case, dev, sz.iters)
+        b_ms, b_by, _ = bound(table, idx[:c], table[:c])
+        by_shape[f"gcn_l{li + 1}_d{table.shape[1]}"] = dict(
+            ms=routes[routes["planned"]]["ms"], bound_ms=b_ms, bound_by=b_by,
+            plain_ms=time_ms(lambda: neighbor_agg_ref(*case), dev,
+                             sz.iters),
+            library_ms=None, row_rel_err=rows[routes["planned"]],
+            row_rel_err_by_route=rows, row_check_limit=FWD_ROW_TOL[
+                torch.float32], routes=routes, shape=name[len("gcn "):])
+        print(f"{name}: routes: {routes_line(routes, rows)}; bound_ms="
+              f"{b_ms:.4f} (bound by {b_by})", flush=True)
+    return dict(launches=launches, counts=counts, by_shape=by_shape)
 
 
 def flash_bound(b, s, hq, hkv, d, window, dtype) -> tuple:
@@ -1625,28 +1981,52 @@ def run(dev: torch.device, sz: Sizes) -> dict:
     w1 = sz.fa_windows[1]
     cell = f"B={sz.agg_b} K={sz.agg_k} D={d} N={sz.agg_n}"
     tf, tm = train["counts_full"], train["counts_mb"]
+    by_route = {r: {"slab": c["tiled_slab"], "direct": c["tiled_direct"]}
+                for r, c in (("train_fullgraph", tf), ("train_minibatch", tm),
+                             ("serve", serve["counts"]),
+                             ("gcn_serve", gcn["counts"]))}
+    sources = {"slab": CSRC + "neighbor_agg_slab.cu",
+               "direct": CSRC + "neighbor_agg.cu"}
+    fg = bwd["fullgraph_fwd"]
+    chunk = {f"serving_chunk_d{dd}": dict(
+        measured[(torch.bfloat16, dd, False)],
+        shape=f"bf16, unfused, B={sz.agg_b} K={sz.agg_k} D={dd} "
+              f"N={sz.agg_n}") for dd in sz.agg_d}
+    # the top-level numbers are the serving chunk at D = 172, so that
+    # lines of different runs compare on one shape; the slab kernel's own
+    # entry is the full-graph shape of layer 1, where the plan takes it
+    # (the routes are bit-equal, check_routes, so the planned route's
+    # max_abs_err is the slab's)
+    top = measured[(torch.bfloat16, d, False)]
+    fg1 = fg[min(fg)]
     kernels = [
         {"name": "neighbor_agg_tiled", "route": "cuda",
-         "source": CSRC + "neighbor_agg.cu",
+         "source": sources[top["routes"]["planned"]], "sources": sources,
          "replaces": REF_AGG + "neighbor_agg.py:192",
          "launches": train["counts"]["tiled"],
          "launches_by_path": {"train_fullgraph": tf["tiled"],
                               "train_minibatch": tm["tiled"],
                               "serve": serve["launches"]},
-         **measured[(torch.bfloat16, d, False)],
+         "launches_by_path_and_route": by_route,
+         **top,
          "shape": f"bf16, unfused, {cell} (the serving chunk)",
          "by_shape": {
-             f"fullgraph_d{dd}": dict(
+             **{f"fullgraph_d{dd}": dict(
                  m, launches=f"{tf['tiled']} over both widths (one each "
                              f"a full-graph forward)")
-             for dd, m in bwd["fullgraph_fwd"].items()}},
+                for dd, m in fg.items()},
+             **chunk, **train["mb_forward"]},
+         "l2_table_sweep": measured["sweep"]},
         {"name": "neighbor_agg_tiled_fused", "route": "cuda",
-         "source": CSRC + "neighbor_agg.cu",
+         "source": sources[measured[(torch.float32, d, True)]["routes"][
+             "planned"]], "sources": sources,
          "replaces": REF_AGG + "neighbor_agg.py:192",
          "launches": gcn["launches"],
          "launches_by_path": {"gcn_serve": gcn["launches"]},
+         "launches_by_path_and_route": {"gcn_serve": by_route["gcn_serve"]},
          **measured[(torch.float32, d, True)],
-         "shape": f"f32, fused self epilogue, {cell}"},
+         "shape": f"f32, fused self epilogue, {cell}",
+         "by_shape": gcn["by_shape"]},
         {"name": "neighbor_agg_backward", "route": "cuda",
          "source": CSRC + "neighbor_agg_bwd.cu",
          "replaces": REF_AGG + "ops.py:55",
@@ -1706,6 +2086,18 @@ def run(dev: torch.device, sz: Sizes) -> dict:
          f"window_{w1}": _simt_on_bf16(flash[(torch.bfloat16, w1)]),
          "f32_window_0": _own(flash[(torch.float32, 0)]),
          f"f32_window_{w1}": _own(flash[(torch.float32, w1)])},
+        {"name": "neighbor_agg_tiled_slab", "route": "cuda",
+         "source": sources["slab"],
+         "replaces": REF_AGG + "neighbor_agg.py:192",
+         "launches": train["counts"]["tiled_slab"],
+         "launches_by_path": {p: c["slab"] for p, c in by_route.items()},
+         **{k: v for k, v in fg1.items() if k != "routes"},
+         "ms": fg1["routes"]["slab"]["ms"],
+         "ms_l2_flushed": fg1["routes"]["slab"]["ms_l2_flushed"],
+         "row_rel_err": fg1["row_rel_err_by_route"]["slab"],
+         "direct_route_ms_same_inputs": fg1["routes"]["direct"]["ms"],
+         "slab_width_ms": fg1["routes"]["slab_width_ms"],
+         "shape": f"bf16, unfused, full-graph {fg1['shape']} (layer 1)"},
     ]
     return {"kernels": kernels}
 

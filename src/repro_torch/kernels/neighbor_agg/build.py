@@ -1,6 +1,6 @@
 """The neighbor-aggregation CUDA library (every ``csrc/*.cu`` here: the
-tiled forward, the backward, the reverse-index backward and the row
-kernel), built and loaded by the shared builder
+tiled forward's two routes, the backward, the reverse-index backward and
+the row kernel), built and loaded by the shared builder
 ``repro_torch.kernels.build``."""
 from __future__ import annotations
 
@@ -20,6 +20,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + tail
         fn.restype = ctypes.c_int
+    fn = lib.neighbor_agg_forward_slab       # + slab_cols
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + tail[:-1]
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
 
 
 LIBRARY = Library(os.path.dirname(os.path.abspath(__file__)), "neighbor_agg",

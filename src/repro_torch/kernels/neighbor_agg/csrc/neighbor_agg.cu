@@ -36,6 +36,10 @@
 //   other (0 * x == 0 exactly for finite x), matching the reference.
 // * An id outside [0, N) reads nothing and poisons its output row with
 //   NaN instead of reading stray memory.
+// * The arithmetic is pinned with __fmul_rn / __fmaf_rn (the fused
+//   init is one rounded product, each edge one fused multiply-add, in k
+//   order): the slab route (neighbor_agg_slab.cu) takes the same chain,
+//   so the two routes are bit-equal whatever the compiler contracts.
 // Pipelining the row loads through shared memory (cp.async / TMA) is
 // left for a later change; this version is plain and right first.
 
@@ -84,7 +88,8 @@ __global__ void __launch_bounds__(kWarp * kRowsPerBlock)
     const int d = d0 + lane + kWarp * j;
     acc[j] = 0.f;
     if (FUSED && d < d_total) {
-      acc[j] = to_f32(w_self[b]) * to_f32(self_rows[b * d_total + d]);
+      acc[j] = __fmul_rn(to_f32(w_self[b]),
+                         to_f32(self_rows[b * d_total + d]));
     }
   }
 
@@ -113,7 +118,7 @@ __global__ void __launch_bounds__(kWarp * kRowsPerBlock)
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int d = d0 + lane + kWarp * j;
-        if (d < d_total) acc[j] += wk * to_f32(row[d]);
+        if (d < d_total) acc[j] = __fmaf_rn(wk, to_f32(row[d]), acc[j]);
       }
     }
   }

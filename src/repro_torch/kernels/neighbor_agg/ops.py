@@ -9,7 +9,11 @@
   differentiated by torch autograd;
 * ``use_kernel=True`` — a ``torch.autograd.Function`` (``_Agg``, or
   ``_AggSelf`` with the fused epilogue) whose forward is the tiled CUDA
-  kernel (``csrc/neighbor_agg.cu``) or, for ``kernel="row"``, the row
+  forward, on the route ``tiled_plan`` picks from the shapes alone: the
+  slab route (``csrc/neighbor_agg_slab.cu``, column slabs walked one
+  after another) or the direct route (``csrc/neighbor_agg.cu``, whole
+  rows in one pass), bit-equal to each other; or, for ``kernel="row"``,
+  the row
   kernel (``csrc/neighbor_agg_row.cu``, self term added outside as the
   reference does), and whose backward is the CUDA backward kernel
   (``csrc/neighbor_agg_bwd.cu``).  On a CUDA tensor each of them
@@ -37,14 +41,16 @@ summed in f32 and cast to ``feats.dtype``; ``dw`` is in ``w.dtype``.
 The kernels mask ragged B/K/D themselves, so nothing is padded to tiles.
 
 One launch counter per kernel, changed only where that kernel launches:
-``launches`` (tiled forward), ``backward_launches``,
-``backward_csr_launches`` and ``row_launches``.
+``launches`` (tiled forward, both routes), ``backward_launches``,
+``backward_csr_launches`` and ``row_launches``; ``launch_counts()`` also
+splits the tiled forward by route (``tiled_slab``, ``tiled_direct``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -52,8 +58,11 @@ from repro_torch.kernels.neighbor_agg.ref import (
     neighbor_agg_backward_csr_ref, neighbor_agg_backward_ref,
     neighbor_agg_ref)
 
-#: launches of the tiled forward kernel
+#: launches of the tiled forward kernel (both routes)
 launches = 0
+#: launches of the tiled forward by route
+slab_launches = 0
+direct_launches = 0
 #: launches of the backward kernel
 backward_launches = 0
 #: launches of the reverse-index backward kernel
@@ -66,23 +75,31 @@ _count_lock = threading.Lock()
 def reset_launches() -> None:
     """Set every kernel's launch counter to 0."""
     global launches, backward_launches, backward_csr_launches, row_launches
+    global slab_launches, direct_launches
     with _count_lock:
         launches = backward_launches = backward_csr_launches = 0
-        row_launches = 0
+        row_launches = slab_launches = direct_launches = 0
 
 
 def launch_counts() -> dict:
-    """The launch counters by kernel: tiled, backward, backward_csr,
-    row."""
+    """The launch counters by kernel: tiled (both routes), backward,
+    backward_csr, row; and the tiled forward by route: tiled_slab,
+    tiled_direct."""
     return {"tiled": launches, "backward": backward_launches,
-            "backward_csr": backward_csr_launches, "row": row_launches}
+            "backward_csr": backward_csr_launches, "row": row_launches,
+            "tiled_slab": slab_launches, "tiled_direct": direct_launches}
 
 
 def _count(name: str) -> None:
     global launches, backward_launches, backward_csr_launches, row_launches
+    global slab_launches, direct_launches
     with _count_lock:
-        if name == "tiled":
+        if name == "tiled_slab":
             launches += 1
+            slab_launches += 1
+        elif name == "tiled_direct":
+            launches += 1
+            direct_launches += 1
         elif name == "backward":
             backward_launches += 1
         elif name == "backward_csr":
@@ -150,6 +167,80 @@ def build_reverse_index(idx: torch.Tensor, w: torch.Tensor,
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+#: the routes of the tiled forward
+TILED_ROUTES = ("slab", "direct")
+#: the slab widths (bytes of a row) the slab kernel takes
+SLAB_WIDTHS = (32, 64, 128, 256)
+#: the slab width the plan uses: 128 B, one L2 line (PERF.md section 6:
+#: each width timed at the full-graph shape on the H100)
+SLAB_BYTES = 128
+#: L2's line: the plan takes the slab route only where a row is a whole
+#: number of lines, so each 128 B slab is whole lines
+LINE_BYTES = 128
+#: the largest feature table (N * D bytes) the direct route keeps at
+#: every shape: at or below it the direct route was as fast or faster
+#: (PERF.md section 6)
+L2_TABLE_BYTES = 32 * 2 ** 20
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledPlan:
+    """How the tiled forward runs at one shape: ``route`` (``"slab"`` or
+    ``"direct"``) and the slab route's layout (given whichever route is
+    taken, so a forced slab route has it): ``bounds`` = ``((c0, c1),
+    ...)`` covering ``[0, D)`` once, each ``slab_cols`` wide but the
+    last."""
+    route: str
+    slab_cols: int
+    bounds: Tuple[Tuple[int, int], ...]
+
+
+def tiled_plan(n: int, b: int, k: int, d: int, dtype: torch.dtype,
+               slab_bytes: Optional[int] = None) -> TiledPlan:
+    """The route of the tiled forward from the shapes alone: feats
+    [n, d] in ``dtype``, idx [b, k].  ``"slab"`` where the call gathers
+    for every row of the table (``b >= n``: the full-graph forward) from
+    ids that repeat (``b * k > n``), the table is larger than
+    ``L2_TABLE_BYTES``, a row is a whole number of L2 lines and spans
+    more than one slab; else ``"direct"``.  The mini-batch identity ids
+    read each row once, and the serving build's chunks (``b < n``) start
+    with L2 cold, where the slab route measured slower.  Slabs are
+    ``slab_bytes`` (``SLAB_BYTES`` by default) of a row: 8-byte
+    multiples, so every slab starts 8-byte aligned within its row."""
+    el = torch.empty((), dtype=dtype).element_size()
+    slab_bytes = SLAB_BYTES if slab_bytes is None else slab_bytes
+    if slab_bytes not in SLAB_WIDTHS:
+        raise ValueError(f"slab_bytes must be one of {SLAB_WIDTHS}, got "
+                         f"{slab_bytes}")
+    cols = slab_bytes // el
+    bounds = tuple((c, min(c + cols, d)) for c in range(0, d, cols))
+    slab = (b >= n and b * k > n and n * d * el > L2_TABLE_BYTES
+            and d * el % LINE_BYTES == 0 and len(bounds) > 1)
+    return TiledPlan("slab" if slab else "direct", cols, bounds)
+
+
+_forced_route: Optional[Tuple[str, Optional[int]]] = None
+
+
+@contextlib.contextmanager
+def _tiled_route(route: str, slab_bytes: Optional[int] = None):
+    """Force the tiled forward's route (and, for ``"slab"``, its slab
+    width) on CUDA tensors inside the block, whatever ``tiled_plan``
+    says; CPU tensors still take the plain version.  For side-by-side
+    timing and tests only; process-wide, not thread-local."""
+    global _forced_route
+    if route not in TILED_ROUTES:
+        raise ValueError(f"route must be one of {TILED_ROUTES}, got "
+                         f"{route!r}")
+    if slab_bytes is not None and slab_bytes not in SLAB_WIDTHS:
+        raise ValueError(f"slab_bytes must be one of {SLAB_WIDTHS}, got "
+                         f"{slab_bytes}")
+    prev, _forced_route = _forced_route, (route, slab_bytes)
+    try:
+        yield
+    finally:
+        _forced_route = prev
+
 
 def _check_kernel_args(feats, idx, w, self_rows, w_self, rev=None) -> None:
     """Raise on anything the kernel does not take (checked on every
@@ -202,20 +293,30 @@ def _check_kernel_args(feats, idx, w, self_rows, w_self, rev=None) -> None:
 
 
 def _launch(feats, idx, w, self_rows, w_self):
+    """The tiled forward on the route ``tiled_plan`` gives (or the one
+    ``_tiled_route`` forces); a failed build or launch raises."""
     from repro_torch.kernels.neighbor_agg.build import load_library
     n, d = feats.shape
     b, k = idx.shape
+    forced = _forced_route
+    plan = tiled_plan(n, b, k, d, feats.dtype, forced and forced[1])
+    route = forced[0] if forced else plan.route
     out = torch.empty((b, d), dtype=feats.dtype, device=feats.device)
     if b == 0 or d == 0:                         # nothing to compute
         return out
     lib = load_library()
-    with torch.cuda.device(feats.device):     # launch on the tensors' card
-        err = lib.neighbor_agg_forward(
-            _DTYPE_CODE[feats.dtype], feats.data_ptr(), idx.data_ptr(),
+    args = (_DTYPE_CODE[feats.dtype], feats.data_ptr(), idx.data_ptr(),
             w.data_ptr(), _ptr(self_rows), _ptr(w_self), out.data_ptr(), n,
-            b, k, d, _stream(feats))
-    _raise_on(err, "neighbor_agg (tiled)", b, k, d, n, feats.dtype)
-    _count("tiled")
+            b, k, d)
+    with torch.cuda.device(feats.device):     # launch on the tensors' card
+        if route == "slab":
+            err = lib.neighbor_agg_forward_slab(*args, plan.slab_cols,
+                                                _stream(feats))
+        else:
+            err = lib.neighbor_agg_forward(*args, _stream(feats))
+    _raise_on(err, f"neighbor_agg (tiled, {route} route)", b, k, d, n,
+              feats.dtype)
+    _count("tiled_" + route)
     return out
 
 

@@ -11,6 +11,10 @@ cast, as the fused kernel's accumulator init does.  The CPU tests use it,
 the kernel wrapper takes it for CPU tensors, and ``chip_smoke.py`` holds
 the CUDA kernel against it on the card.
 
+Both routes of the tiled forward (``csrc/neighbor_agg.cu``,
+``csrc/neighbor_agg_slab.cu``) are held to ``neighbor_agg_ref`` row by
+row with ``FWD_ROW_TOL``.
+
 ``neighbor_agg_backward_csr_ref`` is the plain version of the
 reverse-index backward kernel (``csrc/neighbor_agg_bwd_csr.cu``): dfeats
 as a segment sum over the transposed ELL, held row by row with
@@ -26,6 +30,12 @@ import torch
 #: so no row's relative error can reach 2^-8 (f32 sums in another order
 #: differ by ~1e-7, far inside the margin of u^2).
 CSR_BF16_ROW_TOL = 2.0 ** -8
+
+#: the limits of ``row_rel_err`` for the tiled forward (either route)
+#: against its plain version run in f32 on the same inputs: one rounding
+#: of each output to bf16 (the argument of ``CSR_BF16_ROW_TOL``), and f32
+#: sums in another order (f32).
+FWD_ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
 
 
 def neighbor_agg_ref(feats, idx, w, self_rows=None, w_self=None):

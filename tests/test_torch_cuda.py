@@ -13,7 +13,10 @@ from run to run), 2e-2 (bf16).  The reverse-index backward kernel (the
 full-graph path's dfeats) row by row against its plain version in f32
 (``row_rel_err``): 1e-5 in f32, 2^-8 (one bf16 rounding) in bf16, rows
 with no edge exactly 0, repeat calls bit-equal, and a full-graph training
-step that launches it once and the atomic kernel never.
+step that launches it once and the atomic kernel never.  The tiled
+forward's slab route row by row against the plain version in f32 (the
+same limits) at ragged shapes and every slab width, bit-equal to the
+direct route and to itself, and the launch counts by route.
 
 The CUDA flash-attention kernels against their plain version (2e-5 f32,
 3e-2 bf16, the tolerances of tests/test_flash_attn.py; the tensor-core
@@ -331,6 +334,102 @@ def test_fullgraph_step_launches_reverse_index_kernel(cuda):
         assert n["tiled"] > 0
         assert {key: n[key] for key in want} == want, n
         tr.close()
+
+
+# ---------------------------------------------------------------------------
+# the tiled forward's slab route
+# ---------------------------------------------------------------------------
+
+def _routed(case, route, slab_bytes=None):
+    with ops._tiled_route(route, slab_bytes):
+        return neighbor_agg(*case, use_kernel=True)
+
+
+@pytest.mark.parametrize("slab_bytes", [32, 64, 128, 256])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,b,k", [(4096, 128, 1000, 32),
+                                     (4096, 172, 777, 32),
+                                     (1000, 37, 1001, 7),
+                                     (300, 300, 13, 33),
+                                     (100, 43, 77, 45),
+                                     (50, 20, 5, 0)])
+def test_slab_route_matches_plain_version(cuda, n, d, b, k, dtype, fused,
+                                          slab_bytes):
+    """Row by row against the plain version in f32 (``FWD_ROW_TOL``) at
+    ragged B, K and D (odd D: rows not 8-byte aligned) and K = 0; bit-equal
+    to the direct route; one launch of the slab route each call."""
+    from repro_torch.kernels.flash_attn.ref import row_rel_err
+    from repro_torch.kernels.neighbor_agg.ref import FWD_ROW_TOL
+    t = [torch.tensor(a, device=cuda) for a in
+         _inputs(n + d + k, n, d, b, k, fused)]
+    t = _cast(t, dtype)
+    counts = ops.launch_counts()
+    slab = _routed(t, "slab", slab_bytes)
+    assert ops.launch_counts() == dict(
+        counts, tiled=counts["tiled"] + 1,
+        tiled_slab=counts["tiled_slab"] + 1)
+    ref32 = neighbor_agg_ref(*[x if x.dtype == torch.int32 else x.float()
+                               for x in t])
+    assert row_rel_err(slab, ref32) <= FWD_ROW_TOL[dtype]
+    assert torch.equal(slab, _routed(t, "direct"))
+    assert torch.equal(slab, _routed(t, "slab", slab_bytes))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slab_route_zero_weights_and_bad_id(cuda, dtype):
+    """All-zero weights give exactly 0; an id outside [0, N) makes its
+    row NaN in every slab and leaves the others as the direct route has
+    them."""
+    feats, idx, w = _cast([torch.tensor(a, device=cuda) for a in
+                           _inputs(7, 64, 300, 16, 5, False)], dtype)
+    for sb in ops.SLAB_WIDTHS:
+        assert bool((_routed((feats, idx, torch.zeros_like(w)), "slab",
+                             sb) == 0).all())
+    idx[3, 2] = 64
+    direct = _routed((feats, idx, w), "direct")
+    keep = torch.arange(16, device=cuda) != 3
+    for sb in ops.SLAB_WIDTHS:
+        slab = _routed((feats, idx, w), "slab", sb)
+        assert bool(torch.isnan(slab[3]).all())
+        assert torch.equal(slab[keep], direct[keep])
+
+
+def test_tiled_forward_launches_the_planned_route(cuda):
+    """Without an override each call launches the route ``tiled_plan``
+    gives: slab where the call gathers for every row of a table larger
+    than the L2 budget, rows are whole lines and ids repeat; direct for a
+    chunk of the rows, at identity ids and at small tables.  The override
+    changes only the route; ``tiled`` counts both routes."""
+    n_slab = ops.L2_TABLE_BYTES // 256 + 1
+    for want, n, d, b in (("slab", n_slab, 128, n_slab),
+                          ("direct", n_slab, 128, 8192),
+                          ("direct", 4096, 128, 4096)):
+        feats = torch.randn(n, d, device=cuda).to(torch.bfloat16)
+        idx = torch.randint(0, n, (b, 32), device=cuda, dtype=torch.int32)
+        w = torch.rand(b, 32, device=cuda).to(torch.bfloat16)
+        assert ops.tiled_plan(n, b, 32, d, torch.bfloat16).route == want
+        counts = ops.launch_counts()
+        out = neighbor_agg(feats, idx, w, use_kernel=True)
+        got = ops.launch_counts()
+        assert got[f"tiled_{want}"] == counts[f"tiled_{want}"] + 1
+        assert got["tiled"] == counts["tiled"] + 1
+        other = "direct" if want == "slab" else "slab"
+        assert torch.equal(out, _routed((feats, idx, w), other))
+        assert ops.launch_counts()[f"tiled_{other}"] == \
+            counts[f"tiled_{other}"] + 1
+    ident = torch.arange(8192 * 15, dtype=torch.int32,
+                         device=cuda).reshape(8192, 15)
+    assert ops.tiled_plan(8192 * 15, 8192, 15, 256,
+                          torch.float32).route == "direct"
+    counts = ops.launch_counts()
+    neighbor_agg(torch.randn(8192 * 15, 256, device=cuda), ident,
+                 torch.ones(8192, 15, device=cuda), use_kernel=True)
+    got = ops.launch_counts()
+    assert got["tiled_direct"] == counts["tiled_direct"] + 1
+    assert got["tiled"] == counts["tiled"] + 1
+    ops.reset_launches()
+    assert set(ops.launch_counts().values()) == {0}
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,7 @@ from repro_torch.models import steps  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
-DENSE = ["gemma3-12b", "granite-3-2b", "stablelm-1.6b"]
+DENSE = ["gemma3-12b", "gemma-7b", "granite-3-2b", "stablelm-1.6b"]
 
 
 def _np(x):

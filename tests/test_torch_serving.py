@@ -305,7 +305,8 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert [k["name"] for k in result["kernels"]] == [
         "neighbor_agg_tiled", "neighbor_agg_tiled_fused",
         "neighbor_agg_backward", "neighbor_agg_backward_csr",
-        "neighbor_agg_row", "flash_attention_wgmma", "flash_attention"]
+        "neighbor_agg_row", "flash_attention_wgmma", "flash_attention",
+        "neighbor_agg_tiled_slab"]
     for k in result["kernels"]:
         assert keys <= set(k) and k["route"] == "cuda"
         assert os.path.exists(k["source"])
@@ -328,5 +329,34 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert csr["row_rel_err"] <= 2.0 ** -8 < min(
         csr["planted_faults"].values())
     assert len(csr["planted_faults"]) == 4 and csr["deterministic"]
-    assert set(result["kernels"][0]["by_shape"]) == {"fullgraph_d128",
-                                                     "fullgraph_d172"}
+    # the tiled forward: both routes, by shape, with the row check
+    tiled, fused = result["kernels"][0], result["kernels"][1]
+    assert set(tiled["by_shape"]) == {
+        "fullgraph_d128", "fullgraph_d172", "serving_chunk_d128",
+        "serving_chunk_d172", "minibatch_l1_hop0", "minibatch_l1_hop1",
+        "minibatch_l2_hop0"}
+    assert set(fused["by_shape"]) == {"gcn_l1_d128", "gcn_l2_d172"}
+    for m in [tiled, fused, *tiled["by_shape"].values(),
+              *fused["by_shape"].values()]:
+        assert {"slab", "direct"} <= set(m["routes"])
+        assert max(m["row_rel_err_by_route"].values()) <= \
+            m["row_check_limit"]
+    for d in ("fullgraph_d128", "fullgraph_d172"):
+        faults = tiled["by_shape"][d]["planted_faults"]
+        assert len(faults) == 4 and min(faults.values()) > 2.0 ** -8
+        assert set(tiled["by_shape"][d]["routes"]["slab_width_ms"]) == {
+            "32", "64", "128", "256"}
+    # the top-level numbers are the serving chunk's; the slab kernel's
+    # own entry is the full-graph shape of layer 1
+    assert tiled["shape"].endswith("(the serving chunk)")
+    slab = result["kernels"][7]
+    assert slab["source"].endswith("neighbor_agg_slab.cu")
+    assert slab["row_rel_err"] <= slab["row_check_limit"] < min(
+        slab["planted_faults"].values())
+    assert set(slab["slab_width_ms"]) == {"32", "64", "128", "256"}
+    assert set(slab["launches_by_path"]) == set(
+        tiled["launches_by_path_and_route"])
+    assert set(tiled["sources"]) == {"slab", "direct"}
+    assert set(tiled["launches_by_path_and_route"]) == {
+        "train_fullgraph", "train_minibatch", "serve", "gcn_serve"}
+    assert tiled["l2_table_sweep"]

@@ -134,6 +134,38 @@ or of the reference package ``repro``.
    max error of 5e-2.  One prefill and one decode step are traced with
    ``torch.profiler`` (device time by kernel).
 
+10. Figures phase: the paper's figures through the port's experiment
+   layer, the CUDA aggregation kernels on (``--kernel`` /
+   ``Env(kernel=True)``).  (a) The experiment CLI
+   (``repro_torch.core.experiment.main``) with the reference's default
+   grid plus the full-graph corner, 1 and 2 layers: every row ok with
+   finite losses, its JSON and CSV written, the tiled forward launched.
+   (b) ``sweep`` at full width on the shared graph (gnn-papers100m,
+   bf16 aggregation): the full-graph corner (K = d_max, as the
+   reference's sweep builds it) and b in {1024, 8192} x fan-out in
+   {(5, 5), (15, 10)}, 10 steps each, evaluation every 5,
+   ``inference=True``; each point's launches counted alone: the
+   full-graph point the reverse-index backward and no atomic one, the
+   mini-batch points the atomic one, every point the tiled forward;
+   losses finite.  (c) The nine figure benches in quick mode through
+   ``repro_torch.bench.run``: each figure's seconds, Trainer runs,
+   steps per second, rows and launches; the reference's row count,
+   finite losses where the reference reports numbers, the tiled forward
+   launched by every figure that trains, every prefetch thread ended
+   and device memory back within 64 MiB of where it was after each
+   figure; the peak after (c).  (d) fig6 and fig1 again with the switch
+   off: run by run, first and last loss within 1e-3 relative and test
+   accuracy within one node of its split.  Then the kernels at the
+   figures' shapes (f32: the forward on table1's papers-like ELL, K =
+   d_max, D = 64, and on fig6's mini-batch level b = 128, K = 10,
+   D = 64; the reverse-index backward on that ELL at D = 24; the atomic
+   backward at the mini-batch level) against their plain versions,
+   timed beside them, the bound and ``embedding_bag``: the kernels
+   line's ``figure_shapes``.  Last, a ``torch.profiler`` trace of 100
+   warm steps of a fig2 grid point (b = 128, β = 10) and of fig1's
+   full-graph run gives the device's busy share.  Each phase's seconds and each figure's
+   seconds and steps per second are printed before the result lines.
+
 Every failed check raises.  The last stdout line is
 ``{"ok": true, "device": {...}}``; the line before it names the card and
 its power limit, and a ``{"kernels": [...]}`` line precedes that.  In
@@ -146,6 +178,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
+import importlib
+import io
 import json
 import math
 import os
@@ -161,8 +196,11 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.bench import run as brun  # noqa: E402
+from repro_torch.bench.common import Env  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import engine as E  # noqa: E402
+from repro_torch.core import experiment as X  # noqa: E402
 from repro_torch.core import gnn as G  # noqa: E402
 from repro_torch.core.embedding_store import EmbeddingStore  # noqa: E402
 from repro_torch.core.graph import to_ell  # noqa: E402
@@ -243,6 +281,14 @@ class Sizes:
     lm_s: int = 4096       # a multiple of q_chunk 512 and the window 1024
     lm_gen: int = 32
     lm_tf: int = 8         # teacher-forced decode steps checked
+    # figures: the benches' QUICK sizes unless fig_n / fig_iters are set
+    fig_n: int = 0
+    fig_iters: int = 0
+    # the full-width sweep on the shared graph (gnn-papers100m)
+    fw_bs: tuple = (1024, 8192)
+    fw_fanouts: tuple = ((5, 5), (15, 10))
+    fw_steps: int = 10
+    fw_eval: int = 5
 
 
 FULL = Sizes()
@@ -252,7 +298,8 @@ TINY = Sizes(agg_n=600, agg_b=300, sweep_n=(64, 128), n_serve=3_000,
              full_steps=3, mb_steps=4, mb_b=64, fa_shape=(1, 192, 4, 2, 64),
              fa_windows=(0, 64), fa_iters=2, fa_long=(1, 640, 2, 1, 64),
              lm_smoke=True, lm_s=128,
-             lm_gen=4, lm_tf=3)
+             lm_gen=4, lm_tf=3, fig_n=160, fig_iters=4, fw_bs=(16, 64),
+             fw_steps=4, fw_eval=2)
 
 
 def check(cond, msg: str) -> None:
@@ -1737,11 +1784,11 @@ def _device_us(evt) -> float:
 
 def profile_device(dev, fn) -> dict:
     """Device time of one ``fn()`` by kernel, from a ``torch.profiler``
-    trace, beside its wall time: the flash kernel's part, the largest
-    kernels.  Only the trace's device events are summed (the operators
-    that launch them carry the same time again).  A trace that cannot be
-    taken leaves the numbers out ("not measured"); it does not stop the
-    run."""
+    trace, beside its wall time: the flash and aggregation kernels'
+    parts, the largest kernels.  Only the trace's device events are
+    summed (the operators that launch them carry the same time again).
+    A trace that cannot be taken leaves the numbers out ("not
+    measured"); it does not stop the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     try:
@@ -1759,9 +1806,10 @@ def profile_device(dev, fn) -> dict:
         return {}
     total = sum(_device_us(e) for e in evs)
     flash = sum(_device_us(e) for e in evs if "flash_attn" in e.key)
+    agg = sum(_device_us(e) for e in evs if "neighbor_agg" in e.key)
     top = sorted(evs, key=_device_us, reverse=True)[:8]
     return {"wall_ms": 1e3 * wall, "device_ms": total / 1e3,
-            "flash_ms": flash / 1e3,
+            "flash_ms": flash / 1e3, "agg_ms": agg / 1e3,
             "top": [(e.key[:70], round(_device_us(e) / 1e3, 3), e.count)
                     for e in top]}
 
@@ -1960,22 +2008,473 @@ def _leaves(tree):
         yield tree
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the paper's figures
+# ---------------------------------------------------------------------------
+
+#: the reference's row count of each figure bench (quick or full)
+FIG_ROWS = {"fig1_metric_stability": 3, "fig2_convergence": 16,
+            "fig3_generalization": 36, "fig4_multilayer": 14,
+            "fig5_iter_to_acc": 12, "fig6_throughput": 9,
+            "table1_tuned": 4, "thm3_wasserstein": 10, "theory_slopes": 30}
+#: the figure benches that train no model (numpy and closed forms)
+HOST_ONLY = ("thm3_wasserstein", "theory_slopes")
+#: the figures run a second time with the kernel switch off (10d)
+PATH_FIGS = ("fig6_throughput", "fig1_metric_stability")
+#: kernel path against plain path: first and last loss, relative (f32)
+PATH_TOL = 1e-3
+#: where the figure benches write their CSV and JSON files (the CLI
+#: writes to its own default, experiments/bench_torch/)
+FIG_OUT = "experiments/bench_torch/chip_smoke"
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def check_launch(dev, cond, msg: str) -> None:
+    """A launch-count check: on the card only (the CPU runs the kernels'
+    plain versions, which count nothing)."""
+    check(dev.type != "cuda" or cond, msg)
+
+
+@contextlib.contextmanager
+def bench_sizes(sz: Sizes):
+    """The figure benches' ``QUICK`` tables cut to ``sz.fig_n`` nodes and
+    ``sz.fig_iters`` iterations inside the block (the CPU rehearsal);
+    untouched when ``fig_n`` is 0."""
+    saved = []
+    if sz.fig_n:
+        for _, mod_name in brun.BENCHES:
+            quick = getattr(importlib.import_module(mod_name), "QUICK", None)
+            if quick is None:
+                continue
+            saved.append((quick, dict(quick)))
+            quick["n"] = sz.fig_n
+            if "iters" in quick:
+                quick["iters"] = sz.fig_iters
+    try:
+        yield
+    finally:
+        for quick, old in saved:
+            quick.clear()
+            quick.update(old)
+
+
+@contextlib.contextmanager
+def trainer_runs():
+    """Every ``Trainer.run`` inside the block, in order: its steps, first
+    and last loss, whether every loss was finite, its test accuracy and
+    the size of its test split."""
+    runs = []
+    orig = E.Trainer.run
+
+    def run(self, *a, **kw):
+        res = orig(self, *a, **kw)
+        losses = res.history.losses
+        runs.append({"steps": len(losses), "first_loss": losses[0],
+                     "final_loss": losses[-1],
+                     "finite": bool(np.isfinite(losses).all()),
+                     "test_acc": res.final_test_acc,
+                     "n_test": len(self.graph.test_nodes)})
+        return res
+
+    E.Trainer.run = run
+    try:
+        yield runs
+    finally:
+        E.Trainer.run = orig
+
+
+def cli_phase(dev) -> dict:
+    """10a: the experiment CLI with the reference's default grid (and a
+    2-layer variant), the kernels on: every row ok with finite losses,
+    its JSON and CSV files written, the tiled forward launched."""
+    out = {}
+    for layers in (1, 2):
+        argv = ["--preset", "arxiv-like", "--kernel", "--fullgraph",
+                "--device", dev.type, "--layers", str(layers),
+                "--out", f"cli_layers{layers}"]
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rows = X.main(argv)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        lines = buf.getvalue().strip().splitlines()
+        for line in lines:
+            print(f"cli layers={layers}: {line}", flush=True)
+        paths = json.loads(lines[-1])
+        check(paths["rows"] == len(rows) == 3,
+              f"cli: {len(rows)} rows, not the default grid's 3")
+        for r in rows:
+            check(r.get("status", "ok") == "ok", f"cli: row not ok: {r}")
+            check(math.isfinite(r["first_loss"])
+                  and math.isfinite(r["final_loss"]),
+                  f"cli: a loss is not finite: {r}")
+        check(os.path.isfile(paths["json"]) and os.path.isfile(paths["csv"]),
+              f"cli: {paths} not written")
+        check_launch(dev, counts["tiled"] > 0,
+                     f"cli: no tiled launch: {counts}")
+        print(f"cli layers={layers}: {len(rows)} rows ok in {secs:.2f} s, "
+              f"launches {counts}", flush=True)
+        out[f"layers{layers}"] = dict(seconds=secs, launches=counts)
+    return out
+
+
+def sweep_phase(dev, sz: Sizes, graph) -> dict:
+    """10b: ``sweep`` at full width (gnn-papers100m: GraphSAGE, feat 128,
+    hidden 256, 172 classes, 2 layers, bf16 aggregation, kernels on) on
+    the shared graph: the full-graph corner, then b x fan-out points,
+    each with ``inference=True``, its launches counted alone.  The
+    full-graph corner's ELL is the reference sweep's, K = d_max."""
+    cfg = get_config("gnn-papers100m")
+    cfg = dataclasses.replace(cfg, n_nodes=graph.n, feat_dim=128,
+                              n_classes=172,
+                              batch_size=min(cfg.batch_size, graph.n))
+    check(cfg.dtype == "bfloat16" and cfg.use_agg_kernel
+          and cfg.hidden == 256 and cfg.n_layers == 2,
+          f"unexpected gnn-papers100m config {cfg}")
+    plan = E.TrainPlan(lr=TRAIN_LR, n_iters=sz.fw_steps,
+                       eval_every=sz.fw_eval, seed=0)
+    grids = [("fullgraph", dict(include_fullgraph=True))] + [
+        (f"b={b} fan-out {'x'.join(map(str, fo))}",
+         dict(batch_sizes=[b], fanout_grid=[fo]))
+        for b in sz.fw_bs for fo in sz.fw_fanouts]
+    out = {}
+    for label, grid in grids:
+        ops.reset_launches()
+        sync(dev)
+        t0 = time.perf_counter()
+        (row,) = X.sweep(graph, cfg, plan, inference=True, serve_queries=32,
+                         device=dev, **grid)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        n = ops.launch_counts()
+        print(f"sweep {label} (K={graph.d_max} full-graph ELL): {secs:.2f} s,"
+              f" launches {n}; row {json.dumps(row)}", flush=True)
+        check(math.isfinite(row["first_loss"])
+              and math.isfinite(row["final_loss"]),
+              f"sweep {label}: a loss is not finite: {row}")
+        check_launch(dev, n["tiled"] > 0,
+                     f"sweep {label}: no tiled launch: {n}")
+        if label == "fullgraph":
+            check_launch(dev, n["backward_csr"] > 0 and n["backward"] == 0,
+                         f"sweep {label}: wants the reverse-index backward "
+                         f"and no atomic one: {n}")
+        else:
+            check_launch(dev, n["backward"] > 0,
+                         f"sweep {label}: no atomic backward launch: {n}")
+        out[label] = dict(seconds=secs, launches=n, row=row)
+    E.drop_device_cache(graph)
+    return out
+
+
+def _finite_numbers(name, rows) -> None:
+    """The losses a figure reports are finite wherever the reference
+    reports a number (fig2 reports inf where no lr of its grid reached
+    the target: ``best_lr`` None)."""
+    for r in rows:
+        for k in ("first_loss", "final_loss"):
+            if k in r and not (name == "fig2_convergence"
+                               and r["best_lr"] is None):
+                check(math.isfinite(r[k]), f"{name}: {k} not finite: {r}")
+
+
+def figures_phase(dev, sz: Sizes) -> dict:
+    """10c: every figure bench in quick mode, the kernel switch on,
+    through ``repro_torch.bench.run`` (each bench prints its rows): the
+    reference's row count, finite losses, kernel launches for every
+    figure that trains, every prefetch thread ended and device memory
+    back to where it was after each figure."""
+    env = Env(device=str(dev), kernel=True, out_dir=FIG_OUT)
+    threads = threading.active_count()
+    gc.collect()
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = {}
+    for name in brun.selected():
+        ops.reset_launches()
+        sync(dev)
+        t0 = time.perf_counter()
+        with trainer_runs() as runs:
+            rows = brun.run_one(name, quick=True, env=env)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        n = ops.launch_counts()
+        steps = sum(r["steps"] for r in runs)
+        gc.collect()
+        alloc = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+        print(f"figure {name}: {secs:.2f} s, {len(runs)} runs, {steps} steps "
+              f"({steps / secs:.1f} steps/s), {len(rows)} rows, launches "
+              f"tiled {n['tiled']} backward {n['backward']} backward_csr "
+              f"{n['backward_csr']} ({n}), device memory after "
+              f"{alloc / 2 ** 20:.1f} MiB (before 10c "
+              f"{base / 2 ** 20:.1f})", flush=True)
+        check(len(rows) == FIG_ROWS[name],
+              f"{name}: {len(rows)} rows, the reference has "
+              f"{FIG_ROWS[name]}")
+        _finite_numbers(name, rows)
+        check(all(r["finite"] for r in runs),
+              f"{name}: a training loss is not finite")
+        if name not in HOST_ONLY:
+            check(len(runs) > 0, f"{name}: no Trainer run")
+            check_launch(dev, n["tiled"] > 0,
+                         f"{name}: trained without the tiled kernel: {n}")
+        check(threading.active_count() == threads,
+              f"{name}: threads left running: {threading.enumerate()}")
+        check(alloc <= base + 64 * 2 ** 20,
+              f"{name}: device memory grew from {base} to {alloc} B")
+        out[name] = dict(seconds=secs, runs=len(runs), steps=steps,
+                         steps_per_s=steps / secs, rows=len(rows),
+                         launches=n, row_data=rows, run_records=runs)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    print(f"figures: peak device memory {peak / 2 ** 20:.1f} MiB over 10c",
+          flush=True)
+    out["peak_bytes"] = peak
+    return out
+
+
+def path_phase(dev, figures: dict) -> dict:
+    """10d: fig6 and fig1 again with the kernel switch off, from the same
+    initial parameters (each run's own seed): run by run, the first and
+    last loss within 1e-3 relative and the test accuracy within one node
+    of its split against 10c's kernel runs."""
+    env = Env(device=str(dev), kernel=False, out_dir=FIG_OUT + "/plain")
+    out = {}
+    for name in PATH_FIGS:
+        ops.reset_launches()
+        with trainer_runs() as runs:
+            rows = brun.run_one(name, quick=True, env=env)
+        check(ops.launch_counts()["tiled"] == 0,
+              f"{name}: the plain path launched a kernel")
+        kern = figures[name]["run_records"]
+        check(len(runs) == len(kern), f"{name}: {len(runs)} plain runs, "
+              f"{len(kern)} kernel runs")
+        worst, acc = 0.0, 0.0
+        for a, b in zip(kern, runs):
+            check(a["steps"] == b["steps"], f"{name}: steps differ {a} {b}")
+            for k in ("first_loss", "final_loss"):
+                rel = abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                worst = max(worst, rel)
+                check(rel <= PATH_TOL, f"{name}: {k} kernel {a[k]} plain "
+                      f"{b[k]} (relative {rel:.3g} > {PATH_TOL})")
+            d = abs(a["test_acc"] - b["test_acc"])
+            acc = max(acc, d)
+            check(d <= 1.0 / a["n_test"] + 1e-6,
+                  f"{name}: test_acc kernel {a['test_acc']} plain "
+                  f"{b['test_acc']} differ by more than one node")
+        print(f"path {name}: kernel vs plain over {len(runs)} runs: worst "
+              f"loss relative difference {worst:.3g} (limit {PATH_TOL}), "
+              f"test_acc difference at most {acc:.4g}; plain rows "
+              f"{[json.dumps(r) for r in rows]}", flush=True)
+        out[name] = dict(worst_loss_rel=worst, worst_acc=acc, runs=len(runs))
+    return out
+
+
+def figure_shapes(dev, sz: Sizes) -> dict:
+    """The kernels at shapes the figures give them (f32): the full-graph
+    forward on table1's papers-like ELL (power-law degrees, K = d_max)
+    at D = 64 (layer 1) and its reverse-index backward at D = 24 (layer
+    2's narrowed table), fig6's mini-batch level (b = 128, β = 10,
+    D = 64, identity ids) forward and its atomic backward at fig4's
+    layer 2 (the same shape).  Each against its plain version, timed
+    beside it, the bound and ``embedding_bag`` (forward and backward)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    table1 = importlib.import_module("repro_torch.bench.bench_table1_tuned")
+    g = make_preset("papers-like", seed=0, n=table1.QUICK["n"],
+                    homophily=0.55, feat_scale=0.3, train_frac=0.3)
+    idx, w, _ = (torch.as_tensor(a).to(dev) for a in to_ell(g))
+    n, k = idx.shape
+    mb_b, mb_k, d = 128, 10, 64
+    cases = {
+        f"fullgraph_papers_like_n{n}_k{k}_d64": (
+            torch.randn(n, d, generator=gen, device=dev), idx,
+            (w > 0).float()),
+        f"minibatch_b{mb_b}_k{mb_k}_d64": (
+            torch.randn(mb_b * mb_k, d, generator=gen, device=dev),
+            torch.arange(mb_b * mb_k, dtype=torch.int32,
+                         device=dev).reshape(mb_b, mb_k),
+            (torch.rand(mb_b, mb_k, generator=gen, device=dev) > 0.1
+             ).float())}
+    out = {"forward": {}, "backward": {}, "backward_csr": {}}
+    for label, case in cases.items():
+        feats, cidx, cw = case
+        err = compare(f"figure shape {label}", torch.float32, tiled(case),
+                      neighbor_agg_ref(*case))
+        check(plan_of(case).route == "direct",
+              f"figure shape {label}: planned {plan_of(case).route}")
+        k_ms = time_ms(lambda: tiled(case), dev, sz.iters)
+        p_ms = time_ms(lambda: neighbor_agg_ref(*case), dev, sz.iters)
+        lib = library_ms(lambda: torch.nn.functional.embedding_bag(
+            cidx, feats, mode="sum", per_sample_weights=cw), dev, sz.iters)
+        b_ms, b_by, nbytes = bound(feats, cidx, None)
+        out["forward"][label] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                                     bound_ms=b_ms, bound_by=b_by,
+                                     library_ms=lib)
+        print(f"figure shape {label}: tiled forward (direct) "
+              f"max_err={err:.3g} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"library_ms={fmt(lib)} (embedding_bag) bound_ms={b_ms:.4f} "
+              f"(bound by {b_by}: {nbytes} B)", flush=True)
+        dg = 24 if label.startswith("fullgraph") else d
+        tab = torch.randn(feats.shape[0], dg, generator=gen, device=dev)
+        gr = torch.randn(cidx.shape[0], dg, generator=gen, device=dev)
+        fe = tab.clone().requires_grad_()
+        eb = torch.nn.functional.embedding_bag(cidx, fe, mode="sum",
+                                               per_sample_weights=cw)
+        lib = library_ms(lambda: torch.autograd.grad(
+            eb, fe, gr, retain_graph=True), dev, sz.iters)
+        want = neighbor_agg_backward_ref(tab, cidx, cw, gr, need=DFEATS)[0]
+        label = f"{label[:label.rindex('_d')]}_d{dg}"
+        if label.startswith("fullgraph"):
+            rev = ops.build_reverse_index(cidx, cw, n)
+            run = lambda: csr_dfeats(tab, cidx, cw, gr, rev)  # noqa: E731
+            plain = lambda: neighbor_agg_backward_csr_ref(  # noqa: E731
+                rev, cw, gr)
+            row_err = row_rel_err(run(), plain())
+            check(row_err <= CSR_ROW_TOL[torch.float32],
+                  f"figure shape {label}: reverse-index row error "
+                  f"{row_err}")
+            b_ms, b_by, nbytes = bound_bwd_csr(rev, dg, 4)
+            key, what = "backward_csr", "reverse-index backward"
+        else:
+            run = lambda: ops.neighbor_agg_backward(  # noqa: E731
+                tab, cidx, cw, gr, need=DFEATS)[0]
+            plain = lambda: neighbor_agg_backward_ref(  # noqa: E731
+                tab, cidx, cw, gr, need=DFEATS)[0]
+            row_err = row_rel_err(run(), want)
+            b_ms, b_by, nbytes = bound_bwd(tab, cidx, gr, None, DFEATS)
+            key, what = "backward", "atomic backward"
+        err = compare(f"figure shape {label} {what}", torch.float32, run(),
+                      want, GTOL[torch.float32])
+        k_ms = time_ms(run, dev, sz.iters)
+        p_ms = time_ms(plain, dev, sz.iters)
+        out[key][label] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                               bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                               row_rel_err=row_err)
+        print(f"figure shape {label}: {what} max_err={err:.3g} row error "
+              f"{row_err:.3g} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"library_ms={fmt(lib)} (embedding_bag backward) "
+              f"bound_ms={b_ms:.4f} (bound by {b_by}: {nbytes} B)",
+              flush=True)
+        del fe, eb
+    return out
+
+
+def figure_traces(dev, steps: int = 100) -> dict:
+    """The device's busy share in two figure runs with the kernels on,
+    from a ``torch.profiler`` trace of ``steps`` steps after a 5-step
+    warm-up run (uploads, allocator): one of fig2's grid points (b = 128,
+    β = 10, lr 0.2, the full loss tracked every 5 steps) and fig1's
+    full-graph run (an evaluation every step).  On the card only."""
+    if dev.type != "cuda":
+        return {}
+    from repro_torch.bench import bench_fig1_metric_stability as F1
+    from repro_torch.bench import bench_fig2_convergence as F2
+    from repro_torch.bench import common as C
+    env = Env(device=str(dev), kernel=True)
+    g2 = make_preset("products-like", seed=0, n=F2.QUICK["n"],
+                     homophily=0.6, feat_scale=0.45)
+    cfg2 = C.gnn_cfg(env, g2, n_layers=1, loss="ce")
+    g1 = make_preset("arxiv-like", seed=0, n=F1.QUICK["n"], homophily=0.55,
+                     feat_scale=0.3, train_frac=0.3)
+    cfg1 = C.gnn_cfg(env, g1, n_layers=1, loss="ce")
+    runs = {
+        "fig2 grid point b=128 beta=10": lambda n: F2._one(
+            env, g2, cfg2, 128, (10,), n, 0.2, 0),
+        "fig1 full-graph run": lambda n: C.run_fullgraph(
+            env, g1, cfg1, n, eval_every=1)}
+    out = {}
+    for label, run in runs.items():
+        run(5)
+        prof = profile_device(dev, lambda: run(steps))
+        if not prof or not prof["device_ms"]:
+            print(f"trace {label}: device time not measured", flush=True)
+            continue
+        busy = prof["device_ms"] / prof["wall_ms"]
+        print(f"trace {label}: wall {prof['wall_ms']:.2f} ms over {steps} "
+              f"steps ({prof['wall_ms'] / steps:.3f} ms/step, traced), "
+              f"device time {prof['device_ms']:.2f} ms (busy {busy:.4f}, "
+              f"idle {1 - busy:.4f}), aggregation kernels "
+              f"{prof['agg_ms']:.3f} ms; largest kernels (name, ms, calls):"
+              f" {prof['top']}", flush=True)
+        out[label] = dict(prof, steps=steps, busy=busy)
+    return out
+
+
+def figure_phase(dev, sz: Sizes, graph) -> dict:
+    """Phase 10: 10a the CLI, 10b the full-width sweep, 10c every figure,
+    10d the kernel path against the plain path; then the kernels at the
+    figures' shapes and two traced figure runs."""
+    secs = {}
+    out = {}
+    with bench_sizes(sz):
+        for key, fn, args in (("10a cli", cli_phase, (dev,)),
+                              ("10b sweep", sweep_phase, (dev, sz, graph)),
+                              ("10c figures", figures_phase, (dev, sz))):
+            t0 = time.perf_counter()
+            out[key] = fn(*args)
+            secs[key] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["10d path"] = path_phase(dev, out["10c figures"])
+        secs["10d path"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["shapes"] = figure_shapes(dev, sz)
+        secs["10 shapes"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["traces"] = figure_traces(dev)
+        secs["10 traces"] = time.perf_counter() - t0
+    out["seconds"] = secs
+    return out
+
+
 def run(dev: torch.device, sz: Sizes) -> dict:
     # full f32 products everywhere (TF32 off), bf16 GEMMs reduce in f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
         False
-    measured = kernel_phase(dev, sz)
-    row = row_phase(dev, sz)
-    graph = make_graph(sz)
-    bwd = backward_phase(dev, sz, graph)
-    train = training_phase(dev, sz, graph)
-    serve = serving_phase(dev, sz, graph)
-    gcn = gcn_phase(dev, sz)
+    secs = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = round(time.perf_counter() - t0, 2)
+        return out
+
+    measured = timed("2 tiled kernel", kernel_phase, dev, sz)
+    row = timed("3 row kernel", row_phase, dev, sz)
+    graph = timed("graph", make_graph, sz)
+    bwd = timed("4 backward", backward_phase, dev, sz, graph)
+    train = timed("5 training", training_phase, dev, sz, graph)
+    serve = timed("6 serving", serving_phase, dev, sz, graph)
+    gcn = timed("7 gcn", gcn_phase, dev, sz)
+    E.drop_device_cache(graph)
+    flash = timed("8 flash", flash_phase, dev, sz)
+    lm = timed("9 lm serving", lm_phase, dev, sz)
+    figs = timed("10 figures", figure_phase, dev, sz, graph)
     del graph
-    flash = flash_phase(dev, sz)
-    lm = lm_phase(dev, sz)
+    secs.update({k: round(v, 2) for k, v in figs["seconds"].items()})
+    print(f"phase seconds: {json.dumps(secs)}", flush=True)
+    fig_runs = figs["10c figures"]
+    print("figure seconds and steps/s: " + json.dumps(
+        {name: [round(f["seconds"], 2), round(f["steps_per_s"], 1)]
+         for name, f in fig_runs.items() if name != "peak_bytes"}),
+        flush=True)
+
+    def on_figures(kernel):
+        """``kernel``'s launches on each path of phase 10."""
+        return {"figures": {name: f["launches"][kernel]
+                            for name, f in fig_runs.items()
+                            if name != "peak_bytes"},
+                "experiment_cli": {k: v["launches"][kernel]
+                                   for k, v in figs["10a cli"].items()},
+                "sweep_full_width": {k: v["launches"][kernel]
+                                     for k, v in figs["10b sweep"].items()}}
     d = max(sz.agg_d)
     b, s, hq, hkv, hd = sz.fa_shape
     w1 = sz.fa_windows[1]
@@ -2006,7 +2505,8 @@ def run(dev: torch.device, sz: Sizes) -> dict:
          "launches": train["counts"]["tiled"],
          "launches_by_path": {"train_fullgraph": tf["tiled"],
                               "train_minibatch": tm["tiled"],
-                              "serve": serve["launches"]},
+                              "serve": serve["launches"],
+                              **on_figures("tiled")},
          "launches_by_path_and_route": by_route,
          **top,
          "shape": f"bf16, unfused, {cell} (the serving chunk)",
@@ -2016,7 +2516,8 @@ def run(dev: torch.device, sz: Sizes) -> dict:
                              f"a full-graph forward)")
                 for dd, m in fg.items()},
              **chunk, **train["mb_forward"]},
-         "l2_table_sweep": measured["sweep"]},
+         "l2_table_sweep": measured["sweep"],
+         "figure_shapes": figs["shapes"]["forward"]},
         {"name": "neighbor_agg_tiled_fused", "route": "cuda",
          "source": sources[measured[(torch.float32, d, True)]["routes"][
              "planned"]], "sources": sources,
@@ -2032,8 +2533,10 @@ def run(dev: torch.device, sz: Sizes) -> dict:
          "replaces": REF_AGG + "ops.py:55",
          "launches": train["counts"]["backward"],
          "launches_by_path": {"train_fullgraph": tf["backward"],
-                              "train_minibatch": tm["backward"]},
+                              "train_minibatch": tm["backward"],
+                              **on_figures("backward")},
          **bwd["minibatch_l2"],
+         "figure_shapes": figs["shapes"]["backward"],
          "by_shape": {
              "minibatch_l2": dict(bwd["minibatch_l2"],
                                   launches=tm["backward"]),
@@ -2047,8 +2550,10 @@ def run(dev: torch.device, sz: Sizes) -> dict:
          "replaces": REF_AGG + "ops.py:55",
          "launches": train["counts"]["backward_csr"],
          "launches_by_path": {"train_fullgraph": tf["backward_csr"],
-                              "train_minibatch": tm["backward_csr"]},
+                              "train_minibatch": tm["backward_csr"],
+                              **on_figures("backward_csr")},
          **bwd["csr"],
+         "figure_shapes": figs["shapes"]["backward_csr"],
          "atomic_ms_same_inputs": bwd["fullgraph_l2"]["ms"],
          "atomic_plain_ms_same_inputs": bwd["fullgraph_l2"]["plain_ms"]},
         {"name": "neighbor_agg_row", "route": "cuda",

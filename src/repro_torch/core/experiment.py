@@ -9,6 +9,14 @@ is a grid over batch size b and fan-out β, with full-graph GD as the
                  fanout_grid=[(5, 3), (10, 5)], include_fullgraph=True)
     save_rows("fig2_sweep", rows)          # JSON + CSV side by side
 
+CLI, the reference's flags and JSON line plus ``--device`` (``cuda``
+unless told otherwise); ``--kernel`` runs the aggregation through the
+CUDA kernels:
+
+    PYTHONPATH=src python -m repro_torch.core.experiment \
+        --preset arxiv-like --n 400 --iters 4 --bs 32 64 --fanout 3 \
+        --device cpu
+
 Deliberately NOT carried over: the reference sweep's degrade path
 (``experiment.py:356-383``), which retries a grid point with
 ``use_agg_kernel=False`` when the kernel fails.  Here a kernel failure
@@ -18,6 +26,7 @@ raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import argparse
 import csv
 import dataclasses
 import itertools
@@ -38,13 +47,14 @@ from repro_torch.core.metrics import (iteration_to_accuracy,
                                       throughput_nodes_per_sec,
                                       time_to_accuracy)
 
-OUT_DIR = os.environ.get("BENCH_OUT", "experiments/bench")
+#: beside the reference's ``experiments/bench``, never over it
+OUT_DIR = os.environ.get("BENCH_OUT", "experiments/bench_torch")
 
+SLICE4 = "ROADMAP.md Queue 1, slice 4"
 #: paradigms of the reference and the slice that ports each
 PARADIGMS = {"fullgraph": None, "minibatch": None, "cluster": SLICE3,
-             "importance": SLICE3,
-             "fullgraph_sharded": "ROADMAP.md Queue 1, slice 4",
-             "minibatch_sharded": "ROADMAP.md Queue 1, slice 4"}
+             "importance": SLICE3, "fullgraph_sharded": SLICE4,
+             "minibatch_sharded": SLICE4}
 
 
 def metrics_row(res: TrainResult, target_loss: Optional[float] = None,
@@ -263,3 +273,81 @@ def save_rows(name: str, rows: List[Dict], out_dir: str = OUT_DIR
         w.writeheader()
         w.writerows(rows)
     return {"json": jpath, "csv": cpath}
+
+
+# ---------------------------------------------------------------------------
+# CLI — the reference's sweep smoke
+# ---------------------------------------------------------------------------
+
+def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
+    from repro_torch.data.synth import make_preset
+    from repro_torch.device import resolve_device
+
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--preset", default="arxiv-like")
+    ap.add_argument("--n", type=int, default=400)
+    ap.add_argument("--iters", type=int, default=4)
+    ap.add_argument("--bs", type=int, nargs="+", default=[32, 64])
+    ap.add_argument("--fanout", type=int, nargs="+", default=[3])
+    ap.add_argument("--sources", nargs="+", default=["minibatch"],
+                    help="sampler axis of the grid (see PARADIGMS); the "
+                         "port runs minibatch and fullgraph, the others "
+                         "raise NotImplementedError")
+    ap.add_argument("--layers", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=0.3)
+    ap.add_argument("--eval-every", type=int, default=2)
+    ap.add_argument("--fullgraph", action="store_true")
+    ap.add_argument("--kernel", action="store_true",
+                    help="run every grid point's aggregation through the "
+                         "CUDA kernels (their plain versions on the CPU)")
+    ap.add_argument("--feats-layout", default="replicated",
+                    choices=["replicated", "sharded"],
+                    help="'sharded' is multi-GPU, not ported yet: raises")
+    ap.add_argument("--cache-rows", type=int, default=-1,
+                    help="hot-cache size for --feats-layout sharded")
+    ap.add_argument("--journal", default=None,
+                    help="not ported yet: raises")
+    ap.add_argument("--inference", action="store_true",
+                    help="append the serving-cost columns to every row")
+    ap.add_argument("--serve-queries", type=int, default=32)
+    ap.add_argument("--out", default="sweep_smoke")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (cuda unless told otherwise)")
+    args = ap.parse_args(argv)
+
+    if args.feats_layout == "sharded":
+        raise NotImplementedError(
+            f"--feats-layout sharded: the feature-sharded layout is not "
+            f"ported yet ({SLICE4})")
+    for src in args.sources:
+        if PARADIGMS.get(src) is not None:
+            raise NotImplementedError(
+                f"--sources {src}: not ported yet ({PARADIGMS[src]})")
+    if args.journal is not None:
+        raise NotImplementedError(
+            f"--journal: the completion journal is not ported yet "
+            f"({SLICE3})")
+    dev = resolve_device(args.device)
+    graph = make_preset(args.preset, n=args.n, seed=0)
+    cfg = GNNConfig(name="sweep", model="graphsage", n_nodes=graph.n,
+                    feat_dim=graph.feats.shape[1], hidden=32,
+                    n_classes=graph.n_classes, n_layers=args.layers,
+                    fanout=(5,) * args.layers, batch_size=64, loss="ce",
+                    use_agg_kernel=args.kernel,
+                    feats_layout=args.feats_layout,
+                    feat_cache_rows=args.cache_rows)
+    plan = TrainPlan(lr=args.lr, n_iters=args.iters,
+                     eval_every=args.eval_every)
+    fo = (tuple(args.fanout) * args.layers if len(args.fanout) == 1
+          else tuple(args.fanout))
+    rows = sweep(graph, cfg, plan, batch_sizes=args.bs, fanout_grid=[fo],
+                 include_fullgraph=args.fullgraph, sources=args.sources,
+                 verbose=True, inference=args.inference,
+                 serve_queries=args.serve_queries, device=dev)
+    paths = save_rows(args.out, rows)
+    print(json.dumps({"rows": len(rows), **paths}))
+    return rows
+
+
+if __name__ == "__main__":
+    main()

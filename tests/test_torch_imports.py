@@ -1,6 +1,8 @@
-"""The port stands alone: every ``repro_torch`` module and
-``chip_smoke.py`` import without pulling in ``jax`` or the reference
-package ``repro`` (checked in a fresh interpreter, so nothing this test
+"""The port stands alone: every ``repro_torch`` module (the figure
+layer's named: the experiment CLI, theory, wasserstein and the eleven
+``repro_torch.bench`` modules) and ``chip_smoke.py`` import without
+pulling in ``jax``, the reference package ``repro`` or the reference's
+``benchmarks`` (checked in a fresh interpreter, so nothing this test
 process already imported can hide a dependency)."""
 import os
 import subprocess
@@ -16,9 +18,20 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke                       # module only: main() does not run
+figures = ["repro_torch.core.experiment", "repro_torch.core.theory",
+           "repro_torch.core.wasserstein", "repro_torch.bench.common",
+           "repro_torch.bench.run"] + [
+    "repro_torch.bench." + m for m in (
+        "bench_fig1_metric_stability", "bench_fig2_convergence",
+        "bench_fig3_generalization", "bench_fig4_multilayer",
+        "bench_fig5_iter_to_acc", "bench_fig6_throughput",
+        "bench_table1_tuned", "bench_thm3_wasserstein",
+        "bench_theory_slopes")]
+missing = sorted(set(figures) - set(names))
+assert not missing, missing
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "jaxlib", "repro") or m.startswith(
-                 ("jax.", "jaxlib.", "repro.")))
+             if m in ("jax", "jaxlib", "repro", "benchmarks") or m.startswith(
+                 ("jax.", "jaxlib.", "repro.", "benchmarks.")))
 assert not bad, bad
 assert len(names) >= 20, names
 print("IMPORTED", len(names))

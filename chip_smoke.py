@@ -165,6 +165,37 @@ or of the reference package ``repro``.
    warm steps of a fig2 grid point (b = 128, β = 10) and of fig1's
    full-graph run gives the device's busy share.  Each phase's seconds and each figure's
    seconds and steps per second are printed before the result lines.
+11. Sources and fault-tolerance phase on the shared graph at
+   gnn-papers100m's widths (bf16 full-graph aggregation, kernels on).
+   (a) ``ClusterSource`` at b = 8192 (two clusters a batch, 128 BFS
+   parts): the partition's and the blocks' host seconds, the batch ELL's
+   m_max and K and the tiled routes the plan gives there; 20 steps
+   between a launch-count reset and its read: the reverse-index backward
+   once a step (each batch's index built on the card), the atomic
+   backward never, the tiled forward on the planned routes (steps and
+   the two evaluations); ms/step, the index build's ms a batch, finite
+   losses, a second run from the seed bit-equal, one step's gradients
+   with the kernels within 2e-2 relative of the plain path, and the
+   kernels at the batch's shapes (forward D = 128 and 172, the
+   reverse-index backward at D = 172) against their plain versions row
+   by row, timed beside the bound and ``embedding_bag``.
+   (b) ``ImportanceSampledSource`` (degree scores) at b = 8192, fan-out
+   (15, 10), 20 steps: the same counts (the atomic backward, no
+   reverse-index one), sampling and staging split, a 5-step second run
+   bit-equal to the first run's prefix, gradients within 1e-4, the
+   ``grad`` bind's seconds (one full-graph forward through the kernel)
+   and, on one batch, the weighted batch mean against Σ w_j ℓ_j / b by
+   hand in float64 (1e-5).  (c) Full-graph and cluster runs of 6 steps
+   with ``ckpt_every=2``, killed by an armed ``SimulatedCrash`` in the
+   step-4 save and resumed from the directory: History, parameters and
+   test accuracy bit-equal to the run that was not stopped; a mini-batch
+   run with a NaN batch (``faults.poison_batches``) under
+   ``on_bad="rollback"`` ends with one rollback and finite losses but
+   the poisoned step's.  (d) A 3-point ``sweep`` (full-graph corner,
+   cluster, importance) with a journal, killed after point 1, rerun:
+   point 1 skipped, rows equal to an uninterrupted sweep's but for the
+   wall-clock columns.  Checkpoints and the journal live in a temporary
+   directory under ``experiments/bench_torch/chip_smoke_ckpt``.
 
 Every failed check raises.  The last stdout line is
 ``{"ok": true, "device": {...}}``; the line before it names the card and
@@ -186,8 +217,10 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -198,9 +231,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.bench import run as brun  # noqa: E402
 from repro_torch.bench.common import Env  # noqa: E402
+from repro_torch.checkpoint import latest_step  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import engine as E  # noqa: E402
 from repro_torch.core import experiment as X  # noqa: E402
+from repro_torch.core import faults  # noqa: E402
 from repro_torch.core import gnn as G  # noqa: E402
 from repro_torch.core.embedding_store import EmbeddingStore  # noqa: E402
 from repro_torch.core.graph import to_ell  # noqa: E402
@@ -289,6 +324,12 @@ class Sizes:
     fw_fanouts: tuple = ((5, 5), (15, 10))
     fw_steps: int = 10
     fw_eval: int = 5
+    # phase 11 (b and fan-out are mb_b and mb_fanout)
+    cl_steps: int = 20             # cluster run
+    im_steps: int = 20             # importance run
+    repeat_steps: int = 5          # importance's second run from the seed
+    ft_steps: int = 6              # the fault-tolerance runs
+    jr_steps: int = 3              # each point of the journal sweep
 
 
 FULL = Sizes()
@@ -299,7 +340,7 @@ TINY = Sizes(agg_n=600, agg_b=300, sweep_n=(64, 128), n_serve=3_000,
              fa_windows=(0, 64), fa_iters=2, fa_long=(1, 640, 2, 1, 64),
              lm_smoke=True, lm_s=128,
              lm_gen=4, lm_tf=3, fig_n=160, fig_iters=4, fw_bs=(16, 64),
-             fw_steps=4, fw_eval=2)
+             fw_steps=4, fw_eval=2, cl_steps=4, im_steps=4, repeat_steps=2)
 
 
 def check(cond, msg: str) -> None:
@@ -2432,6 +2473,481 @@ def figure_phase(dev, sz: Sizes, graph) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the cluster and importance sources, fault tolerance, journal
+# ---------------------------------------------------------------------------
+
+FT_OUT = "experiments/bench_torch/chip_smoke_ckpt"
+#: the sweep columns that read the wall clock
+WALL = ("wall_time_s", "throughput_nodes_s", "time_to_acc_s")
+
+
+def papers_cfg(graph, sz: Sizes):
+    return dataclasses.replace(get_config("gnn-papers100m"), n_nodes=graph.n,
+                               feat_dim=128, n_classes=172,
+                               batch_size=sz.mb_b)
+
+
+def counted_run(dev, trainer, **kw):
+    """``trainer.run(**kw)`` between a launch-count reset and its read:
+    (result, launch counts, wall seconds)."""
+    ops.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    res = trainer.run(**kw)
+    sync(dev)
+    return res, ops.launch_counts(), time.perf_counter() - t0
+
+
+def steady_ms(hist) -> float:
+    t = hist.times
+    return 1e3 * (t[-1] - t[0]) / max(len(t) - 1, 1)
+
+
+def expect_crash(fn, what: str) -> None:
+    """``fn()`` must end in the armed failpoint's ``SimulatedCrash``."""
+    try:
+        fn()
+    except faults.SimulatedCrash:
+        return
+    check(False, f"{what}: the armed failpoint did not fire")
+
+
+def same_run(got, want, what: str) -> None:
+    """History, final parameters and test accuracy bit-equal."""
+    hg, hw = got.history, want.history
+    for f in ("losses", "val_accs", "val_acc_iters", "full_losses",
+              "full_loss_iters", "nodes_processed", "bad_steps"):
+        check(getattr(hg, f) == getattr(hw, f),
+              f"{what}: History.{f} {getattr(hg, f)} != {getattr(hw, f)}")
+    for p, q in zip(got.params, want.params):
+        for k in p:
+            check(torch.equal(p[k], q[k]), f"{what}: parameter {k} differs "
+                  f"(max {float((p[k] - q[k]).detach().abs().max())})")
+    check(got.final_test_acc == want.final_test_acc,
+          f"{what}: test accuracy {got.final_test_acc} != "
+          f"{want.final_test_acc}")
+
+
+def grads_vs_plain(src, cfg, params, batch, tol, label) -> float:
+    """One step's parameter gradients with the kernels against the plain
+    path on the same batch: the relative max error, held to ``tol``."""
+    leaves = [v for p in params for v in p.values()]
+    grads = {}
+    for kernel in (True, False):
+        src.cfg = dataclasses.replace(cfg, use_agg_kernel=kernel)
+        grads[kernel] = torch.autograd.grad(src.loss(params, batch), leaves)
+    src.cfg = cfg
+    err = max(rel_err(a, b) for a, b in zip(grads[True], grads[False]))
+    print(f"{label}: one step's parameter gradients with the kernels vs "
+          f"the plain path: relative max error {err:.3g} (limit {tol})",
+          flush=True)
+    check(err <= tol, f"{label}: gradient rel err {err} beyond {tol}")
+    return err
+
+
+def planned_tiled(steps_routes, evals, eval_routes) -> dict:
+    """The tiled launches by route a run should make: each step's
+    forwards on ``steps_routes`` and ``evals`` full-graph forwards on
+    ``eval_routes``."""
+    want = {f"tiled_{r}": 0 for r in ops.TILED_ROUTES}
+    for routes, n in ((steps_routes, 1), (eval_routes, evals)):
+        for r, count in routes.items():
+            want[f"tiled_{r}"] += count * n
+    return want
+
+
+def cluster_shapes(dev, sz: Sizes, idx, w) -> dict:
+    """The kernels at the cluster batch's shapes (bf16, the batch ELL's
+    ids and GraphSAGE mask weights): the tiled forward at D = 128 and 172
+    on both routes (checked and timed as in phase 2) and the
+    reverse-index backward at D = 172 (layer 2's narrowed table), each
+    against its plain version row by row in f32, timed beside it, the
+    bound and ``embedding_bag``."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf = torch.bfloat16
+    m, k = idx.shape
+    mask = (w > 0).to(bf)
+    out = {"forward": {}, "backward_csr": {}}
+    for d in (128, 172):
+        feats = torch.randn(m, d, generator=gen, device=dev).to(bf)
+        case = (feats, idx, mask)
+        label = f"cluster_batch_m{m}_k{k}_d{d}"
+        ref32 = neighbor_agg_ref(*as_f32(case))
+        err = compare(label, bf, tiled(case), ref32)
+        rows = check_routes(label, case, ref32)
+        routes = time_routes(case, dev, sz.iters)
+        p_ms = time_ms(lambda: neighbor_agg_ref(*case), dev, sz.iters)
+        lib = library_ms(lambda: torch.nn.functional.embedding_bag(
+            idx, feats, mode="sum", per_sample_weights=mask), dev, sz.iters)
+        b_ms, b_by, nbytes = bound(feats, idx, None)
+        out["forward"][label] = dict(
+            max_abs_err=err, ms=routes[routes["planned"]]["ms"],
+            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+            row_rel_err=rows[routes["planned"]], row_rel_err_by_route=rows,
+            row_check_limit=FWD_ROW_TOL[bf], routes=routes,
+            shape=f"bf16, the cluster batch ELL N=B={m} K={k} D={d}")
+        print(f"11a {label}: routes: {routes_line(routes, rows)}; "
+              f"max_err={err:.3g} plain_ms={p_ms:.4f} library_ms={fmt(lib)} "
+              f"(embedding_bag) bound_ms={b_ms:.4f} (bound by {b_by}: "
+              f"{nbytes} B)", flush=True)
+    d = 172
+    tab = torch.zeros(m, d, device=dev, dtype=bf)
+    g = torch.randn(m, d, generator=gen, device=dev).to(bf)
+    rev = ops.build_reverse_index(idx, mask, m)
+    got = csr_dfeats(tab, idx, mask, g, rev)
+    check(torch.equal(got, csr_dfeats(tab, idx, mask, g, rev)),
+          "cluster batch: two calls of the reverse-index kernel differ")
+    row = row_rel_err(got, neighbor_agg_backward_csr_ref(rev, mask.float(),
+                                                         g.float()))
+    check(row <= CSR_BF16_ROW_TOL, f"cluster batch: reverse-index row "
+          f"error {row} beyond {CSR_BF16_ROW_TOL}")
+    err = compare("cluster batch reverse-index backward", bf, got,
+                  neighbor_agg_backward_ref(tab, idx, mask, g,
+                                            need=DFEATS)[0], GTOL[bf])
+    k_ms = time_ms(lambda: csr_dfeats(tab, idx, mask, g, rev), dev,
+                   sz.iters)
+    p_ms = time_ms(lambda: neighbor_agg_backward_csr_ref(rev, mask, g), dev,
+                   sz.iters)
+    fe = tab.clone().requires_grad_()
+    eb = torch.nn.functional.embedding_bag(idx, fe, mode="sum",
+                                           per_sample_weights=mask)
+    lib = library_ms(lambda: torch.autograd.grad(eb, fe, g,
+                                                 retain_graph=True),
+                     dev, sz.iters)
+    b_ms, b_by, nbytes = bound_bwd_csr(rev, d, 2)
+    label = f"cluster_batch_m{m}_k{k}_d{d}"
+    out["backward_csr"][label] = dict(
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib, row_rel_err=row, index_nnz=rev.nnz)
+    print(f"11a {label}: reverse-index backward ({rev.nnz} kept edges) "
+          f"max_err={err:.3g} row error {row:.4g}, bit-equal repeat; "
+          f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={fmt(lib)} "
+          f"(embedding_bag backward) bound_ms={b_ms:.4f} (bound by {b_by}: "
+          f"{nbytes} B)", flush=True)
+    return out
+
+
+def cluster_phase(dev, sz: Sizes, graph) -> dict:
+    """11a: Cluster-GCN at gnn-papers100m's widths on the shared graph."""
+    cfg = papers_cfg(graph, sz)
+    widths = (cfg.feat_dim, cfg.n_classes)
+    plan = E.TrainPlan(lr=TRAIN_LR, n_iters=sz.cl_steps,
+                       eval_every=sz.cl_steps, seed=0)
+    src = E.ClusterSource(batch_size=sz.mb_b)
+    tr = E.Trainer(graph, cfg, plan, source=src, device=dev)
+    m, kk = src.m_max, src.K
+    bf = torch.bfloat16
+    routes = [ops.tiled_plan(m, m, kk, d, bf).route for d in widths]
+    eval_routes = [ops.tiled_plan(graph.n, graph.n, graph.d_max, d,
+                                  bf).route for d in widths]
+    print(f"11a cluster: partition of n={graph.n} into {src.n_parts_} parts "
+          f"in {src.bind_s['partition']:.3f} s (host, Python BFS), blocks "
+          f"in {src.bind_s['blocks']:.3f} s; k={src.k} clusters a batch, "
+          f"batch ELL m_max={m} K={kk}; tiled routes at the batch shape "
+          f"{routes} (D {widths}), at the evaluations' full-graph shape "
+          f"{eval_routes}", flush=True)
+
+    # ---- the main path, between the launch-count reset and its read
+    res, counts, wall = counted_run(dev, tr)
+    # ---- end of the main path
+    losses = res.history.losses
+    steps = len(losses)
+    # evaluations: the validation at iteration 0 and the final test
+    want = planned_tiled({r: routes.count(r) * steps for r in set(routes)},
+                         2, {r: eval_routes.count(r)
+                             for r in set(eval_routes)})
+    print(f"11a cluster: {steps} steps at b={sz.mb_b}: losses "
+          f"{[round(x, 5) for x in losses]}, {steady_ms(res.history):.2f} "
+          f"ms/step steady, run {wall:.3f} s ({1e3 * wall / steps:.2f} "
+          f"ms/step with the evaluations), launches {counts} (expected "
+          f"tiled {want}, backward_csr {steps}, backward 0), "
+          f"test_acc={res.final_test_acc:.4f}", flush=True)
+    tm = src.timing
+    nb = max(tm["batches"], 1)
+    print(f"11a cluster per batch: choice {1e3 * tm['sample_s'] / nb:.3f} ms "
+          f"+ assembly into pinned buffers {1e3 * tm['stage_s'] / nb:.2f} ms "
+          f"on the prefetch thread; loop waited {1e3 * tm['wait_s'] / nb:.2f}"
+          f" ms; H2D {tm['h2d_ms'] / nb:.3f} ms", flush=True)
+    check(all(np.isfinite(losses)), f"cluster losses not finite: {losses}")
+    check_launch(dev, counts["backward_csr"] == steps
+                 and counts["backward"] == 0
+                 and {k: counts[k] for k in want} == want,
+                 f"cluster steps launched {counts}: not the reverse-index "
+                 f"backward once a step, no atomic backward and the tiled "
+                 f"routes {want}")
+    again = E.Trainer(graph, cfg, plan, source=E.ClusterSource(
+        batch_size=sz.mb_b), device=dev).run()
+    check(again.history.losses == losses,
+          "cluster: two runs from one seed gave different losses")
+    print("11a cluster: a second run from the seed: losses bit-equal",
+          flush=True)
+
+    # ---- one batch: gradients, index build, device step, kernel shapes
+    one = E.ClusterSource(batch_size=sz.mb_b).bind(graph, cfg, plan, dev)
+    batch, _ = next(one.batches())
+    params = [{k: v.detach().clone().requires_grad_() for k, v in p.items()}
+              for p in res.params]
+    err = grads_vs_plain(one, cfg, params, batch, 2e-2,
+                         "11a cluster (bf16 aggregation)")
+    idx, w = batch[0], batch[1]
+    index_ms = time_ms(lambda: ops.build_reverse_index(idx, w, m), dev,
+                       sz.iters)
+    opt_state = tr.opt.init(params)
+    step_ms = time_ms(lambda: tr._step(params, opt_state, batch), dev, 5, 1)
+    print(f"11a cluster: reverse index of the batch built in "
+          f"{index_ms:.4f} ms (CUDA events, per batch); device step "
+          f"(forward + backward + update, index build included) "
+          f"{step_ms:.3f} ms", flush=True)
+    shapes = cluster_shapes(dev, sz, idx, w)
+    one.done(batch)
+    one.close()
+    tr.close()
+    return {"counts": counts, "steps": steps, "ms_step": steady_ms(
+        res.history), "wall_s": wall, "device_step_ms": step_ms,
+        "index_ms": index_ms, "grad_err": err, "m_max": m, "K": kk,
+        "n_parts": src.n_parts_, "bind_s": src.bind_s, "routes": routes,
+        "shapes": shapes}
+
+
+def importance_phase(dev, sz: Sizes, graph) -> dict:
+    """11b: importance-sampled mini-batches (degree scores) at
+    gnn-papers100m's widths, b and fan-out on the shared graph."""
+    cfg = papers_cfg(graph, sz)
+    widths = (cfg.feat_dim, cfg.n_classes)
+    plan = E.TrainPlan(lr=TRAIN_LR, n_iters=sz.im_steps,
+                       eval_every=sz.im_steps, seed=0)
+    src = E.ImportanceSampledSource(batch_size=sz.mb_b,
+                                    fanouts=sz.mb_fanout)
+    tr = E.Trainer(graph, cfg, plan, source=src, device=dev)
+
+    # ---- the main path, between the launch-count reset and its read
+    res, counts, wall = counted_run(dev, tr)
+    # ---- end of the main path
+    losses = res.history.losses
+    steps = len(losses)
+    levels = minibatch_levels(sz, (cfg.feat_dim, cfg.hidden))
+    lv_routes = [ops.tiled_plan(b * k, b, k, d, torch.float32).route
+                 for _, b, k, d in levels]
+    eval_routes = [ops.tiled_plan(graph.n, graph.n, graph.d_max, d,
+                                  torch.bfloat16).route for d in widths]
+    want = planned_tiled({r: lv_routes.count(r) * steps
+                          for r in set(lv_routes)},
+                         2, {r: eval_routes.count(r)
+                             for r in set(eval_routes)})
+    tm = src.timing
+    nb = max(tm["batches"], 1)
+    print(f"11b importance: {steps} steps at b={sz.mb_b} fan-out "
+          f"{sz.mb_fanout}, degree scores: first/last loss {losses[0]:.5f} / "
+          f"{losses[-1]:.5f}, {steady_ms(res.history):.2f} ms/step steady, "
+          f"run {wall:.3f} s, launches {counts} (expected tiled {want}), "
+          f"test_acc={res.final_test_acc:.4f}", flush=True)
+    print(f"11b importance per batch: host sampling "
+          f"{1e3 * tm['sample_s'] / nb:.2f} ms + staging "
+          f"{1e3 * tm['stage_s'] / nb:.2f} ms on the prefetch thread; loop "
+          f"waited {1e3 * tm['wait_s'] / nb:.2f} ms; H2D "
+          f"{tm['h2d_ms'] / nb:.3f} ms", flush=True)
+    check(all(np.isfinite(losses)), f"importance losses not finite: {losses}")
+    check_launch(dev, counts["backward"] > 0 and counts["backward_csr"] == 0
+                 and {k: counts[k] for k in want} == want,
+                 f"importance steps launched {counts}: not the atomic "
+                 f"backward alone and the tiled routes {want}")
+    again = E.Trainer(graph, cfg, dataclasses.replace(
+        plan, n_iters=sz.repeat_steps), source=E.ImportanceSampledSource(
+            batch_size=sz.mb_b, fanouts=sz.mb_fanout), device=dev).run()
+    check(again.history.losses == losses[:sz.repeat_steps],
+          "importance: two runs from one seed gave different losses")
+    print(f"11b importance: a second run from the seed, {sz.repeat_steps} "
+          f"steps: losses bit-equal to the first run's", flush=True)
+
+    # ---- the grad-scores bind: one full-graph forward through the kernel
+    ops.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    gsrc = E.ImportanceSampledSource(batch_size=sz.mb_b, fanouts=sz.mb_fanout,
+                                     scores="grad").bind(graph, cfg, plan,
+                                                         dev)
+    sync(dev)
+    grad_s = time.perf_counter() - t0
+    gcounts = ops.launch_counts()
+    gsrc.close()
+    print(f"11b importance: grad-scores bind {grad_s:.3f} s, launches "
+          f"{gcounts}; p in [{gsrc._p.min():.3g}, {gsrc._p.max():.3g}]",
+          flush=True)
+    check(np.all(np.isfinite(gsrc._p)) and np.all(gsrc._p > 0),
+          "grad scores not finite and positive")
+    check_launch(dev, gcounts["tiled"] == len(widths),
+                 f"grad-scores bind launched {gcounts}, not one full-graph "
+                 f"forward's {len(widths)} tiled forwards")
+
+    # ---- one batch: gradients, the weighted mean by hand
+    one = E.ImportanceSampledSource(batch_size=sz.mb_b, fanouts=sz.mb_fanout,
+                                    prefetch=False).bind(graph, cfg, plan,
+                                                         dev)
+    batch, _ = next(one.batches())
+    params = [{k: v.detach().clone().requires_grad_() for k, v in p.items()}
+              for p in res.params]
+    err = grads_vs_plain(one, cfg, params, batch, 1e-4,
+                         "11b importance (f32)")
+    feats, masks, weights, self_w, labels, valid, row_w = batch
+    with torch.no_grad():
+        loss = float(one.loss(params, batch))
+        z = G.minibatch_forward(params, cfg, feats, masks, weights,
+                                self_w).double().cpu().numpy()
+    lab = labels.long().cpu().numpy()
+    zmax = z.max(-1, keepdims=True)
+    rows = (np.log(np.exp(z - zmax).sum(-1)) + zmax[:, 0]
+            - z[np.arange(len(lab)), lab])
+    hand = float((row_w.double().cpu().numpy() * rows).sum() / sz.mb_b)
+    mean_err = abs(loss - hand) / abs(hand)
+    print(f"11b importance: weighted batch mean {loss:.7f}, by hand "
+          f"(float64, Σ w_j ℓ_j / b) {hand:.7f}: relative error "
+          f"{mean_err:.3g} (limit 1e-5)", flush=True)
+    check(mean_err <= 1e-5, f"weighted mean {loss} != hand sum {hand}")
+    one.done(batch)
+    one.close()
+    tr.close()
+    return {"counts": counts, "steps": steps,
+            "ms_step": steady_ms(res.history), "wall_s": wall,
+            "grad_err": err, "grad_bind_s": grad_s, "timing": {
+                k: v for k, v in tm.items() if k != "stage_each_s"}}
+
+
+def resume_case(dev, sz: Sizes, graph, cfg, make, root: str, label: str):
+    """A run with ``ckpt_every=2`` killed by an armed failpoint in the
+    middle of its second save, resumed from the directory: bit-equal to
+    the run that was not stopped."""
+    plan = E.TrainPlan(lr=TRAIN_LR, n_iters=sz.ft_steps, eval_every=2,
+                       seed=0, ckpt_every=2,
+                       ckpt_dir=os.path.join(root, label, "golden"))
+    golden = E.Trainer(graph, cfg, plan, source=make(), device=dev).run()
+    crash = dataclasses.replace(plan, ckpt_dir=os.path.join(root, label,
+                                                            "crash"))
+    with faults.armed("ckpt.before_npz_rename", at_hits=(1,)):
+        expect_crash(lambda: E.Trainer(graph, cfg, crash, source=make(),
+                                       device=dev).run(),
+                     f"{label} at the step-4 save")
+    step = latest_step(crash.ckpt_dir)
+    check(step == 2, f"{label}: newest checkpoint {step} after the crash")
+    t0 = time.perf_counter()
+    res = E.Trainer(graph, cfg, crash, source=make(), device=dev).run(
+        resume_from=crash.ckpt_dir)
+    resume_s = time.perf_counter() - t0
+    same_run(res, golden, f"11c {label} resume")
+    print(f"11c {label}: {sz.ft_steps} steps, ckpt_every 2, killed in the "
+          f"step-4 save, resumed from step {step} in {resume_s:.3f} s: "
+          f"History, parameters and test accuracy bit-equal to the run "
+          f"that was not stopped (losses {res.history.losses})", flush=True)
+    return {"losses": res.history.losses, "resume_s": resume_s}
+
+
+def fault_phase(dev, sz: Sizes, graph, root: str) -> dict:
+    """11c: exact resume after a kill mid-save (full-graph, cluster) and
+    a rollback under a poisoned mini-batch, at full width."""
+    cfg = papers_cfg(graph, sz)
+    out = {
+        "fullgraph": resume_case(dev, sz, graph, cfg, lambda: E.FullGraphSource(
+            max_deg=cfg.max_degree), root, "fullgraph"),
+        "cluster": resume_case(dev, sz, graph, cfg, lambda: E.ClusterSource(
+            batch_size=sz.mb_b), root, "cluster")}
+    plan = E.TrainPlan(lr=TRAIN_LR, n_iters=sz.ft_steps, eval_every=100,
+                       seed=0, ckpt_every=2,
+                       ckpt_dir=os.path.join(root, "rollback"),
+                       bad_steps=E.BadStepPolicy(on_bad="rollback",
+                                                 max_consecutive=1))
+    bad = 3
+    src = faults.poison_batches(E.SampledSource(batch_size=sz.mb_b,
+                                                fanouts=sz.mb_fanout), [bad])
+    tr = E.Trainer(graph, cfg, plan, source=src, device=dev)
+    with warnings.catch_warnings(record=True) as ws:
+        warnings.simplefilter("always")
+        res = tr.run()
+    tr.close()
+    losses = res.history.losses
+    said = [str(w.message) for w in ws if "rolling back" in str(w.message)]
+    print(f"11c mini-batch: NaN batch at step {bad} under on_bad=rollback: "
+          f"bad steps {res.history.bad_steps}, rollbacks {tr._n_rollbacks} "
+          f"({said}), losses {losses}", flush=True)
+    check(tr._n_rollbacks == 1 and len(said) == 1
+          and res.history.bad_steps == [bad + 1],
+          f"rollback: {tr._n_rollbacks} rollbacks, bad steps "
+          f"{res.history.bad_steps}")
+    check(len(losses) == sz.ft_steps and np.isnan(losses[bad])
+          and all(np.isfinite(x) for i, x in enumerate(losses) if i != bad),
+          f"rollback run losses {losses}")
+    check(all(bool(torch.isfinite(v).all()) for p in res.params
+              for v in p.values()), "rollback run: parameters not finite")
+    out["rollback"] = {"losses": losses, "rollbacks": tr._n_rollbacks}
+    return out
+
+
+def journal_phase(dev, sz: Sizes, graph, root: str) -> dict:
+    """11d: a 3-point sweep (the full-graph corner, cluster and importance
+    at b and fan-out of gnn-papers100m) with a journal, killed after its
+    first point, rerun: the first point is skipped and the rows equal an
+    uninterrupted sweep's but for the wall-clock columns."""
+    cfg = papers_cfg(graph, sz)
+    plan = E.TrainPlan(lr=TRAIN_LR, n_iters=sz.jr_steps,
+                       eval_every=sz.jr_steps)
+    kw = dict(batch_sizes=[sz.mb_b], fanout_grid=[sz.mb_fanout],
+              include_fullgraph=True, sources=["cluster", "importance"],
+              device=dev)
+    journal = os.path.join(root, "sweep.jsonl")
+    t0 = time.perf_counter()
+    with faults.armed("sweep.after_point", at_hits=(0,)):
+        expect_crash(lambda: X.sweep(graph, cfg, plan, journal=journal, **kw),
+                     "the sweep after point 1")
+    with open(journal) as f:
+        first = [json.loads(x) for x in f]
+    check([x["status"] for x in first] == ["ok"],
+          f"journal after the kill: {first}")
+    rows = X.sweep(graph, cfg, plan, journal=journal, **kw)
+    resumed_s = time.perf_counter() - t0
+    with open(journal) as f:
+        lines = [json.loads(x) for x in f]
+    t0 = time.perf_counter()
+    straight = X.sweep(graph, cfg, plan, **kw)
+    straight_s = time.perf_counter() - t0
+
+    def no_wall(rs):
+        return [{k: v for k, v in r.items() if k not in WALL} for r in rs]
+
+    print(f"11d journal: 3-point sweep killed after point 1, rerun: "
+          f"{len(lines)} journal lines, point 1 from the journal; "
+          f"{resumed_s:.2f} s killed + rerun, {straight_s:.2f} s "
+          f"uninterrupted; rows {no_wall(rows)}", flush=True)
+    check(len(lines) == len(rows) == len(straight) == 3
+          and all(x["status"] == "ok" for x in lines)
+          and rows[0] == first[0]["row"],
+          f"journal rerun: {len(lines)} lines, {len(rows)} rows")
+    check(no_wall(rows) == no_wall(straight),
+          "journal rerun rows differ from the uninterrupted sweep's")
+    return {"rows": len(rows), "resumed_s": resumed_s,
+            "straight_s": straight_s}
+
+
+def sources_phase(dev, sz: Sizes, graph) -> dict:
+    """Phase 11: 11a cluster, 11b importance, 11c fault tolerance, 11d the
+    sweep journal, on the shared graph at gnn-papers100m's widths."""
+    secs = {}
+    out = {}
+    os.makedirs(FT_OUT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=FT_OUT) as root:
+        for key, fn, args in (
+                ("11a cluster", cluster_phase, (dev, sz, graph)),
+                ("11b importance", importance_phase, (dev, sz, graph)),
+                ("11c faults", fault_phase, (dev, sz, graph, root)),
+                ("11d journal", journal_phase, (dev, sz, graph, root))):
+            t0 = time.perf_counter()
+            out[key] = fn(*args)
+            secs[key] = time.perf_counter() - t0
+    E.drop_device_cache(graph)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["seconds"] = secs
+    return out
+
+
 def run(dev: torch.device, sz: Sizes) -> dict:
     # full f32 products everywhere (TF32 off), bf16 GEMMs reduce in f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2457,8 +2973,10 @@ def run(dev: torch.device, sz: Sizes) -> dict:
     flash = timed("8 flash", flash_phase, dev, sz)
     lm = timed("9 lm serving", lm_phase, dev, sz)
     figs = timed("10 figures", figure_phase, dev, sz, graph)
+    srcs = timed("11 sources", sources_phase, dev, sz, graph)
     del graph
     secs.update({k: round(v, 2) for k, v in figs["seconds"].items()})
+    secs.update({k: round(v, 2) for k, v in srcs["seconds"].items()})
     print(f"phase seconds: {json.dumps(secs)}", flush=True)
     fig_runs = figs["10c figures"]
     print("figure seconds and steps/s: " + json.dumps(
@@ -2480,8 +2998,12 @@ def run(dev: torch.device, sz: Sizes) -> dict:
     w1 = sz.fa_windows[1]
     cell = f"B={sz.agg_b} K={sz.agg_k} D={d} N={sz.agg_n}"
     tf, tm = train["counts_full"], train["counts_mb"]
+    tc = srcs["11a cluster"]["counts"]
+    ti = srcs["11b importance"]["counts"]
+    cl_shapes = srcs["11a cluster"]["shapes"]
     by_route = {r: {"slab": c["tiled_slab"], "direct": c["tiled_direct"]}
                 for r, c in (("train_fullgraph", tf), ("train_minibatch", tm),
+                             ("train_cluster", tc), ("train_importance", ti),
                              ("serve", serve["counts"]),
                              ("gcn_serve", gcn["counts"]))}
     sources = {"slab": CSRC + "neighbor_agg_slab.cu",
@@ -2505,6 +3027,8 @@ def run(dev: torch.device, sz: Sizes) -> dict:
          "launches": train["counts"]["tiled"],
          "launches_by_path": {"train_fullgraph": tf["tiled"],
                               "train_minibatch": tm["tiled"],
+                              "train_cluster": tc["tiled"],
+                              "train_importance": ti["tiled"],
                               "serve": serve["launches"],
                               **on_figures("tiled")},
          "launches_by_path_and_route": by_route,
@@ -2515,7 +3039,7 @@ def run(dev: torch.device, sz: Sizes) -> dict:
                  m, launches=f"{tf['tiled']} over both widths (one each "
                              f"a full-graph forward)")
                 for dd, m in fg.items()},
-             **chunk, **train["mb_forward"]},
+             **chunk, **train["mb_forward"], **cl_shapes["forward"]},
          "l2_table_sweep": measured["sweep"],
          "figure_shapes": figs["shapes"]["forward"]},
         {"name": "neighbor_agg_tiled_fused", "route": "cuda",
@@ -2534,6 +3058,8 @@ def run(dev: torch.device, sz: Sizes) -> dict:
          "launches": train["counts"]["backward"],
          "launches_by_path": {"train_fullgraph": tf["backward"],
                               "train_minibatch": tm["backward"],
+                              "train_cluster": tc["backward"],
+                              "train_importance": ti["backward"],
                               **on_figures("backward")},
          **bwd["minibatch_l2"],
          "figure_shapes": figs["shapes"]["backward"],
@@ -2551,8 +3077,11 @@ def run(dev: torch.device, sz: Sizes) -> dict:
          "launches": train["counts"]["backward_csr"],
          "launches_by_path": {"train_fullgraph": tf["backward_csr"],
                               "train_minibatch": tm["backward_csr"],
+                              "train_cluster": tc["backward_csr"],
+                              "train_importance": ti["backward_csr"],
                               **on_figures("backward_csr")},
          **bwd["csr"],
+         "by_shape": cl_shapes["backward_csr"],
          "figure_shapes": figs["shapes"]["backward_csr"],
          "atomic_ms_same_inputs": bwd["fullgraph_l2"]["ms"],
          "atomic_plain_ms_same_inputs": bwd["fullgraph_l2"]["plain_ms"]},

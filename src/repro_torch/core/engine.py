@@ -7,7 +7,12 @@ and differ only in their ``BatchSource``:
 - ``FullGraphSource`` — GD over all training nodes on the device ELL;
 - ``SampledSource``   — (b, β) fan-out trees from the numpy CSR sampler,
   staged by a background ``Prefetcher`` into pinned host buffers and
-  copied to the card asynchronously.
+  copied to the card asynchronously;
+- ``ImportanceSampledSource`` — score-weighted targets drawn with
+  replacement, each row's loss weighted by 1/(n_train·p) (unbiased);
+- ``ClusterSource``   — Cluster-GCN: unions of BFS partitions
+  (``core.partition``) as block-diagonal batch ELLs, on the full-graph
+  forward.
 
 How the reference's throughput knobs map (PyTorch runs eagerly, so
 there is no compiled step to cache):
@@ -22,20 +27,26 @@ there is no compiled step to cache):
 
 The non-finite guard is an on-device ``isfinite`` reduction plus a
 ``torch.where`` select, with no host sync.  ``BadStepPolicy`` takes
-``raise`` and ``skip``; rollback, checkpoints (``ckpt_every``) and
-``resume_from`` belong to slice 3 and raise ``NotImplementedError``.
-Likewise the cluster, importance-sampled and sharded sources.
+``raise``, ``skip`` and ``rollback`` (to the newest checkpoint).  With
+``TrainPlan.ckpt_every`` every save is an exact-resume snapshot
+(``save_trainer_state``: parameters, optimizer state, the source's
+stream position and rng, History), and ``Trainer.run(resume_from=)``
+continues a stopped run bit-for-bit.  The sharded sources are
+multi-GPU work (ROADMAP.md Queue 1, slice 4) and are not here.
 
 Initial parameters: the reference draws them from
 ``jax.random.key(plan.seed)``, which torch cannot replay, so a
 ``Trainer`` takes carried-across parameters (``params=``, e.g. the
 reference's ``init_gnn`` as numpy) and otherwise draws
-``init_gnn(torch.Generator().manual_seed(plan.seed))``.
+``init_gnn(torch.Generator().manual_seed(plan.seed))``
+(``initial_params``).  It hands the same parameters to its source at
+``bind``: ``ImportanceSampledSource(scores="grad")`` scores with them.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any, Callable as TCallable, List, Optional, Sequence, \
     Tuple
 
@@ -47,10 +58,9 @@ from repro_torch.core import gnn as G
 from repro_torch.core.graph import Graph, to_ell
 from repro_torch.core.metrics import History
 from repro_torch.core.prefetch import HostStagingRing, Prefetcher
-from repro_torch.core.sampler import FanoutBatch, sample_batch
+from repro_torch.core.sampler import FanoutBatch, expand_batch, \
+    sample_batch
 from repro_torch.device import resolve_device
-
-SLICE3 = "ROADMAP.md Queue 1, slice 3"
 
 
 # ---------------------------------------------------------------------------
@@ -78,8 +88,8 @@ def _graph_cache(graph: Graph) -> dict:
 
 def drop_device_cache(graph: Graph) -> None:
     """Forget the device uploads memoized on ``graph`` (ELL, its reverse
-    index, features, labels, node splits), so their memory can be
-    freed."""
+    index, features, labels, node splits) and the cluster partitions, so
+    their memory can be freed."""
     object.__setattr__(graph, "_torch_cache", {})
 
 
@@ -181,23 +191,32 @@ class BadStepPolicy:
     - ``on_bad="raise"``: abort with ``NonFiniteStepError`` at the first
       bad step (the default).
     - ``on_bad="skip"``: tolerate up to ``max_consecutive`` bad steps in
-      a row (History records them in ``bad_steps``), then raise.
-    Rollback to a checkpoint belongs to slice 3 and raises
-    ``NotImplementedError``."""
+      a row (History records them in ``bad_steps``), then ``escalate``
+      ("raise", or "rollback" when checkpointing is on).
+    - ``on_bad="rollback"``: skip until ``max_consecutive`` consecutive
+      bad steps, then restore params and optimizer state from the newest
+      checkpoint and continue with fresh batches; more than
+      ``max_rollbacks`` restores abort.  Requires ``ckpt_every > 0``
+      (checked when the Trainer is built)."""
 
-    on_bad: str = "raise"            # raise | skip
-    max_consecutive: int = 3
+    on_bad: str = "raise"            # raise | skip | rollback
+    max_consecutive: int = 3         # skip/rollback escalation threshold
+    escalate: str = "raise"          # skip's escalation: raise | rollback
+    max_rollbacks: int = 3
 
     def __post_init__(self):
-        if self.on_bad == "rollback":
-            raise NotImplementedError(
-                f"BadStepPolicy rollback needs checkpoints, which are not "
-                f"ported yet ({SLICE3})")
-        if self.on_bad not in ("raise", "skip"):
-            raise ValueError(f"BadStepPolicy.on_bad must be raise|skip, "
-                             f"got {self.on_bad!r}")
+        if self.on_bad not in ("raise", "skip", "rollback"):
+            raise ValueError(f"BadStepPolicy.on_bad must be raise|skip|"
+                             f"rollback, got {self.on_bad!r}")
+        if self.escalate not in ("raise", "rollback"):
+            raise ValueError(f"BadStepPolicy.escalate must be raise|"
+                             f"rollback, got {self.escalate!r}")
         if self.max_consecutive < 1:
             raise ValueError("BadStepPolicy.max_consecutive must be >= 1")
+
+    def needs_ckpt(self) -> bool:
+        return (self.on_bad == "rollback"
+                or (self.on_bad == "skip" and self.escalate == "rollback"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,10 +234,12 @@ class TrainPlan:
     track_full_loss_every: int = 0      # mini-batch: full objective cadence
     target_loss: Optional[float] = None  # stop when batch loss <= target
     target_acc: Optional[float] = None   # stop when val acc >= target
-    ckpt_every: int = 0                 # > 0 is slice 3: raises
+    ckpt_every: int = 0                 # exact-resume snapshot cadence
+    ckpt_dir: str = "experiments/ckpt"
     seed: int = 0
     donate: bool = True                 # in-place optimizer update
     deferred_sync: bool = True          # lag the host read one step
+    ckpt_keep_last: int = 0             # checkpoint retention (0 = all)
     bad_steps: BadStepPolicy = BadStepPolicy()
 
     def make_schedule(self):
@@ -243,9 +264,22 @@ class TrainPlan:
 
 def _deferred_mode(plan: TrainPlan) -> bool:
     """The lagged host read needs the loss on the host only one step
-    late; stop targets need it at once."""
+    late; stop targets and the checkpoint cadence need it at once (a save
+    at iteration ``it`` must hold that step's parameters, not the next
+    one's)."""
     return (plan.deferred_sync and plan.target_loss is None
-            and plan.target_acc is None)
+            and plan.target_acc is None and plan.ckpt_every == 0)
+
+
+def initial_params(graph: Graph, cfg: GNNConfig, plan: TrainPlan,
+                   params: Optional[Sequence[dict]], device):
+    """A run's initial parameters on ``device``: ``params`` (per-layer
+    dicts of arrays, e.g. the reference's ``init_gnn`` as numpy) when
+    given, else ``init_gnn`` drawn from ``plan.seed`` on the CPU."""
+    if params is None:
+        return G.init_gnn(torch.Generator().manual_seed(plan.seed), cfg,
+                          graph.feats.shape[1], device=device)
+    return G.params_from_numpy(params, device)
 
 
 def _tree_leaves(tree) -> List[torch.Tensor]:
@@ -287,6 +321,15 @@ def _guarded_update(opt, params, opt_state, loss, grads, inplace: bool):
         return params, sel(new_s, opt_state), good
 
 
+def _copy_into(dst, src) -> None:
+    """Write the leaves of ``src`` into the tensors of ``dst`` (the same
+    structure) in place: restored parameters and state land in the live
+    tensors the step updates."""
+    with torch.no_grad():
+        for d, v in zip(_tree_leaves(dst), _tree_leaves(src)):
+            d.copy_(v)
+
+
 # ---------------------------------------------------------------------------
 # Batch sources
 # ---------------------------------------------------------------------------
@@ -295,18 +338,20 @@ class BatchSource:
     """Where batches come from + how the training loss is computed on one.
 
     ``bind`` attaches graph/cfg/plan/device and uploads whatever is
-    constant across iterations; ``batches`` yields ``(device_batch,
-    n_nodes)``; ``loss(params, batch)`` is differentiated by the
-    Trainer.  ``done(batch)`` is called once the step consuming the batch
-    has completed (a host sync point), so sources may recycle staging
-    buffers.  ``close()`` is idempotent."""
+    constant across iterations (``params``: the run's initial
+    parameters, for sources that score with them); ``batches`` yields
+    ``(device_batch, n_nodes)``; ``loss(params, batch)`` is
+    differentiated by the Trainer.  ``done(batch)`` is called once the
+    step consuming the batch has completed (a host sync point), so
+    sources may recycle staging buffers.  ``close()`` is idempotent."""
 
     #: the per-iteration training loss already IS the full objective
     loss_is_full_loss = False
     name = "source"
 
     def bind(self, graph: Graph, cfg: GNNConfig, plan: TrainPlan,
-             device) -> "BatchSource":
+             device, params: Optional[Sequence[dict]] = None
+             ) -> "BatchSource":
         raise NotImplementedError
 
     def loss(self, params, batch):
@@ -324,6 +369,21 @@ class BatchSource:
     def close(self) -> None:
         pass
 
+    # -- exact-resume hooks --------------------------------------------
+    def state_dict(self) -> dict:
+        """JSON-serializable batch-stream position, saved inside every
+        exact-resume checkpoint (sampled sources: consumed count + the
+        rng bit-generator state after the last consumed draw).  Sources
+        whose batches are constant across iterations have none."""
+        return {}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore the stream position saved by ``state_dict`` (called
+        between ``bind`` and ``batches`` on resume)."""
+        if sd:
+            raise ValueError(f"{type(self).__name__} has no stream state "
+                             f"to restore, got keys {sorted(sd)}")
+
 
 class FullGraphSource(BatchSource):
     """The (b=n_train, β=d_max) limit: every iteration is GD over ALL
@@ -339,7 +399,7 @@ class FullGraphSource(BatchSource):
         self.ell = None
         self.rev = None
 
-    def bind(self, graph, cfg, plan, device):
+    def bind(self, graph, cfg, plan, device, params=None):
         self.graph, self.cfg, self.device = graph, cfg, device
         self.ell = _device_ell(graph, self.max_deg, device)
         self.rev = (_device_reverse_index(graph, self.max_deg, device)
@@ -364,19 +424,13 @@ class FullGraphSource(BatchSource):
         self.ell = self.rev = None
 
 
-class SampledSource(BatchSource):
-    """The paper's mini-batch paradigm: per-iteration (b, β) fan-out
-    trees from the vectorized CSR sampler, produced ahead of the device
-    step by a background ``Prefetcher`` (or inline with
-    ``prefetch=False``; both draw the same sequence from
-    ``np.random.default_rng(plan.seed)``).
-
-    Host batches are gathered straight into recycled ``HostStagingRing``
-    buffers — pinned on the card, so the upload is an asynchronous copy —
-    and a slot is released in ``done`` only after the CUDA event behind
-    its copy has completed.  Batches of a graph with fewer training
-    nodes than ``batch_size`` are padded with masked-out rows (a validity
-    column), so every batch has one shape.
+class _StagedSource(BatchSource):
+    """A source whose host batches are staged by a background
+    ``Prefetcher`` into recycled ``HostStagingRing`` slots — pinned on the
+    card, so the upload is an asynchronous copy — and whose slot is
+    released in ``done`` only after the CUDA event behind its copy has
+    completed.  Holds the stream position for exact resume: batches
+    consumed so far and the rng state after the last one's draw.
 
     ``timing`` accumulates, per run: ``sample_s`` and ``stage_s`` (host
     sampling and gather/staging, on the worker thread when prefetching;
@@ -385,8 +439,120 @@ class SampledSource(BatchSource):
     ``wait_s`` (the training loop blocked on the next batch) and, on the
     card, ``h2d_ms`` (CUDA-event time of the batch copies)."""
 
-    name = "minibatch"
     depth = 2                            # Prefetcher queue bound
+
+    def _bind_stream(self, graph, cfg, plan, device) -> None:
+        self.graph, self.cfg, self.device = graph, cfg, device
+        self.n_iters = plan.n_iters
+        self.seed = plan.seed
+        self._pf: Optional[Prefetcher] = None
+        self._inflight: List[Tuple[int, Any]] = []  # (slot, copy events)
+        self._consumed = 0               # batches delivered so far
+        self._last_rng_state = None      # rng state after last delivery
+        self._resume_rng_state = None    # restored position (resume)
+        self.timing = {"sample_s": 0.0, "stage_s": 0.0, "wait_s": 0.0,
+                       "h2d_ms": 0.0, "batches": 0, "stage_each_s": []}
+        # queue depth + the batch on the card + the one being staged
+        # (+ one more when the host read lags a step)
+        extra = 1 if _deferred_mode(plan) else 0
+        self._ring = HostStagingRing(
+            self.depth + 2 + extra,
+            pin_memory=torch.device(device).type == "cuda")
+
+    def _timed_stage(self, stage, *args):
+        """``stage(*args)``, its seconds added to the staging timers."""
+        t0 = time.perf_counter()
+        try:
+            return stage(*args)
+        finally:
+            dt = time.perf_counter() - t0
+            self.timing["stage_s"] += dt
+            self.timing["stage_each_s"].append(dt)
+
+    def _upload(self, slot: int) -> List[torch.Tensor]:
+        """The slot's tensors on the device: copied with ``non_blocking``
+        (the slot joins an in-flight FIFO that ``done`` releases once the
+        copy's event has completed); on the CPU they alias the slot."""
+        tensors = self._ring.tensors(slot)
+        events = None
+        if torch.device(self.device).type == "cuda":
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record()
+            tensors = [t.to(self.device, non_blocking=True)
+                       for t in tensors]
+            events[1].record()
+        self._inflight.append((slot, events))
+        return tensors
+
+    def _prefetched(self, batch_size, fanouts, sample_fn, payload_fn):
+        """``(fb, payload)`` pairs for the rest of the run from a
+        ``Prefetcher`` resumed at the stream position; counts each
+        delivery."""
+        remaining = self.n_iters - self._consumed
+        self._pf = Prefetcher(self.graph, batch_size, fanouts,
+                              seed=self.seed, depth=self.depth,
+                              n_batches=remaining, payload_fn=payload_fn,
+                              sample_fn=sample_fn,
+                              rng_state=self._resume_rng_state)
+        try:
+            for _ in range(remaining):
+                t0 = time.perf_counter()
+                fb, payload = self._pf.next()
+                self.timing["wait_s"] += time.perf_counter() - t0
+                self.timing["batches"] += 1
+                self._last_rng_state = self._pf.last_rng_state
+                self._consumed += 1
+                yield fb, payload
+        finally:
+            self.close()
+
+    def done(self, batch) -> None:
+        if self._inflight:
+            slot, events = self._inflight.pop(0)
+            if events is not None:
+                events[1].synchronize()       # the copy, not the launch
+                self.timing["h2d_ms"] += events[0].elapsed_time(events[1])
+            self._ring.release(slot)
+
+    def close(self) -> None:
+        # idempotent: the Trainer's finally and batches()' finally both
+        # land here
+        if self._ring is not None:
+            self._ring.close()     # wakes a worker blocked in acquire()
+        pf, self._pf = self._pf, None
+        if pf is not None:
+            pf.close()
+
+    def state_dict(self):
+        return {"consumed": self._consumed,
+                "rng_state": self._last_rng_state}
+
+    def load_state_dict(self, sd):
+        if not sd:
+            return
+        self._consumed = int(sd["consumed"])
+        self._resume_rng_state = sd.get("rng_state")
+        if self._consumed and self._resume_rng_state is None:
+            raise ValueError(
+                f"{type(self).__name__}: checkpoint records "
+                f"{self._consumed} consumed batches but no rng state — "
+                f"cannot resume the stream exactly")
+
+
+class SampledSource(_StagedSource):
+    """The paper's mini-batch paradigm: per-iteration (b, β) fan-out
+    trees from the vectorized CSR sampler, produced ahead of the device
+    step by a background ``Prefetcher`` (or inline with
+    ``prefetch=False``; both draw the same sequence from
+    ``np.random.default_rng(plan.seed)``).
+
+    Host batches are gathered straight into the staging ring's buffers
+    (``_StagedSource``).  Batches of a graph with fewer training nodes
+    than ``batch_size`` are padded with masked-out rows (a validity
+    column), so every batch has one shape."""
+
+    name = "minibatch"
 
     def __init__(self, batch_size: Optional[int] = None,
                  fanouts: Optional[Sequence[int]] = None,
@@ -394,12 +560,10 @@ class SampledSource(BatchSource):
         self.batch_size = batch_size
         self.fanouts = tuple(fanouts) if fanouts is not None else None
         self.prefetch = prefetch
-        self._pf: Optional[Prefetcher] = None
-        self._ring: Optional[HostStagingRing] = None
-        self._inflight: List[Tuple[int, Any]] = []  # (slot, copy events)
+        self._pf = None
+        self._ring = None
 
-    def bind(self, graph, cfg, plan, device):
-        self.graph, self.cfg, self.device = graph, cfg, device
+    def bind(self, graph, cfg, plan, device, params=None):
         n_train = len(graph.train_nodes)
         if n_train == 0:
             raise ValueError(
@@ -411,18 +575,8 @@ class SampledSource(BatchSource):
                              f">= 1, got {self.b}")
         self.fanouts = self.fanouts or tuple(cfg.fanout)
         assert len(self.fanouts) == cfg.n_layers
-        self.n_iters = plan.n_iters
-        self.seed = plan.seed
         self.pad = max(0, self.b - n_train)
-        self._inflight = []
-        self.timing = {"sample_s": 0.0, "stage_s": 0.0, "wait_s": 0.0,
-                       "h2d_ms": 0.0, "batches": 0, "stage_each_s": []}
-        # queue depth + the batch on the card + the one being staged
-        # (+ one more when the host read lags a step)
-        extra = 1 if _deferred_mode(plan) else 0
-        self._ring = HostStagingRing(
-            self.depth + 2 + extra,
-            pin_memory=torch.device(device).type == "cuda")
+        self._bind_stream(graph, cfg, plan, device)
         return self
 
     def loss(self, params, batch):
@@ -452,9 +606,14 @@ class SampledSource(BatchSource):
             target_w=(padrow(fb.target_w)
                       if fb.target_w is not None else None))
 
+    def _draw(self, rng, graph, batch_size, fanouts) -> FanoutBatch:
+        """How one batch is drawn; subclasses override for non-uniform
+        target selection (``batch_size`` is ``b_request``)."""
+        return sample_batch(rng, graph, batch_size, fanouts)
+
     def _sample(self, rng, graph, batch_size, fanouts) -> FanoutBatch:
         t0 = time.perf_counter()
-        fb = sample_batch(rng, graph, batch_size, fanouts)
+        fb = self._draw(rng, graph, batch_size, fanouts)
         self.timing["sample_s"] += time.perf_counter() - t0
         return fb
 
@@ -470,13 +629,7 @@ class SampledSource(BatchSource):
     def _host_batch(self, graph, fb):
         """``(slot, host arrays in batch order)`` for one batch.  Runs on
         the Prefetcher's worker thread when prefetching."""
-        t0 = time.perf_counter()
-        try:
-            return self._stage(graph, fb)
-        finally:
-            dt = time.perf_counter() - t0
-            self.timing["stage_s"] += dt
-            self.timing["stage_each_s"].append(dt)
+        return self._timed_stage(self._stage, graph, fb)
 
     def _stage(self, graph, fb):
         valid_n = fb.batch_size
@@ -527,70 +680,301 @@ class SampledSource(BatchSource):
             + tuple(tail)
 
     def _to_device(self, payload):
-        """The batch as device tensors: the slot's own (pinned) tensors
-        are copied with ``non_blocking`` and the slot joins an in-flight
-        FIFO that ``done`` releases once the copy's event has completed;
-        on the CPU the tensors alias the slot."""
+        """The batch as device tensors, grouped as the host arrays."""
         slot, host = payload
         feats, masks, weights, self_w, labels, *extra = host
-        flat = iter(self._ring.tensors(slot))
-        tgroups = [[next(flat) for _ in g]
-                   for g in (feats, masks, weights, self_w, [labels], extra)]
-        events = None
-        if torch.device(self.device).type == "cuda":
-            events = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-            events[0].record()
-            tgroups = [[t.to(self.device, non_blocking=True) for t in g]
-                       for g in tgroups]
-            events[1].record()
-        self._inflight.append((slot, events))
-        f, m, w, s, (lab,), ext = tgroups
+        flat = iter(self._upload(slot))
+        f, m, w, s, (lab,), ext = [
+            [next(flat) for _ in g]
+            for g in (feats, masks, weights, self_w, [labels], extra)]
         return (f, m, w, s, lab) + tuple(ext)
 
     def batches(self):
+        # resume-aware: a restored stream starts at batch `_consumed`
+        # with the rng fast-forwarded to the checkpointed state
         if self.prefetch:
-            self._pf = Prefetcher(self.graph, self.b_request, self.fanouts,
-                                  seed=self.seed, depth=self.depth,
-                                  n_batches=self.n_iters,
-                                  payload_fn=self._host_batch,
-                                  sample_fn=self._sample)
-            try:
-                for _ in range(self.n_iters):
-                    t0 = time.perf_counter()
-                    fb, payload = self._pf.next()
-                    self.timing["wait_s"] += time.perf_counter() - t0
-                    self.timing["batches"] += 1
-                    yield self._to_device(payload), fb.batch_size
-            finally:
-                self.close()
-        else:
-            rng = np.random.default_rng(self.seed)
-            for _ in range(self.n_iters):
-                t0 = time.perf_counter()
-                fb = self._sample(rng, self.graph, self.b_request,
-                                  self.fanouts)
-                payload = self._host_batch(self.graph, fb)
-                self.timing["wait_s"] += time.perf_counter() - t0
-                self.timing["batches"] += 1
+            for fb, payload in self._prefetched(
+                    self.b_request, self.fanouts, self._sample,
+                    self._host_batch):
                 yield self._to_device(payload), fb.batch_size
+            return
+        rng = np.random.default_rng(self.seed)
+        if self._resume_rng_state is not None:
+            rng.bit_generator.state = self._resume_rng_state
+        for _ in range(self.n_iters - self._consumed):
+            t0 = time.perf_counter()
+            fb = self._sample(rng, self.graph, self.b_request, self.fanouts)
+            payload = self._host_batch(self.graph, fb)
+            self.timing["wait_s"] += time.perf_counter() - t0
+            self.timing["batches"] += 1
+            self._last_rng_state = rng.bit_generator.state
+            self._consumed += 1
+            yield self._to_device(payload), fb.batch_size
 
-    def done(self, batch) -> None:
-        if self._inflight:
-            slot, events = self._inflight.pop(0)
-            if events is not None:
-                events[1].synchronize()       # the copy, not the launch
-                self.timing["h2d_ms"] += events[0].elapsed_time(events[1])
+
+class ImportanceSampledSource(SampledSource):
+    """Mini-batch SGD with NON-uniform target selection: targets are
+    drawn WITH replacement from the training split with probability
+    p_j ∝ score_j, and every sampled row carries the loss weight
+    w_j = 1 / (n_train · p_j), so the weighted batch mean stays an
+    UNBIASED estimator of the full training objective
+    (E[1/b Σ w_j ℓ_j] = 1/n Σ ℓ_i) whatever the scores' skew or scale.
+
+    ``scores`` selects the proposal:
+
+    - ``"degree"`` (default): (deg + 1) ** alpha;
+    - ``"uniform"``: every training node alike (weights 1);
+    - ``"grad"``: per-node gradient norm ‖∂ℓ_i/∂logits_i‖ at the run's
+      initial parameters (the ``params`` the Trainer hands to ``bind``,
+      or ``initial_params``' draw from the plan's seed): one full-graph
+      forward at bind time, through the aggregation kernel when
+      ``cfg.use_agg_kernel``;
+    - an array of per-node (length n) or per-train-node (length
+      n_train) non-negative scores.  Zero scores are floored to a tiny
+      positive value: a node with p_j = 0 would never be sampled and the
+      estimator would silently drop its loss term.
+
+    Sampling WITH replacement means any ``batch_size`` is valid: b >
+    n_train never pads.  Each batch ends with the validity column and
+    the row weights, which reach ``gnn_loss(weight=)``."""
+
+    name = "importance"
+
+    def __init__(self, batch_size: Optional[int] = None,
+                 fanouts: Optional[Sequence[int]] = None,
+                 scores="degree", alpha: float = 1.0, **kw):
+        super().__init__(batch_size, fanouts, **kw)
+        self.scores = scores
+        self.alpha = alpha
+
+    def bind(self, graph, cfg, plan, device, params=None):
+        super().bind(graph, cfg, plan, device)
+        train = graph.train_nodes
+        if isinstance(self.scores, str):
+            if self.scores == "degree":
+                s = (graph.degrees[train] + 1.0) ** self.alpha
+            elif self.scores == "uniform":
+                s = np.ones(len(train), np.float64)
+            elif self.scores == "grad":
+                s = self._grad_norm_scores(graph, cfg, plan, params)
+            else:
+                raise ValueError(
+                    f"ImportanceSampledSource: unknown scores mode "
+                    f"{self.scores!r} (have: degree, uniform, grad, or an "
+                    f"array)")
+        else:
+            s = np.asarray(self.scores, np.float64).reshape(-1)
+            if s.shape[0] == graph.n:
+                s = s[train]
+            if s.shape[0] != len(train):
+                raise ValueError(
+                    f"ImportanceSampledSource: scores must have length "
+                    f"n={graph.n} or n_train={len(train)}, got "
+                    f"{s.shape[0]}")
+        if not np.all(np.isfinite(s)) or (s < 0).any() or s.sum() <= 0:
+            raise ValueError(
+                "ImportanceSampledSource: scores must be finite, "
+                "non-negative, with a positive sum")
+        if (s == 0).any():              # p_j = 0 would bias the estimator
+            s = np.where(s > 0, s, s[s > 0].min() * 1e-6)
+        p = s / s.sum()
+        self._p = p
+        self._train = train
+        # E_p[w] = Σ p_j / (n p_j) = 1: uniform scores give weight 1.0
+        self._w = (1.0 / (len(train) * p)).astype(np.float32)
+        self.pad = self.b - self.b_request
+        return self
+
+    def _grad_norm_scores(self, graph, cfg, plan, params):
+        """‖∂ℓ_i/∂logits_i‖ per train node at the initial parameters
+        (softmax(z) − onehot for CE, z − onehot for MSE), in float64 on
+        the host from the forward's f32 logits."""
+        idx, w, w_self, feats, labels = _device_ell(graph, None,
+                                                    self.device)
+        p0 = initial_params(graph, cfg, plan, params, self.device)
+        with torch.no_grad():
+            logits = G.full_graph_forward(p0, cfg, feats, idx, w, w_self)
+        tr = graph.train_nodes
+        lt = logits.float().cpu().numpy()[tr].astype(np.float64)
+        onehot = np.zeros_like(lt)
+        onehot[np.arange(len(tr)), graph.labels[tr]] = 1.0
+        if cfg.loss == "mse":
+            g = lt - onehot
+        else:
+            e = np.exp(lt - lt.max(axis=1, keepdims=True))
+            g = e / e.sum(axis=1, keepdims=True) - onehot
+        return np.linalg.norm(g, axis=1)
+
+    def _draw(self, rng, graph, batch_size, fanouts):
+        sel = rng.choice(len(self._train), size=batch_size, replace=True,
+                         p=self._p)
+        fb = expand_batch(rng, graph,
+                          self._train[sel].astype(np.int32), fanouts)
+        fb.target_w = self._w[sel]
+        return fb
+
+    def _extra_cols(self, fb, valid_n):
+        valid = np.zeros(self.b, np.float32)
+        valid[:valid_n] = 1.0
+        return (valid, fb.target_w)
+
+    def loss(self, params, batch):
+        feats, masks, weights, self_w, labels, valid, row_w = batch
+        logits = G.minibatch_forward(params, self.cfg, feats, masks,
+                                     weights, self_w)
+        return G.gnn_loss(logits, labels, self.cfg.loss, self.cfg.n_classes,
+                          valid=valid, weight=row_w)
+
+
+class ClusterSource(_StagedSource):
+    """Cluster-GCN batching: partition once (greedy BFS,
+    ``core.partition``), then every iteration trains on the induced
+    subgraph of a union of k clusters.  Each cluster's induced ELL block
+    is built ONCE at bind and batches assemble block-diagonally
+    (cross-cluster edges are dropped — vanilla Cluster-GCN's documented
+    approximation).
+
+    The batch is a fixed-shape padded ELL ``[m_max, K]`` (m_max = the k
+    largest clusters stacked, K = the widest induced block) plus its
+    features, labels and a ``valid`` column (the batch's training rows).
+    The loss runs the FULL-GRAPH forward on the batch ELL, masked to
+    those rows.  Batches with no training row are rejection-resampled
+    from one ordered ``np.random.default_rng(plan.seed)`` stream; the
+    choice and the assembly run on a ``Prefetcher`` worker, straight
+    into the staging ring (``_StagedSource``).  With
+    ``cfg.use_agg_kernel`` each batch's reverse index is built on the
+    device (``ops.build_reverse_index``), so the table's gradient comes
+    from the reverse-index backward kernel: the batch ELL repeats ids,
+    and an atomic sum would land in no fixed order."""
+
+    name = "cluster"
+
+    def __init__(self, batch_size: Optional[int] = None,
+                 clusters_per_batch: int = 2,
+                 n_parts: Optional[int] = None, partition_seed: int = 0):
+        if clusters_per_batch < 1:
+            raise ValueError(f"ClusterSource: clusters_per_batch must be "
+                             f">= 1, got {clusters_per_batch}")
+        if n_parts is not None and n_parts < 1:
+            raise ValueError(f"ClusterSource: n_parts must be >= 1, got "
+                             f"{n_parts}")
+        self.batch_size = batch_size
+        self.clusters_per_batch = clusters_per_batch
+        self.n_parts = n_parts
+        self.partition_seed = partition_seed
+        self._pf = None
+        self._ring = None
+
+    def bind(self, graph, cfg, plan, device, params=None):
+        from repro_torch.core.partition import (bfs_partition,
+                                                cluster_ell_blocks)
+        self.b = self.batch_size or cfg.batch_size
+        k = self.clusters_per_batch
+        if self.n_parts is None:
+            # expected union size ≈ b: n/P nodes per cluster, k per batch
+            n_parts = int(round(graph.n * k / max(self.b, 1)))
+        else:
+            n_parts = self.n_parts
+        n_parts = min(max(n_parts, k), graph.n)
+        # the partition and its blocks are host arrays, memoized on the
+        # graph beside its device uploads: a sweep's or a resumed run's
+        # next bind reuses them
+        key = ("partition", n_parts, self.partition_seed)
+        cache = _graph_cache(graph)
+        #: host seconds of the partition and of the block build (0 when
+        #: an earlier bind on this graph built them)
+        self.bind_s = {"partition": 0.0, "blocks": 0.0}
+        if key not in cache:
+            t0 = time.perf_counter()
+            part = bfs_partition(graph, n_parts, seed=self.partition_seed)
+            t1 = time.perf_counter()
+            cache[key] = cluster_ell_blocks(graph, part)
+            self.bind_s = {"partition": t1 - t0,
+                           "blocks": time.perf_counter() - t1}
+        blocks = self.blocks = cache[key]
+        self.n_parts_ = len(blocks.clusters)
+        self.k = min(k, self.n_parts_)
+        self._train_valid = [graph.train_mask[c].astype(np.float32)
+                             for c in blocks.clusters]
+        self._has_train = np.array([v.sum() > 0 for v in self._train_valid])
+        if not self._has_train.any():
+            raise ValueError(
+                "ClusterSource: no cluster contains a training node "
+                f"(n_train={len(graph.train_nodes)}) — nothing to train on")
+        self.m_max = int(np.sort(blocks.sizes)[::-1][:self.k].sum())
+        self.K = blocks.max_width
+        self._labels = [graph.labels[c].astype(np.int32)
+                        for c in blocks.clusters]
+        self._bind_stream(graph, cfg, plan, device)
+        return self
+
+    def loss(self, params, batch):
+        idx, w, w_self, feats, labels, valid = batch
+        rev = None
+        if self.cfg.use_agg_kernel:
+            from repro_torch.kernels.neighbor_agg.ops import \
+                build_reverse_index
+            rev = build_reverse_index(idx, w, idx.shape[0])
+        logits = G.full_graph_forward(params, self.cfg, feats, idx, w,
+                                      w_self, rev=rev)
+        return G.gnn_loss(logits, labels, self.cfg.loss, self.cfg.n_classes,
+                          valid=valid)
+
+    def _choose(self, rng, graph, batch_size, fanouts):
+        """The clusters of one batch (Prefetcher ``sample_fn``): at least
+        one holds a training node."""
+        t0 = time.perf_counter()
+        train_cluster = int(np.nonzero(self._has_train)[0][0])
+        for _ in range(64):          # a batch needs >= 1 training row
+            chosen = rng.choice(self.n_parts_, size=self.k, replace=False)
+            if self._has_train[chosen].any():
+                break
+        else:                        # pathological split: force one in
+            chosen[0] = train_cluster
+        self.timing["sample_s"] += time.perf_counter() - t0
+        return chosen
+
+    def _assemble(self, graph, chosen):
+        """``(slot, n_valid)``: the block-diagonal union of the chosen
+        clusters written into a staging slot, padded to ``(m_max, K)``
+        (Prefetcher ``payload_fn``, on its worker thread)."""
+        fd = graph.feats.shape[1]
+        m, kk = self.m_max, self.K
+        specs = [((m, kk), np.int32), ((m, kk), np.float32),
+                 ((m,), np.float32), ((m, fd), graph.feats.dtype),
+                 ((m,), np.int32), ((m,), np.float32)]
+        slot = self._ring.acquire()
+        try:
+            idx, w, w_self, feats, labels, valid = \
+                self._ring.buffers(slot, specs)
+            for buf in (idx, w, w_self, feats, labels, valid):
+                buf.fill(0)
+            off = 0
+            for ci in chosen:
+                bi, bw = self.blocks.idx[ci], self.blocks.w[ci]
+                mc, kc = bi.shape
+                # local ids -> batch-local ids; padded entries (weight 0)
+                # offset too, staying in range for the gather
+                idx[off:off + mc, :kc] = bi + off
+                w[off:off + mc, :kc] = bw
+                w_self[off:off + mc] = self.blocks.w_self[ci]
+                np.take(graph.feats, self.blocks.clusters[ci], axis=0,
+                        out=feats[off:off + mc])
+                labels[off:off + mc] = self._labels[ci]
+                valid[off:off + mc] = self._train_valid[ci]
+                off += mc
+            n_valid = int(valid.sum())
+        except BaseException:
             self._ring.release(slot)
+            raise
+        return slot, n_valid
 
-    def close(self) -> None:
-        # idempotent: the Trainer's finally and batches()' finally both
-        # land here
-        if self._ring is not None:
-            self._ring.close()     # wakes a worker blocked in acquire()
-        if self._pf is not None:
-            pf, self._pf = self._pf, None
-            pf.close()
+    def batches(self):
+        for _, (slot, n_valid) in self._prefetched(
+                self.k, (), self._choose,
+                lambda g, chosen: self._timed_stage(self._assemble, g,
+                                                    chosen)):
+            yield tuple(self._upload(slot)), n_valid
 
 
 # ---------------------------------------------------------------------------
@@ -616,6 +1000,7 @@ class TrainState:
     stop: bool = False
     stop_reason: Optional[str] = None
     step_bad: bool = False            # this step tripped the guard
+    rollback_pending: bool = False    # BadStepPolicy requested a restore
 
     def request_stop(self, reason: str) -> None:
         if not self.stop:
@@ -680,8 +1065,52 @@ class EarlyStop(Callback):
             state.request_stop(f"target_acc>={ta}")
 
 
+def save_trainer_state(state: TrainState, final: bool = False) -> str:
+    """One exact-resume snapshot: params + optimizer state in the npz
+    (copied to the host now), the engine state (iteration, the source's
+    stream position and rng, History) in the step's metadata JSON.
+    ``Trainer.run(resume_from=...)`` restores all of it and continues
+    bit-for-bit as the run that was not stopped."""
+    from repro_torch.checkpoint import save_checkpoint
+    meta = {
+        "loss": state.loss, "it": state.it, "source": state.source.name,
+        "engine_state": {
+            "format": 1,
+            "it": state.it,
+            "seed": state.plan.seed,
+            "source": state.source.name,
+            "source_state": state.source.state_dict(),
+            "history": state.history.to_dict(),
+        },
+    }
+    if final:
+        meta["final"] = True
+    return save_checkpoint(
+        state.plan.ckpt_dir, state.it,
+        {"params": state.params, "opt_state": state.opt_state},
+        meta, keep_last=state.plan.ckpt_keep_last or None)
+
+
+class CheckpointCallback(Callback):
+    """Periodic exact-resume snapshots (``save_trainer_state``) every
+    ``plan.ckpt_every`` iterations (not at iteration 0), and a final one
+    at the end of the run."""
+
+    def on_step(self, state):
+        every = state.plan.ckpt_every
+        if every and state.it and state.it % every == 0:
+            save_trainer_state(state)
+
+    def on_train_end(self, state):
+        if state.plan.ckpt_every:
+            save_trainer_state(state, final=True)
+
+
 def default_callbacks(plan: TrainPlan) -> List[Callback]:
-    return [HistoryCallback(), EarlyStop()]
+    cbs: List[Callback] = [HistoryCallback(), EarlyStop()]
+    if plan.ckpt_every:
+        cbs.append(CheckpointCallback())
+    return cbs
 
 
 # ---------------------------------------------------------------------------
@@ -701,11 +1130,13 @@ class Trainer:
 
     Per iteration: the step (loss, ``torch.autograd.grad``, guarded
     optimizer update) -> periodic full-neighborhood eval -> ``on_step``
-    callbacks -> ``on_eval`` on eval iterations -> stop when a callback
-    asked.  With ``plan.deferred_sync`` the host reads each record one
-    iteration late.  ``params`` carries initial parameters across (a
-    list of per-layer dicts of numpy arrays); ``device`` is where
-    the run lives (``cuda`` unless the caller asks for the CPU)."""
+    callbacks (History, early stop, checkpoint) -> ``on_eval`` on eval
+    iterations -> a rollback when the ``BadStepPolicy`` asked -> stop
+    when a callback asked.  With ``plan.deferred_sync`` the host reads
+    each record one iteration late.  ``params`` carries initial
+    parameters across (a list of per-layer dicts of numpy arrays); the
+    source gets them at ``bind`` too.  ``device`` is where the run lives
+    (``cuda`` unless the caller asks for the CPU)."""
 
     def __init__(self, graph: Graph, cfg: GNNConfig, plan: TrainPlan,
                  source: Optional[BatchSource] = None,
@@ -713,20 +1144,23 @@ class Trainer:
                  extra_callbacks: Sequence[Callback] = (),
                  params: Optional[Sequence[dict]] = None,
                  device="cuda"):
-        if plan.ckpt_every:
-            raise NotImplementedError(
-                f"TrainPlan.ckpt_every={plan.ckpt_every}: checkpoints are "
-                f"not ported yet ({SLICE3})")
+        if plan.bad_steps.needs_ckpt() and not plan.ckpt_every:
+            raise ValueError(
+                "BadStepPolicy escalates to rollback but plan.ckpt_every "
+                "is 0 — there would never be a checkpoint to roll back "
+                "to; set ckpt_every (and ckpt_dir) or use "
+                "on_bad='skip'/'raise'")
         self.device = resolve_device(device)
         self.graph, self.cfg, self.plan = graph, cfg, plan
-        self.source = (source or SampledSource()).bind(graph, cfg, plan,
-                                                       self.device)
+        self._init_params = params
+        self.source = (source or SampledSource()).bind(
+            graph, cfg, plan, self.device, params=params)
         self.callbacks = (list(callbacks) if callbacks is not None
                           else default_callbacks(plan))
         self.callbacks += list(extra_callbacks)
-        self._consec_bad = 0
+        self._consec_bad = 0              # consecutive guard-tripped steps
+        self._n_rollbacks = 0
         self.opt = plan.make_optimizer()
-        self._init_params = params
         # eval and full-loss tracking reuse the source's ELL when it has
         # one (a capped max_deg evaluates on the same adjacency)
         self._ell = (getattr(self.source, "ell", None)
@@ -734,12 +1168,8 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _initial_params(self):
-        if self._init_params is None:
-            params = G.init_gnn(torch.Generator().manual_seed(self.plan.seed),
-                                self.cfg, self.graph.feats.shape[1],
-                                device=self.device)
-        else:
-            params = G.params_from_numpy(self._init_params, self.device)
+        params = initial_params(self.graph, self.cfg, self.plan,
+                                self._init_params, self.device)
         for v in _tree_leaves(params):
             v.requires_grad_()
         return params
@@ -793,24 +1223,96 @@ class Trainer:
         if state.val_acc is not None:
             self._fire("on_eval", state)
         if state.step_bad:
-            pol = self.plan.bad_steps
-            if pol.on_bad == "raise" or self._consec_bad >= \
-                    pol.max_consecutive:
-                raise NonFiniteStepError(state.it, state.loss,
-                                         self._consec_bad)
+            self._apply_bad_step_policy(state)
+
+    def _apply_bad_step_policy(self, state: TrainState) -> None:
+        """A guard-tripped step reached the host.  The guard already made
+        it an identity update, so ``skip`` has nothing to undo; after
+        ``max_consecutive`` bad steps in a row ``raise`` raises and
+        ``rollback`` asks the loop to restore the newest checkpoint."""
+        pol = self.plan.bad_steps
+        if pol.on_bad == "raise":
+            raise NonFiniteStepError(state.it, state.loss,
+                                     self._consec_bad)
+        if self._consec_bad < pol.max_consecutive:
+            return                         # plain skip-and-resample
+        escalation = (pol.escalate if pol.on_bad == "skip"
+                      else "rollback")
+        if escalation == "rollback":
+            state.rollback_pending = True
+            return
+        raise NonFiniteStepError(state.it, state.loss, self._consec_bad)
+
+    def _rollback(self, state: TrainState) -> None:
+        """Restore params and optimizer state from the newest checkpoint
+        into the live tensors (at most ``max_rollbacks`` times)."""
+        from repro_torch.checkpoint import latest_step, restore_checkpoint
+        pol = self.plan.bad_steps
+        self._n_rollbacks += 1
+        if self._n_rollbacks > pol.max_rollbacks:
+            raise NonFiniteStepError(state.it, state.loss,
+                                     self._consec_bad)
+        step = latest_step(self.plan.ckpt_dir)
+        if step is None:
+            # bad steps piled up before the first checkpoint: nothing to
+            # restore, surface the divergence
+            raise NonFiniteStepError(state.it, state.loss,
+                                     self._consec_bad)
+        warnings.warn(
+            f"rolling back to checkpoint step {step} after "
+            f"{self._consec_bad} consecutive non-finite steps "
+            f"(rollback {self._n_rollbacks}/{pol.max_rollbacks})",
+            RuntimeWarning, stacklevel=2)
+        live = {"params": state.params, "opt_state": state.opt_state}
+        _copy_into(live, restore_checkpoint(self.plan.ckpt_dir, live,
+                                            step=step))
+        self._consec_bad = 0
+
+    def _restore_run_state(self, directory: str, params, opt_state
+                           ) -> Tuple[int, History]:
+        """Load the newest exact-resume checkpoint of ``directory`` into
+        ``params`` and ``opt_state`` (in place) and the source's stream
+        position; returns (first iteration to run, History)."""
+        from repro_torch.checkpoint import (latest_step, load_metadata,
+                                            restore_checkpoint)
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(
+                f"resume_from={directory!r}: no completed checkpoints")
+        meta = load_metadata(directory, step) or {}
+        es = meta.get("engine_state")
+        if not es:
+            raise ValueError(
+                f"checkpoint step {step} in {directory!r} has no "
+                f"engine_state — it was not written by the engine's "
+                f"CheckpointCallback (params-only checkpoints cannot "
+                f"be resumed exactly)")
+        if es.get("seed") != self.plan.seed:
+            warnings.warn(
+                f"resuming a run recorded with seed={es.get('seed')} "
+                f"under plan.seed={self.plan.seed}; the continued "
+                f"batch stream follows the CHECKPOINT's stream state, "
+                f"not the new seed", RuntimeWarning, stacklevel=2)
+        live = {"params": params, "opt_state": opt_state}
+        _copy_into(live, restore_checkpoint(directory, live, step=step))
+        self.source.load_state_dict(es.get("source_state", {}))
+        return int(es["it"]) + 1, History.from_dict(es.get("history", {}))
 
     def run(self, resume_from: Optional[str] = None) -> TrainResult:
-        if resume_from is not None:
-            raise NotImplementedError(
-                f"Trainer.run(resume_from=...): exact resume is not "
-                f"ported yet ({SLICE3})")
         graph, cfg, plan = self.graph, self.cfg, self.plan
         params = self._initial_params()
         opt_state = self.opt.init(params)
+        history, start_it = History(), 0
+        if resume_from is not None:
+            start_it, history = self._restore_run_state(resume_from,
+                                                        params, opt_state)
         state = TrainState(graph=graph, cfg=cfg, plan=plan,
-                           source=self.source, history=History(),
+                           source=self.source, history=history,
                            params=params, opt_state=opt_state,
+                           it=start_it - 1,     # last completed iteration
                            full_loss_fn=self._full_loss_dev)
+        if history.losses:
+            state.loss = history.losses[-1]
         self._fire("on_train_start", state)
         deferred = _deferred_mode(plan)
         track = plan.track_full_loss_every
@@ -819,7 +1321,7 @@ class Trainer:
         try:
             val_sel = self.source.node_split("val")
             stream = self.source.batches()
-            for it in range(plan.n_iters):
+            for it in range(start_it, plan.n_iters):
                 batch, n_nodes = next(stream)
                 params, opt_state, loss, good = self._step(
                     params, opt_state, batch)
@@ -838,6 +1340,12 @@ class Trainer:
                         self._consume(prev, state)
                 else:
                     self._consume(rec, state)
+                if state.rollback_pending:
+                    # rollback needs ckpt_every > 0, which forces the
+                    # synchronous read: the params restored into are this
+                    # step's guard-kept values
+                    self._rollback(state)
+                    state.rollback_pending = False
                 if state.stop:
                     break
             if pending is not None:

@@ -17,12 +17,16 @@ CUDA kernels:
         --preset arxiv-like --n 400 --iters 4 --bs 32 64 --fanout 3 \
         --device cpu
 
+``sweep(journal=)`` / ``--journal`` make a sweep crash-safe: every
+finished point is appended to a JSONL journal, and a rerun with the same
+journal skips the points recorded ``ok``.
+
 Deliberately NOT carried over: the reference sweep's degrade path
 (``experiment.py:356-383``), which retries a grid point with
 ``use_agg_kernel=False`` when the kernel fails.  Here a kernel failure
-raises out of ``sweep``.  The completion journal (``journal=``) and the
-cluster, importance and sharded paradigms belong to later slices and
-raise ``NotImplementedError``.
+raises out of ``sweep`` (without a journal) or becomes the point's error
+row (with one).  The sharded paradigms are multi-GPU work and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,9 +41,11 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.configs.base import GNNConfig
-from repro_torch.core.engine import (SLICE3, BatchSource, Callback,
-                                     FullGraphSource, SampledSource, Trainer,
-                                     TrainPlan, TrainResult)
+from repro_torch.core import faults
+from repro_torch.core.engine import (BatchSource, Callback, ClusterSource,
+                                     FullGraphSource,
+                                     ImportanceSampledSource, SampledSource,
+                                     Trainer, TrainPlan, TrainResult)
 from repro_torch.core.graph import Graph
 from repro_torch.core.metrics import (iteration_to_accuracy,
                                       iteration_to_full_loss,
@@ -52,8 +58,8 @@ OUT_DIR = os.environ.get("BENCH_OUT", "experiments/bench_torch")
 
 SLICE4 = "ROADMAP.md Queue 1, slice 4"
 #: paradigms of the reference and the slice that ports each
-PARADIGMS = {"fullgraph": None, "minibatch": None, "cluster": SLICE3,
-             "importance": SLICE3, "fullgraph_sharded": SLICE4,
+PARADIGMS = {"fullgraph": None, "minibatch": None, "cluster": None,
+             "importance": None, "fullgraph_sharded": SLICE4,
              "minibatch_sharded": SLICE4}
 
 
@@ -133,6 +139,10 @@ def make_source(paradigm: str, b: Optional[int] = None,
         return FullGraphSource()
     if paradigm == "minibatch":
         return SampledSource(batch_size=b, fanouts=fanouts)
+    if paradigm == "cluster":
+        return ClusterSource(batch_size=b)
+    if paradigm == "importance":
+        return ImportanceSampledSource(batch_size=b, fanouts=fanouts)
     if paradigm in PARADIGMS:
         raise NotImplementedError(
             f"paradigm {paradigm!r} is not ported yet ({PARADIGMS[paradigm]})")
@@ -178,6 +188,11 @@ def run_experiment(graph: Graph, cfg: GNNConfig, plan: TrainPlan,
     if name == "fullgraph":
         spec = {"paradigm": name, "b": len(graph.train_nodes),
                 "fanouts": f"d_max={graph.d_max}"}
+    elif name == "cluster":
+        # fan-out does not apply: the batch structure is k-of-P clusters
+        spec = {"paradigm": name, "b": getattr(source, "b", b),
+                "fanouts": f"clusters(k={getattr(source, 'k', '?')}"
+                           f"/P={getattr(source, 'n_parts_', '?')})"}
     else:
         spec = {"paradigm": name,
                 "b": getattr(source, "b", b or cfg.batch_size),
@@ -197,6 +212,48 @@ def run_experiment(graph: Graph, cfg: GNNConfig, plan: TrainPlan,
     return row
 
 
+# ---------------------------------------------------------------------------
+# (b, β) sweep — crash-safe via a JSONL completion journal
+# ---------------------------------------------------------------------------
+
+def _point_key(paradigm: str, b: Optional[int],
+               fo: Optional[Tuple[int, ...]], seed: int) -> str:
+    """Stable journal identity of one grid point (the reference's)."""
+    fos = "x".join(map(str, fo)) if fo else "-"
+    return f"{paradigm}|{b if b is not None else '-'}|{fos}|{seed}"
+
+
+def _load_journal(path: Optional[str]) -> Dict[str, Dict]:
+    """Completed rows keyed by point, from a previous (crashed) sweep.
+    Only ``status == "ok"`` records count as done — error rows are
+    RETRIED on resume.  A torn final line (crash mid-append) is skipped,
+    not fatal: its point simply reruns."""
+    done: Dict[str, Dict] = {}
+    if not path or not os.path.exists(path):
+        return done
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except json.JSONDecodeError:
+                continue
+            if rec.get("status") == "ok" and "key" in rec:
+                done[rec["key"]] = rec.get("row", {})
+    return done
+
+
+def _append_journal(path: str, rec: Dict) -> None:
+    """Durable append: one JSON line, flushed + fsynced before the sweep
+    moves on, so a kill after this point cannot lose the record."""
+    with open(path, "a") as f:
+        f.write(json.dumps(rec) + "\n")
+        f.flush()
+        os.fsync(f.fileno())
+
+
 def sweep(graph: Graph, cfg: GNNConfig, plan: TrainPlan,
           batch_sizes: Sequence[int] = (),
           fanout_grid: Sequence[Sequence[int]] = (),
@@ -209,18 +266,24 @@ def sweep(graph: Graph, cfg: GNNConfig, plan: TrainPlan,
           serve_queries: int = 64,
           init_params: Optional[Callable[[int], Sequence[dict]]] = None,
           device="cuda") -> List[Dict]:
-    """Run the (b, β, sampler) product grid (the paper's §5 plane).
+    """Run the (b, β, sampler) product grid (the paper's §5 plane plus a
+    sampler axis: ``sources`` from ``PARADIGMS``).
 
     ``fanout_grid`` entries are per-hop fan-out tuples (an int entry is
     broadcast to all ``cfg.n_layers`` hops); full-graph collapses to one
-    point.  ``init_params(seed)`` gives each point's carried-across
-    initial parameters.  A failing point raises out of the sweep — a
-    kernel failure included: there is no retry without the kernel.
-    ``journal`` (crash-safe resume) is slice 3 and raises."""
-    if journal is not None:
-        raise NotImplementedError(
-            f"sweep(journal=...): the completion journal is not ported "
-            f"yet ({SLICE3})")
+    point, and cluster to one point per b (fan-out does not apply).
+    ``init_params(seed)`` gives each point's carried-across initial
+    parameters.  With ``plan.ckpt_every`` each point checkpoints under a
+    directory of its own below ``plan.ckpt_dir``.
+
+    ``journal`` makes the sweep CRASH-SAFE: every completed point is
+    appended to the JSONL file (flushed + fsynced) before the next one
+    starts, a rerun with the same path skips points already recorded
+    ``ok`` (their journaled rows are returned in grid order), and a
+    failing point becomes a ``status="error"`` row instead of ending the
+    grid (error points are retried on resume).  Without a journal a
+    failing point raises out of the sweep — a kernel failure included:
+    there is no retry without the kernel."""
     points: List[Tuple[str, Optional[int], Optional[Tuple[int, ...]]]] = []
     seen = set()
     if include_fullgraph:
@@ -236,20 +299,71 @@ def sweep(graph: Graph, cfg: GNNConfig, plan: TrainPlan,
             seen.add(src)
             points.append((src, None, None))
             continue
+        if src == "cluster":
+            if (src, int(b)) in seen:
+                continue
+            seen.add((src, int(b)))
         points.append((src, int(b), fo))
+    done = _load_journal(journal)
     rows: List[Dict] = []
     for paradigm, b, fo in points:
         for seed in seeds:
-            row = run_experiment(
-                graph, cfg, dataclasses.replace(plan, seed=seed),
-                paradigm=paradigm, b=b, fanouts=fo, inference=inference,
-                serve_queries=serve_queries,
-                params=init_params(seed) if init_params else None,
-                device=device)
+            key = _point_key(paradigm, b, fo, seed)
+            if key in done:
+                rows.append(done[key])
+                if verbose:
+                    print(f"journal: skipping completed point {key}",
+                          flush=True)
+                continue
+            plan_pt = dataclasses.replace(plan, seed=seed)
+            if plan.ckpt_every:
+                # namespace checkpoints per grid point/seed so runs don't
+                # overwrite each other's ckpt_{step}.npz files
+                tag = (paradigm if paradigm.startswith("fullgraph")
+                       else f"b{b}_f{'x'.join(map(str, fo))}"
+                       if paradigm == "minibatch"
+                       else f"{paradigm}_b{b}_f{'x'.join(map(str, fo))}")
+                plan_pt = dataclasses.replace(
+                    plan_pt, ckpt_dir=os.path.join(plan.ckpt_dir,
+                                                   f"{tag}_s{seed}"))
+            try:
+                row = run_experiment(
+                    graph, cfg, plan_pt, paradigm=paradigm, b=b,
+                    fanouts=fo, inference=inference,
+                    serve_queries=serve_queries,
+                    params=init_params(seed) if init_params else None,
+                    device=device)
+            except Exception as e:
+                # without a journal the sweep is interactive: fail fast.
+                # With one it is a long unattended grid: record the
+                # failure and go on (retried on resume).  Injected crashes
+                # (core.faults) are BaseExceptions and pass through.
+                if journal is None:
+                    raise
+                row = {"paradigm": paradigm, "b": b,
+                       "fanouts": "x".join(map(str, fo)) if fo else "",
+                       "seed": seed, "status": "error",
+                       "error": f"{type(e).__name__}: {e}"}
+                _append_journal(journal, {"key": key, "status": "error",
+                                          "error": row["error"]})
+                rows.append(row)
+                if verbose:
+                    print(f"point {key} FAILED: {row['error']}",
+                          flush=True)
+                continue
+            if journal is not None:
+                _append_journal(journal, {
+                    "key": key, "status": "ok",
+                    "row": {k: v for k, v in row.items()
+                            if not k.startswith("_")}})
+                done[key] = row
             rows.append(row)
             if verbose:
                 print(",".join(f"{k}={v}" for k, v in row.items()
                                if not k.startswith("_")), flush=True)
+            # chaos-test crash site: a kill here (point finished AND
+            # journaled) must lose no work on resume
+            faults.maybe_crash("sweep.after_point")
     return rows
 
 
@@ -290,9 +404,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     ap.add_argument("--bs", type=int, nargs="+", default=[32, 64])
     ap.add_argument("--fanout", type=int, nargs="+", default=[3])
     ap.add_argument("--sources", nargs="+", default=["minibatch"],
-                    help="sampler axis of the grid (see PARADIGMS); the "
-                         "port runs minibatch and fullgraph, the others "
-                         "raise NotImplementedError")
+                    help="sampler axis of the grid (see PARADIGMS): "
+                         "minibatch, cluster, importance, fullgraph; the "
+                         "sharded ones raise NotImplementedError")
     ap.add_argument("--layers", type=int, default=1)
     ap.add_argument("--lr", type=float, default=0.3)
     ap.add_argument("--eval-every", type=int, default=2)
@@ -306,7 +420,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     ap.add_argument("--cache-rows", type=int, default=-1,
                     help="hot-cache size for --feats-layout sharded")
     ap.add_argument("--journal", default=None,
-                    help="not ported yet: raises")
+                    help="JSONL completion journal: crash-safe sweeps "
+                         "— rerunning with the same path skips points "
+                         "already recorded ok")
     ap.add_argument("--inference", action="store_true",
                     help="append the serving-cost columns to every row")
     ap.add_argument("--serve-queries", type=int, default=32)
@@ -323,10 +439,6 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
         if PARADIGMS.get(src) is not None:
             raise NotImplementedError(
                 f"--sources {src}: not ported yet ({PARADIGMS[src]})")
-    if args.journal is not None:
-        raise NotImplementedError(
-            f"--journal: the completion journal is not ported yet "
-            f"({SLICE3})")
     dev = resolve_device(args.device)
     graph = make_preset(args.preset, n=args.n, seed=0)
     cfg = GNNConfig(name="sweep", model="graphsage", n_nodes=graph.n,
@@ -342,7 +454,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
           else tuple(args.fanout))
     rows = sweep(graph, cfg, plan, batch_sizes=args.bs, fanout_grid=[fo],
                  include_fullgraph=args.fullgraph, sources=args.sources,
-                 verbose=True, inference=args.inference,
+                 verbose=True, journal=args.journal,
+                 inference=args.inference,
                  serve_queries=args.serve_queries, device=dev)
     paths = save_rows(args.out, rows)
     print(json.dumps({"rows": len(rows), **paths}))

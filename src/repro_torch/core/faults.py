@@ -1,6 +1,6 @@
 """Deterministic fault injection: failpoints + seeded chaos schedules
-(copy of the reference ``repro.core.faults`` without ``poison_batches``,
-which poisons training batches and comes with the training engine).
+(copy of the reference ``repro.core.faults``; ``poison_batches`` rewrites
+the port's tensor batches).
 
 The resilience layer (exact-resume checkpoints, non-finite step guards,
 supervised prefetch, crash-safe sweeps) is only trustworthy if its
@@ -19,6 +19,10 @@ is the injection side of that contract:
   (``TransientSamplerFault``) drive the Prefetcher's supervised
   restart; ``FatalSamplerFault`` (or any other exception) must surface
   to the caller instead.
+- **Batch poisoning** — ``poison_batches(source, at_iters)`` rewrites a
+  ``BatchSource``'s device batches so every float tensor at the chosen
+  iterations is NaN, driving the engine's non-finite step guard and
+  ``BadStepPolicy`` without touching model code.
 - **Seeded schedules** — ``FaultSchedule(seed)`` picks *which* batches
   / calls / steps to break from a fixed-seed rng, so a chaos suite is
   reproducible: same fault seed, same faults, same recovery sequence.
@@ -143,6 +147,45 @@ def flaky(fn: Callable, fail_at: Iterable[int],
 
     wrapper.calls = calls
     return wrapper
+
+
+# ---------------------------------------------------------------------------
+# Batch poisoning (NaN-at-step-k)
+# ---------------------------------------------------------------------------
+
+def _nanify(tree):
+    """``tree`` (nested tuples / lists / dicts of tensors) with every
+    floating tensor replaced by a NaN tensor of its shape, dtype and
+    device; other leaves pass through."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return (torch.full_like(tree, float("nan"))
+                if tree.is_floating_point() else tree)
+    if isinstance(tree, dict):
+        return {k: _nanify(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_nanify(v) for v in tree)
+    return tree
+
+
+def poison_batches(source, at_iters: Iterable[int]):
+    """Rewrite ``source.batches()`` so the device batch at each 0-based
+    iteration in ``at_iters`` has every float tensor replaced by NaN —
+    the deterministic NaN-at-step-k injection driving the engine's
+    non-finite guard.  Applies to sources whose batches are tensor
+    tuples (every sampled source); a ``None`` batch (full-graph GD)
+    passes through untouched.  Returns the source for chaining."""
+    at = set(int(i) for i in at_iters)
+    orig = source.batches
+
+    def batches():
+        for i, (batch, n_nodes) in enumerate(orig()):
+            if i in at and batch is not None:
+                batch = _nanify(batch)
+            yield batch, n_nodes
+
+    source.batches = batches
+    return source
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,11 @@ with no edge exactly 0, repeat calls bit-equal, and a full-graph training
 step that launches it once and the atomic kernel never.  The tiled
 forward's slab route row by row against the plain version in f32 (the
 same limits) at ragged shapes and every slab width, bit-equal to the
-direct route and to itself, and the launch counts by route.
+direct route and to itself, and the launch counts by route.  The
+cluster source's steps launch the reverse-index backward once each and
+the planned tiled routes; the cluster and importance sources agree
+between the CPU and the card at 1e-4; exact resume on the card is
+bit-equal for all four sources.
 
 The CUDA flash-attention kernels against their plain version (2e-5 f32,
 3e-2 bf16, the tolerances of tests/test_flash_attn.py; the tensor-core
@@ -334,6 +338,95 @@ def test_fullgraph_step_launches_reverse_index_kernel(cuda):
         assert n["tiled"] > 0
         assert {key: n[key] for key in want} == want, n
         tr.close()
+
+
+# ---------------------------------------------------------------------------
+# the cluster and importance sources, exact resume
+# ---------------------------------------------------------------------------
+
+def _sources_case(kernel=True):
+    from repro_torch.core import engine as E
+    g = make_sbm_graph(n=3000, n_classes=6, avg_degree=12, feat_dim=48,
+                       seed=5)
+    cfg = GNNConfig(name="c", model="graphsage", n_nodes=g.n, feat_dim=48,
+                    hidden=64, n_classes=g.n_classes, n_layers=2,
+                    fanout=(5, 3), batch_size=256, use_agg_kernel=kernel)
+    return E, g, cfg
+
+
+def test_cluster_steps_launch_the_reverse_index_kernel(cuda):
+    """Each cluster step builds its batch's reverse index: dfeats by the
+    reverse-index backward once a step, the atomic backward never, and
+    every tiled forward on the route ``tiled_plan`` gives at its shape
+    (the steps' batch ELL; the two evaluations' full-graph ELL)."""
+    E, g, cfg = _sources_case()
+    steps = 4
+    src = E.ClusterSource(batch_size=512)
+    tr = E.Trainer(g, cfg, E.TrainPlan(n_iters=steps, eval_every=100),
+                   source=src, device=cuda)
+    ops.reset_launches()
+    res = tr.run()
+    n = ops.launch_counts()
+    assert np.isfinite(res.history.losses).all()
+    assert n["backward_csr"] == steps and n["backward"] == 0, n
+    widths = (cfg.feat_dim, cfg.n_classes)
+    want = {"tiled_slab": 0, "tiled_direct": 0}
+    for rows, k, forwards in ((src.m_max, src.K, steps),
+                              (g.n, g.d_max, 2)):
+        for d in widths:
+            route = ops.tiled_plan(rows, rows, k, d, torch.float32).route
+            want[f"tiled_{route}"] += forwards
+    assert {key: n[key] for key in want} == want, n
+    tr.close()
+
+
+@pytest.mark.parametrize("name", ["cluster", "importance"])
+def test_sources_agree_between_cpu_and_card(cuda, name):
+    """Three steps of each source from one seed: the card (kernels) and
+    the CPU (their plain versions) give the same batches and losses
+    within 1e-4 relative."""
+    E, g, cfg = _sources_case()
+    make = {"cluster": lambda: E.ClusterSource(batch_size=512),
+            "importance": lambda: E.ImportanceSampledSource(
+                batch_size=256, scores="grad")}[name]
+    plan = E.TrainPlan(n_iters=3, eval_every=2, seed=1)
+    runs = {dev: E.Trainer(g, cfg, plan, source=make(), device=dev).run()
+            for dev in ("cpu", cuda)}
+    a, b = runs["cpu"].history, runs[cuda].history
+    assert a.nodes_processed == b.nodes_processed
+    np.testing.assert_allclose(b.losses, a.losses, rtol=1e-4, atol=1e-4)
+    for p, q in zip(runs[cuda].params, runs["cpu"].params):
+        for k in p:
+            err = float((p[k].detach().cpu() - q[k].detach()).abs().max()
+                        / q[k].detach().abs().max())
+            assert err <= 1e-4, (name, k, err)
+
+
+@pytest.mark.parametrize("name", ["fullgraph", "minibatch", "importance",
+                                  "cluster"])
+def test_resume_on_the_card_is_bit_equal(cuda, tmp_path, name):
+    """A run stopped after its it=3 save and resumed ends bit-equal to
+    the run that was not stopped, kernels on."""
+    import dataclasses as dc
+    E, g, cfg = _sources_case()
+    make = {"fullgraph": lambda: E.FullGraphSource(max_deg=16),
+            "minibatch": lambda: E.SampledSource(batch_size=256),
+            "importance": lambda: E.ImportanceSampledSource(batch_size=256),
+            "cluster": lambda: E.ClusterSource(batch_size=512)}[name]
+    plan = E.TrainPlan(lr=0.3, n_iters=7, seed=0, eval_every=3,
+                       ckpt_every=3, ckpt_dir=str(tmp_path / "golden"))
+    golden = E.Trainer(g, cfg, plan, source=make(), device=cuda).run()
+    d = str(tmp_path / "stopped")
+    E.Trainer(g, cfg, dc.replace(plan, n_iters=4, ckpt_dir=d),
+              source=make(), device=cuda).run()
+    res = E.Trainer(g, cfg, dc.replace(plan, ckpt_dir=d), source=make(),
+                    device=cuda).run(resume_from=d)
+    assert res.history.losses == golden.history.losses
+    assert res.history.val_accs == golden.history.val_accs
+    assert res.final_test_acc == golden.final_test_acc
+    for p, q in zip(res.params, golden.params):
+        for k in p:
+            assert torch.equal(p[k], q[k]), (name, k)
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,11 @@ the port on ``--device cpu`` with and without ``--kernel`` (the kernel
 path's plain versions on CPU tensors).  Initial parameters differ (the
 CLI draws its own in each package), so no loss is compared here:
 ``tests/test_torch_train.py`` holds ``sweep``'s numbers to the
-reference's.  Also: the unported sources, layout and journal raise
-``NotImplementedError`` naming their slice, and without ``--device`` the
-CLI asks for the card."""
+reference's.  Also: ``--sources cluster importance`` gives the
+reference's grid points, ``--journal`` skips completed points on a rerun,
+the unported sharded sources and layout raise ``NotImplementedError``
+naming their slice, and without ``--device`` the CLI asks for the
+card."""
 import io
 import json
 import math
@@ -72,12 +74,42 @@ def test_cli_rows_match_reference_points_and_schema(ref_rows, tmp_path,
         got[0].keys()
 
 
+@pytest.mark.parametrize("kernel", [False, True])
+def test_cli_cluster_and_importance_sources_match_reference_points(
+        tmp_path, monkeypatch, kernel):
+    extra = ["--sources", "cluster", "importance"]
+    monkeypatch.chdir(tmp_path)
+    want, want_line = _run(RX.main, ARGV + extra)
+    got, line = _run(TX.main, ARGV + extra + ["--device", "cpu"] +
+                     (["--kernel"] if kernel else []))
+    assert [tuple(r[k] for k in POINT) for r in got] == \
+        [tuple(r[k] for k in POINT) for r in want]
+    assert [list(r) for r in got] == [list(r) for r in want]
+    assert {r["paradigm"] for r in got} == {"fullgraph", "cluster",
+                                            "importance"}
+    assert all(math.isfinite(r["final_loss"]) for r in got)
+    assert line.keys() == want_line.keys()
+
+
+def test_cli_journal_skips_completed_points(tmp_path, monkeypatch):
+    from repro_torch.core import faults
+    monkeypatch.chdir(tmp_path)
+    argv = ARGV + ["--device", "cpu", "--journal", "sweep.jsonl"]
+    with faults.armed("sweep.after_point", at_hits=(1,)):
+        with pytest.raises(faults.SimulatedCrash):
+            TX.main(argv)
+    assert len((tmp_path / "sweep.jsonl").read_text().splitlines()) == 2
+    rows, line = _run(TX.main, argv)
+    lines = [json.loads(x) for x in
+             (tmp_path / "sweep.jsonl").read_text().splitlines()]
+    assert line["rows"] == len(rows) == len(lines) == 3
+    assert [x["status"] for x in lines] == ["ok"] * 3
+    assert rows[:2] == [x["row"] for x in lines[:2]]
+
+
 @pytest.mark.parametrize("extra,slice_", [
-    (["--sources", "cluster"], "slice 3"),
-    (["--sources", "importance"], "slice 3"),
     (["--sources", "minibatch", "minibatch_sharded"], "slice 4"),
     (["--sources", "fullgraph_sharded"], "slice 4"),
-    (["--journal", "sweep.jsonl"], "slice 3"),
     (["--feats-layout", "sharded", "--kernel"], "slice 4"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, extra,

@@ -331,10 +331,14 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert len(csr["planted_faults"]) == 4 and csr["deterministic"]
     # the tiled forward: both routes, by shape, with the row check
     tiled, fused = result["kernels"][0], result["kernels"][1]
-    assert set(tiled["by_shape"]) == {
+    cluster = sorted(x for x in tiled["by_shape"]
+                     if x.startswith("cluster_batch_"))
+    assert [x[x.rindex("_"):] for x in cluster] == ["_d128", "_d172"]
+    assert set(tiled["by_shape"]) - set(cluster) == {
         "fullgraph_d128", "fullgraph_d172", "serving_chunk_d128",
         "serving_chunk_d172", "minibatch_l1_hop0", "minibatch_l1_hop1",
         "minibatch_l2_hop0"}
+    assert [x[x.rindex("_"):] for x in csr["by_shape"]] == ["_d172"]
     assert set(fused["by_shape"]) == {"gcn_l1_d128", "gcn_l2_d172"}
     for m in [tiled, fused, *tiled["by_shape"].values(),
               *fused["by_shape"].values()]:
@@ -358,5 +362,6 @@ def test_chip_smoke_rehearsal_on_cpu():
         tiled["launches_by_path_and_route"])
     assert set(tiled["sources"]) == {"slab", "direct"}
     assert set(tiled["launches_by_path_and_route"]) == {
-        "train_fullgraph", "train_minibatch", "serve", "gcn_serve"}
+        "train_fullgraph", "train_minibatch", "train_cluster",
+        "train_importance", "serve", "gcn_serve"}
     assert tiled["l2_table_sweep"]

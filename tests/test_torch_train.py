@@ -270,10 +270,6 @@ def test_launch_train_smoke_prints_both_paradigms():
 
 @pytest.mark.parametrize("argv,exc,match", [
     (["--arch", "granite-3-2b"], NotImplementedError, "slice 6"),
-    (["--arch", "gnn-papers100m", "--smoke", "--device", "cpu",
-      "--resume"], NotImplementedError, "slice 3"),
-    (["--arch", "gnn-papers100m", "--smoke", "--device", "cpu",
-      "--ckpt-every", "5"], NotImplementedError, "slice 3"),
 ])
 def test_launch_train_refuses_what_is_not_ported(argv, exc, match):
     with pytest.raises(exc, match=match):
@@ -289,22 +285,21 @@ def test_launch_train_defaults_to_the_card():
 
 
 def test_engine_refuses_slice3_features(graphs):
+    """What slice 3 ported (checkpoints, rollback, resume, the cluster and
+    importance sources, the journal) no longer raises; the sharded
+    sources of slice 4 still do."""
     _, tg = graphs
     cfg = GNNConfig(**_kw(tg))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        TE.Trainer(tg, cfg, TE.TrainPlan(ckpt_every=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        TE.BadStepPolicy(on_bad="rollback")
-    tr = TE.Trainer(tg, cfg, TE.TrainPlan(n_iters=1),
-                    source=TE.FullGraphSource(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tr.run(resume_from="somewhere")
-    for paradigm in ("cluster", "importance", "minibatch_sharded"):
-        with pytest.raises(NotImplementedError, match="slice"):
+    for paradigm in ("minibatch_sharded", "fullgraph_sharded"):
+        with pytest.raises(NotImplementedError, match="slice 4"):
             TX.make_source(paradigm)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        TX.sweep(tg, cfg, TE.TrainPlan(), batch_sizes=[8],
-                 fanout_grid=[2], journal="j.jsonl", device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        TX.sweep(tg, cfg, TE.TrainPlan(n_iters=1), batch_sizes=[8],
+                 fanout_grid=[2], sources=["minibatch_sharded"],
+                 device="cpu")
+    assert TE.BadStepPolicy(on_bad="rollback").needs_ckpt()
+    assert type(TX.make_source("cluster")) is TE.ClusterSource
+    assert type(TX.make_source("importance")) is TE.ImportanceSampledSource
 
 
 @pytest.mark.parametrize("inplace", [True, False])

@@ -196,6 +196,38 @@ or of the reference package ``repro``.
    point 1 skipped, rows equal to an uninterrupted sweep's but for the
    wall-clock columns.  Checkpoints and the journal live in a temporary
    directory under ``experiments/bench_torch/chip_smoke_ckpt``.
+12. The NODES-sharded paradigms on the shared graph at gnn-papers100m's
+   widths (bf16 full-graph aggregation, K = 32; b = 8192, fan-out
+   (15, 10)), on single-controller meshes whose shards all sit on the
+   one card (``node_mesh(devices=(card,) * S)``: the shards run one
+   after another, so no time here is a multi-card time).  (a) S = 1:
+   ``ShardedFullGraphSource`` (5 steps; replicated table and the
+   featshard layout) and ``ShardedSampledSource`` (10 steps) from the
+   unsharded sources' initial parameters: History, parameters and test
+   accuracy bit-equal to ``FullGraphSource`` / ``SampledSource``, the
+   launches by kernel and route equal (featshard: by kernel; its
+   concat(hot, local) table may take another bit-equal route).  (b)
+   S = 4: fullgraph_sharded and the featshard layout (C auto = n // 8)
+   run 5 steps with finite, falling losses, launch S times each kernel
+   per call (featshard: S phase-1 and S phase-2 launches, the miss path
+   on the card, each phase's sum in f32 from the bf16 tables), repeat bit
+   for bit from the
+   seed, and one step's
+   parameter gradients lie within 2e-2 relative of the unsharded kernel
+   path; the plan's accounting equals the host arithmetic ((n/S + C)·d·2
+   table bytes a shard, (S - 1)·(M + C_max) rows a call);
+   minibatch_sharded runs 10 steps with gradients within 1e-4 (f32
+   levels); the kernels at one shard's shapes (the full-graph shard's
+   forward at D = 128 / 172 and reverse-index backward at D = 172,
+   featshard's phase 1 and fused phase 2, the mini-batch levels at b/S)
+   against their plain versions, timed beside the bound and
+   ``embedding_bag``.  (c) ``EmbeddingStore`` with the featshard layout
+   on S = 4 shards against the replicated build (2e-2), then 64
+   queries; beside it the readings that limit sits between (the build
+   with its phase-1 partial rounded to bf16, the reference's arithmetic,
+   and to 4 significant bits, a control the limit must refuse; each
+   build against an f32 witness).  Each ms/step line names the card and
+   its power limit.
 
 Every failed check raises.  The last stdout line is
 ``{"ok": true, "device": {...}}``; the line before it names the card and
@@ -209,6 +241,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import importlib
 import io
@@ -229,6 +262,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch import sharding as SH  # noqa: E402
 from repro_torch.bench import run as brun  # noqa: E402
 from repro_torch.bench.common import Env  # noqa: E402
 from repro_torch.checkpoint import latest_step  # noqa: E402
@@ -247,6 +281,7 @@ from repro_torch.kernels.flash_attn import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
     BF16_ROW_TOL, row_rel_err)
 from repro_torch.kernels.neighbor_agg import build as na_build  # noqa: E402
+from repro_torch.kernels.neighbor_agg import featshard as FS  # noqa: E402
 from repro_torch.kernels.neighbor_agg import ops  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import steps  # noqa: E402
@@ -330,6 +365,11 @@ class Sizes:
     repeat_steps: int = 5          # importance's second run from the seed
     ft_steps: int = 6              # the fault-tolerance runs
     jr_steps: int = 3              # each point of the journal sweep
+    # phase 12 (b and fan-out are mb_b and mb_fanout)
+    sh_shards: int = 4             # NODES shards of 12b-c, all on one card
+    sh_fg_steps: int = 5           # full-graph runs
+    sh_mb_steps: int = 10          # mini-batch runs
+    sh_queries: int = 64           # queries to the featshard store
 
 
 FULL = Sizes()
@@ -340,7 +380,8 @@ TINY = Sizes(agg_n=600, agg_b=300, sweep_n=(64, 128), n_serve=3_000,
              fa_windows=(0, 64), fa_iters=2, fa_long=(1, 640, 2, 1, 64),
              lm_smoke=True, lm_s=128,
              lm_gen=4, lm_tf=3, fig_n=160, fig_iters=4, fw_bs=(16, 64),
-             fw_steps=4, fw_eval=2, cl_steps=4, im_steps=4, repeat_steps=2)
+             fw_steps=4, fw_eval=2, cl_steps=4, im_steps=4, repeat_steps=2,
+             sh_fg_steps=3, sh_mb_steps=3, sh_queries=8)
 
 
 def check(cond, msg: str) -> None:
@@ -391,19 +432,22 @@ def time_ms(fn, dev: torch.device, iters: int, warmup: int = 3,
     return start.elapsed_time(end) / iters
 
 
-def bound(feats, idx, self_rows) -> tuple:
+def bound(feats, idx, self_rows, out_el=None) -> tuple:
     """The least time for one call: the bytes it must move (each distinct
     referenced feature row, idx, w, out and, fused, self_rows + w_self,
     once each) over the HBM rate, against its f32 multiply-adds over the
-    f32 rate.  Returns (ms, "bytes" | "operations", bytes)."""
+    f32 rate.  ``out_el``: the bytes of an output (and self_rows /
+    w_self) element, feats' own when None.  Returns (ms, "bytes" |
+    "operations", bytes)."""
     b, k = idx.shape
     d = feats.shape[1]
     el = feats.element_size()
+    oel = el if out_el is None else out_el
     rows = int(torch.unique(idx).numel())
-    nbytes = rows * d * el + b * k * 4 + b * k * el + b * d * el
+    nbytes = rows * d * el + b * k * 4 + b * k * el + b * d * oel
     flops = 2 * b * k * d
     if self_rows is not None:
-        nbytes += b * d * el + b * el
+        nbytes += b * d * oel + b * oel
         flops += 2 * b * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -2948,6 +2992,591 @@ def sources_phase(dev, sz: Sizes, graph) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the NODES-sharded paradigms, S shards on one card
+# ---------------------------------------------------------------------------
+
+def shard_mesh(dev, shards: int):
+    """``shards`` NODES shards, all on ``dev`` (the single-controller mesh
+    of one card)."""
+    return SH.node_mesh(devices=(dev,) * shards)
+
+
+def sharded_counts() -> dict:
+    """The kernel wrapper's launch counts and the featshard phases'."""
+    return dict(ops.launch_counts(), **{
+        f"featshard_{k}": v for k, v in FS.launch_counts().items()})
+
+
+def sharded_run(dev, graph, cfg, plan, source):
+    """One Trainer run between a launch-count reset and its read (the
+    kernel wrapper's and featshard's counters): (result, counts, wall
+    seconds, the bound source)."""
+    tr = E.Trainer(graph, cfg, plan, source=source, device=dev)
+    ops.reset_launches()
+    FS.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    try:
+        res = tr.run()
+        sync(dev)
+    finally:
+        tr.close()
+    return res, sharded_counts(), time.perf_counter() - t0, source
+
+
+def kernel_counts(c: dict) -> dict:
+    return {k: c[k] for k in ("tiled", "backward", "backward_csr", "row")}
+
+
+def times_shards(got: dict, want: dict, s: int) -> bool:
+    """Every kernel launched exactly ``s`` times as often as in ``want``
+    (one launch per shard per call)."""
+    return all(got[k] == s * want[k] for k in kernel_counts(want))
+
+
+def falling(losses) -> bool:
+    return all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def sharded_grads(loss_a, loss_b, params, tol, label) -> float:
+    """One step's parameter gradients of two loss closures on the same
+    parameters: the relative max error, held to ``tol``."""
+    leaves = [v for p in params for v in p.values()]
+    ga = torch.autograd.grad(loss_a(params), leaves)
+    gb = torch.autograd.grad(loss_b(params), leaves)
+    err = max(rel_err(a, b) for a, b in zip(ga, gb))
+    print(f"{label}: one step's parameter gradients against the unsharded "
+          f"kernel path: relative max error {err:.3g} (limit {tol})",
+          flush=True)
+    check(err <= tol, f"{label}: gradient rel err {err} beyond {tol}")
+    return err
+
+
+def fresh_params(res):
+    return [{k: v.detach().clone().requires_grad_() for k, v in p.items()}
+            for p in res.params]
+
+
+@functools.lru_cache(maxsize=None)
+def card_tag() -> str:
+    """The card's name and power limit for the lines that carry a time
+    (the CPU rehearsal has no card)."""
+    return card_line() if torch.cuda.is_available() else "the CPU"
+
+
+def shard_label(s: int) -> str:
+    return f"{s} shard{'s' if s > 1 else ''} on one card: {card_tag()}"
+
+
+def sharded_s1(dev, sz: Sizes, graph) -> dict:
+    """12a: one shard on the card is the unsharded path, bit for bit:
+    fullgraph_sharded (both layouts) and minibatch_sharded against
+    FullGraphSource and SampledSource, losses and launches."""
+    cfg = papers_cfg(graph, sz)
+    fs_cfg = dataclasses.replace(cfg, feats_layout="sharded")
+    mesh = shard_mesh(dev, 1)
+    fplan = E.TrainPlan(lr=TRAIN_LR, n_iters=sz.sh_fg_steps,
+                        eval_every=sz.sh_fg_steps, seed=0)
+    mplan = E.TrainPlan(lr=TRAIN_LR, n_iters=sz.sh_mb_steps,
+                        eval_every=sz.sh_mb_steps, seed=0)
+    out = {}
+    k = cfg.max_degree
+    base = sharded_run(dev, graph, cfg, fplan, E.FullGraphSource(max_deg=k))
+    for key, c in (("fullgraph_sharded", cfg), ("featshard", fs_cfg)):
+        src = E.ShardedFullGraphSource(max_deg=k, mesh=mesh)
+        res, counts, wall, src = sharded_run(dev, graph, c, fplan, src)
+        same_run(res, base[0], f"12a {key} S=1 vs fullgraph")
+        want = kernel_counts(base[1])
+        if key == "fullgraph_sharded":
+            # the same kernels on the same shapes: the same routes too
+            check_launch(dev, counts == base[1], f"12a {key}: launches "
+                         f"{counts} != the unsharded run's {base[1]}")
+        else:
+            # phase 1's table is concat(hot, local): the plan may route
+            # it otherwise (the routes are bit-equal); no miss, no phase 2
+            check_launch(dev, kernel_counts(counts) == want
+                         and counts["featshard_phase2"] == 0,
+                         f"12a {key}: launches {counts}, want {want} and "
+                         f"no phase 2")
+        out[key] = dict(counts=counts, wall_s=wall, ms_step=steady_ms(
+            res.history), stats=src.featshard_stats, bind_s=src.bind_s)
+        print(f"12a {key} S=1: {len(res.history.losses)} steps, losses "
+              f"bit-equal to FullGraphSource "
+              f"{[round(x, 6) for x in res.history.losses]}, launches "
+              f"{counts} (unsharded {base[1]}), {out[key]['ms_step']:.2f} "
+              f"ms/step ({shard_label(1)})", flush=True)
+    mb = sharded_run(dev, graph, cfg, mplan,
+                     E.SampledSource(batch_size=sz.mb_b))
+    res, counts, wall, _ = sharded_run(
+        dev, graph, cfg, mplan,
+        E.ShardedSampledSource(batch_size=sz.mb_b, mesh=mesh))
+    same_run(res, mb[0], "12a minibatch_sharded S=1 vs minibatch")
+    check_launch(dev, counts == mb[1], f"12a minibatch_sharded: launches "
+                 f"{counts} != the unsharded run's {mb[1]}")
+    print(f"12a minibatch_sharded S=1: {len(res.history.losses)} steps "
+          f"bit-equal to SampledSource, launches {counts}, "
+          f"{steady_ms(res.history):.2f} ms/step ({shard_label(1)})",
+          flush=True)
+    out["minibatch_sharded"] = dict(counts=counts, wall_s=wall,
+                                    ms_step=steady_ms(res.history))
+    out["fullgraph"] = dict(counts=base[1], ms_step=steady_ms(
+        base[0].history), params=fresh_params(base[0]))
+    out["minibatch"] = dict(counts=mb[1], ms_step=steady_ms(mb[0].history))
+    return out
+
+
+def sharded_s4(dev, sz: Sizes, graph, s1: dict) -> dict:
+    """12b: S shards on the card: fullgraph_sharded, the featshard layout
+    and minibatch_sharded run, hold their gradients to the unsharded
+    kernel path's, launch once per shard per call and repeat bit for
+    bit from a seed."""
+    s = sz.sh_shards
+    cfg = papers_cfg(graph, sz)
+    fs_cfg = dataclasses.replace(cfg, feats_layout="sharded")
+    mesh = shard_mesh(dev, s)
+    fplan = E.TrainPlan(lr=TRAIN_LR, n_iters=sz.sh_fg_steps,
+                        eval_every=sz.sh_fg_steps, seed=0)
+    mplan = E.TrainPlan(lr=TRAIN_LR, n_iters=sz.sh_mb_steps,
+                        eval_every=sz.sh_mb_steps, seed=0)
+    params = s1["fullgraph"]["params"]
+    k = cfg.max_degree
+    plain_src = E.FullGraphSource(max_deg=k).bind(graph, cfg, fplan, dev)
+    want = s1["fullgraph"]["counts"]
+    out = {}
+    for key, c in (("fullgraph_sharded", cfg), ("featshard", fs_cfg)):
+        def source():
+            return E.ShardedFullGraphSource(max_deg=k, mesh=mesh)
+        res, counts, wall, src = sharded_run(dev, graph, c, fplan, source())
+        losses = res.history.losses
+        check(falling(losses), f"12b {key}: losses {losses} not finite "
+              f"and falling")
+        if key == "fullgraph_sharded":
+            check_launch(dev, times_shards(counts, want, s),
+                         f"12b {key}: launches {counts}, not {s} x the "
+                         f"unsharded run's {want}")
+        else:
+            # every aggregation: S phase-1 launches, and with misses S
+            # phase-2 launches; their table gradients likewise
+            phases = 2 if src.feats_plan.M else 1
+            fs_want = {"featshard_phase1": s * want["tiled"],
+                       "featshard_phase2": s * want["tiled"] * (phases - 1),
+                       "tiled": phases * s * want["tiled"],
+                       "backward_csr": phases * s * want["backward_csr"],
+                       "backward": s * want["backward"]}
+            check_launch(dev, counts["featshard_phase2"] > 0
+                         and {q: counts[q] for q in fs_want} == fs_want,
+                         f"12b featshard: launches {counts}, want {fs_want} "
+                         f"(the miss path must run on the card)")
+        again, _, _, _ = sharded_run(dev, graph, c, fplan, source())
+        same_run(again, res, f"12b {key}: a second run from the seed")
+        one = source().bind(graph, c, fplan, dev)
+        err = sharded_grads(lambda p: one.loss(p, None),
+                            lambda p: plain_src.loss(p, None), params,
+                            2e-2, f"12b {key} S={s} (bf16 aggregation)")
+        entry = dict(counts=counts, wall_s=wall, losses=losses,
+                     ms_step=steady_ms(res.history), grad_err=err,
+                     bind_s=src.bind_s)
+        if key == "featshard":
+            entry.update(featshard_check(graph, c, src))
+            entry["plan"] = src.feats_plan
+        out[key] = entry
+        print(f"12b {key} S={s}: {len(losses)} steps, losses "
+              f"{[round(x, 6) for x in losses]}, a second seeded run "
+              f"bit-equal; launches {counts}; {entry['ms_step']:.2f} "
+              f"ms/step steady, run {wall:.3f} s (serial shards, "
+              f"{shard_label(s)})", flush=True)
+        one.close()
+    plain_src.close()
+
+    res, counts, wall, src = sharded_run(
+        dev, graph, cfg, mplan,
+        E.ShardedSampledSource(batch_size=sz.mb_b, mesh=mesh))
+    losses = res.history.losses
+    check(all(np.isfinite(losses)), f"12b minibatch_sharded: losses "
+          f"{losses} not finite")
+    check_launch(dev, times_shards(counts, s1["minibatch"]["counts"], s),
+                 f"12b minibatch_sharded: launches {counts}, not {s} x the "
+                 f"unsharded run's {s1['minibatch']['counts']}")
+    one = E.ShardedSampledSource(batch_size=sz.mb_b, mesh=mesh).bind(
+        graph, cfg, mplan, dev)
+    batch, _ = next(one.batches())
+
+    def mb_loss(mesh_):
+        def loss(p):
+            feats, masks, weights, self_w, labels, *rest = batch
+            logits = G.minibatch_forward(p, cfg, feats, masks, weights,
+                                         self_w, mesh=mesh_)
+            return G.gnn_loss(logits, labels, cfg.loss, cfg.n_classes,
+                              valid=rest[0] if rest else None)
+        return loss
+    err = sharded_grads(mb_loss(mesh), mb_loss(None), fresh_params(res),
+                        1e-4, f"12b minibatch_sharded S={s} (f32 levels)")
+    one.done(batch)
+    one.close()
+    out["minibatch_sharded"] = dict(counts=counts, wall_s=wall,
+                                    losses=losses, grad_err=err,
+                                    ms_step=steady_ms(res.history))
+    print(f"12b minibatch_sharded S={s}: {len(losses)} steps at "
+          f"b={src.b}, losses {[round(x, 5) for x in losses]}; launches "
+          f"{counts}; {out['minibatch_sharded']['ms_step']:.2f} ms/step "
+          f"steady (host-bound, serial shards, {shard_label(s)})",
+          flush=True)
+    return out
+
+
+def featshard_check(graph, cfg, src) -> dict:
+    """The featshard plan's accounting against the host arithmetic:
+    (n_loc + C)·d·2 table bytes a shard, (S - 1)·(M + C_max) rows
+    received a call: the plan's model of a multi-card layout.  Beside
+    it, the gather-source bytes one call of the op holds here, read off
+    its autograd context: shard 0's concat(hot, local) table, the serve
+    buffer (one for the shards on one card) and the padded table every
+    shard slices."""
+    p = src.feats_plan
+    st = src.featshard_stats
+    d = graph.feats.shape[1]
+    feats = torch.zeros(p.n_pad, d, device=src.device,
+                        dtype=torch.bfloat16, requires_grad=True)
+    w = E._sharded_ell(graph, cfg.max_degree, src.device, p.mesh)[1]
+    y = FS.neighbor_agg_featshard(feats, w.to(torch.bfloat16), p)
+    ctx = y.grad_fn
+    held = {"table1_shard0": ctx.tables1[0].nbytes,
+            "serve_buffer": ctx.served[0].nbytes if p.M else 0,
+            "padded_table": feats.nbytes}
+    del y, ctx
+    want_c = max(1, graph.n // 8) if cfg.feat_cache_rows < 0 else \
+        min(cfg.feat_cache_rows, graph.n)
+    want = {"feat_table_bytes_per_device": (p.n_loc + want_c) * d * 2,
+            "remote_rows_per_call": (p.S - 1) * (p.M + p.C_max),
+            "feat_remote_gather_bytes": (p.S - 1) * (p.M + p.C_max) * d * 2,
+            "feat_cache_rows": want_c, "feat_table_shards": p.S}
+    for k, v in want.items():
+        check(st[k] == v, f"featshard stats: {k} = {st[k]}, host "
+              f"arithmetic {v}")
+    print(f"12b featshard plan: S={p.S} n_loc={p.n_loc} C={p.C} "
+          f"C_max={p.C_max} M={p.M}, built in "
+          f"{src.bind_s['featshard_plan']:.3f} s (host plan + per-shard "
+          f"reverse indexes); hit rate {st['feat_cache_hit_rate']:.4f} "
+          f"(hot {st['feat_cache_hot_hits']}, local "
+          f"{st['feat_cache_local_hits']}, misses "
+          f"{st['feat_cache_misses']}); the plan's model of a multi-card "
+          f"layout: {st['feat_table_bytes_per_device']} table bytes a "
+          f"shard, {st['feat_remote_gather_bytes']} B received a call, "
+          f"equal to the host arithmetic; held by one call here (serial "
+          f"shards on one card): {held} B", flush=True)
+    return {"stats": st, "M": p.M, "C": p.C, "C_max": p.C_max,
+            "held_bytes": held}
+
+
+def forward_shape(dev, sz: Sizes, case, label: str, shape: str,
+                  tag: str) -> dict:
+    """The tiled forward at one shape (checked against its plain version
+    row by row on both routes, timed as in phase 2) beside its plain
+    version, the bound and ``embedding_bag`` (unfused only: no single
+    call fuses the epilogue)."""
+    feats, idx, w, self_rows, _ = case
+    dt = feats.dtype
+    ref32 = neighbor_agg_ref(*as_f32(case))
+    err = compare(label, dt, tiled(case), ref32)
+    rows = check_routes(label, case, ref32)
+    routes = time_routes(case, dev, sz.iters)
+    p_ms = time_ms(lambda: neighbor_agg_ref(*case), dev, sz.iters)
+    lib = None if self_rows is not None else library_ms(
+        lambda: torch.nn.functional.embedding_bag(
+            idx, feats, mode="sum", per_sample_weights=w), dev, sz.iters)
+    b_ms, b_by, nbytes = bound(feats, idx, self_rows)
+    print(f"{tag} {label}: routes: {routes_line(routes, rows)}; "
+          f"max_err={err:.3g} plain_ms={p_ms:.4f} library_ms={fmt(lib)} "
+          f"(embedding_bag) bound_ms={b_ms:.4f} (bound by {b_by}: "
+          f"{nbytes} B)", flush=True)
+    return dict(max_abs_err=err, ms=routes[routes["planned"]]["ms"],
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, row_rel_err=rows[routes["planned"]],
+                row_rel_err_by_route=rows, row_check_limit=FWD_ROW_TOL[dt],
+                routes=routes, shape=shape)
+
+
+def phase_shape(dev, sz: Sizes, phase: int, case, label: str,
+                shape: str) -> dict:
+    """One featshard phase's tiled launch at shard 0's shape: a bf16
+    table whose sum comes out in f32 (the direct route, the one that has
+    it), held against its plain version on the f32 values (1e-5, row by
+    row) and against a second call of itself, timed beside its plain
+    version, the bound and, unfused, ``embedding_bag`` on the bf16
+    table."""
+    feats, idx, w, self_rows, _ = case
+    f32 = torch.float32
+
+    def run():
+        return FS._phase_forward(phase, *case)
+    got = run()
+    ref32 = neighbor_agg_ref(*as_f32(case))
+    err = compare(label, f32, got, ref32)
+    row = row_rel_err(got, ref32)
+    check(row <= FWD_ROW_TOL[f32], f"{label}: row error {row} beyond "
+          f"{FWD_ROW_TOL[f32]}")
+    check(torch.equal(got, run()), f"{label}: two calls differ")
+    k_ms = time_ms(run, dev, sz.iters)
+    k_fl = time_ms(run, dev, sz.iters, 1, flush_buffer(dev))
+    p_ms = time_ms(lambda: neighbor_agg_ref(*case, out_dtype=f32), dev,
+                   sz.iters)
+    lib = None if self_rows is not None else library_ms(
+        lambda: torch.nn.functional.embedding_bag(
+            idx, feats, mode="sum", per_sample_weights=w), dev, sz.iters)
+    b_ms, b_by, nbytes = bound(feats, idx, self_rows, out_el=4)
+    print(f"12b {label}: direct route {k_ms:.4f} ms ({k_fl:.4f} L2 "
+          f"flushed), row error {row:.4g}, bit-equal repeat; "
+          f"max_err={err:.3g} plain_ms={p_ms:.4f} library_ms={fmt(lib)} "
+          f"(embedding_bag, bf16 out) bound_ms={b_ms:.4f} (bound by "
+          f"{b_by}: {nbytes} B)", flush=True)
+    return dict(max_abs_err=err, ms=k_ms, ms_l2_flushed=k_fl, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                row_rel_err=row, row_check_limit=FWD_ROW_TOL[f32],
+                shape=shape)
+
+
+def shard_shapes(dev, sz: Sizes, graph, s4: dict) -> dict:
+    """The kernels at the shapes one shard of 12b gives them (shard 0,
+    bf16, the real ELL with GraphSAGE's mask weights): the tiled forward
+    of fullgraph_sharded (N table rows, N/S ELL rows) at D = 128 and
+    172, featshard's phase 1 (concat(hot, local)) and phase 2 (the
+    [S·M, d] serve buffer, fused epilogue) at D = 128, the mini-batch
+    levels at b/S; and the reverse-index backward of a shard at D = 172.
+    Each against its plain version, timed beside the bound and
+    ``embedding_bag``."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    bf = torch.bfloat16
+    s = sz.sh_shards
+    n = graph.n
+    mesh = shard_mesh(dev, s)
+    kk = papers_cfg(graph, sz).max_degree
+    idx, w = [t[: n // s] for t in E._sharded_ell(graph, kk, dev, mesh)[:2]]
+    mask = (w > 0).to(bf).contiguous()
+    out = {"forward": {}, "fused": {}, "backward_csr": {}}
+    for d in (128, 172):
+        feats = torch.randn(n, d, generator=gen, device=dev).to(bf)
+        label = f"fullgraph_shard_n{n}_b{n // s}_k{idx.shape[1]}_d{d}"
+        out["forward"][label] = forward_shape(
+            dev, sz, (feats, idx, mask, None, None), label,
+            f"bf16, one of {s} shards: N={n} B={n // s} K={idx.shape[1]} "
+            f"D={d}", "12b")
+    p = s4["featshard"]["plan"]
+    d = 128
+    h = p.C + p.n_loc
+    table1 = torch.randn(h, d, generator=gen, device=dev).to(bf)
+    w1 = (mask * p.hot_mask[0].to(bf)) if p.M else mask
+    label = f"featshard_phase1_n{h}_b{p.n_loc}_k{p.K}_d{d}"
+    out["forward"][label] = phase_shape(
+        dev, sz, 1, (table1, p.lidx_hot[0], w1.contiguous(), None, None),
+        label, f"bf16 table, f32 sum: featshard phase 1 of shard 0, "
+        f"concat(hot C={p.C}, local {p.n_loc}) K={p.K} D={d}")
+    if p.M:
+        served = torch.randn(s * p.M, d, generator=gen, device=dev).to(bf)
+        w2 = (mask * (1 - p.hot_mask[0]).to(bf)).contiguous()
+        part = torch.randn(p.n_loc, d, generator=gen, device=dev)
+        ones = torch.ones(p.n_loc, device=dev)
+        label = f"featshard_phase2_n{s * p.M}_b{p.n_loc}_k{p.K}_d{d}"
+        out["fused"][label] = phase_shape(
+            dev, sz, 2, (served, p.lidx_miss[0], w2, part, ones), label,
+            f"bf16 table, f32 sum: featshard phase 2 of shard 0, the "
+            f"[S·M={s * p.M}, {d}] serve buffer, fused epilogue (self_rows "
+            f"= phase 1's f32 partial, w_self = 1)")
+    for _, b, k, dd in minibatch_levels(sz, (128, 256)):
+        bl = b // s
+        tab = torch.randn(bl * k, dd, generator=gen, device=dev)
+        ids = torch.arange(bl * k, dtype=torch.int32,
+                           device=dev).reshape(bl, k)
+        wk = (torch.rand(bl, k, generator=gen, device=dev) > 0.2).float()
+        label = f"minibatch_shard_b{bl}_k{k}_d{dd}"
+        out["forward"][label] = forward_shape(
+            dev, sz, (tab, ids, wk, None, None), label,
+            f"f32, one of {s} shards of a mini-batch level: identity ids "
+            f"B={bl} K={k} D={dd}", "12b")
+    d = 172
+    rev = E._sharded_reverse_index(graph, kk, dev, mesh).revs[0]
+    tab = torch.zeros(n, d, device=dev, dtype=bf)
+    g = torch.randn(n // s, d, generator=gen, device=dev).to(bf)
+    i0, m0 = rev.idx, mask
+    got = csr_dfeats(tab, i0, m0, g, rev)
+    check(torch.equal(got, csr_dfeats(tab, i0, m0, g, rev)),
+          "shard 0: two calls of the reverse-index kernel differ")
+    row = row_rel_err(got, neighbor_agg_backward_csr_ref(rev, m0.float(),
+                                                         g.float()))
+    check(row <= CSR_BF16_ROW_TOL, f"shard 0: reverse-index row error "
+          f"{row} beyond {CSR_BF16_ROW_TOL}")
+    err = compare("shard 0 reverse-index backward", bf, got,
+                  neighbor_agg_backward_ref(tab, i0, m0, g,
+                                            need=DFEATS)[0], GTOL[bf])
+    k_ms = time_ms(lambda: csr_dfeats(tab, i0, m0, g, rev), dev, sz.iters)
+    p_ms = time_ms(lambda: neighbor_agg_backward_csr_ref(rev, m0, g), dev,
+                   sz.iters)
+    fe = tab.clone().requires_grad_()
+    eb = torch.nn.functional.embedding_bag(i0, fe, mode="sum",
+                                           per_sample_weights=m0)
+    lib = library_ms(lambda: torch.autograd.grad(eb, fe, g,
+                                                 retain_graph=True),
+                     dev, sz.iters)
+    b_ms, b_by, nbytes = bound_bwd_csr(rev, d, 2)
+    label = f"fullgraph_shard_n{n}_b{n // s}_d{d}"
+    out["backward_csr"][label] = dict(
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib, row_rel_err=row, index_nnz=rev.nnz,
+        shape=f"bf16, one of {s} shards: dfeats N={n} from B={n // s} "
+              f"rows, D={d}")
+    print(f"12b {label}: reverse-index backward of shard 0 ({rev.nnz} kept "
+          f"edges) max_err={err:.3g} row error {row:.4g}, bit-equal "
+          f"repeat; kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+          f"library_ms={fmt(lib)} (embedding_bag backward) "
+          f"bound_ms={b_ms:.4f} (bound by {b_by}: {nbytes} B)", flush=True)
+    return out
+
+
+def sharded_store(dev, sz: Sizes, graph, s4: dict) -> dict:
+    """12c: ``EmbeddingStore`` with the featshard layout on S shards
+    against the replicated build (bf16, 2e-2), then queries."""
+    s = sz.sh_shards
+    cfg = papers_cfg(graph, sz)
+    fs_cfg = dataclasses.replace(cfg, feats_layout="sharded")
+    params = G.init_gnn(torch.Generator().manual_seed(0), cfg, 128,
+                        device=dev)
+    rep = EmbeddingStore(params, cfg, graph, chunk_size=sz.chunk,
+                         max_deg=cfg.max_degree, device=dev)
+    rep.build()
+    t0 = time.perf_counter()
+    store = EmbeddingStore(params, fs_cfg, graph, chunk_size=sz.chunk,
+                           max_deg=cfg.max_degree, device=dev,
+                           mesh=shard_mesh(dev, s))
+    plan_s = time.perf_counter() - t0
+    ops.reset_launches()
+    FS.reset_launches()
+    t0 = time.perf_counter()
+    run = store.build()
+    build_s = time.perf_counter() - t0
+    counts = sharded_counts()
+    check_launch(dev, counts["featshard_phase1"] > 0,
+                 f"12c: the featshard build launched {counts}")
+    errs = []
+    for li, (a, b) in enumerate(zip(store.layers, rep.layers)):
+        errs.append(compare(f"12c featshard layer {li + 1} vs replicated",
+                            torch.bfloat16, a, b))
+    rng = np.random.default_rng(3)
+    queries = [rng.integers(0, graph.n, size=8)
+               for _ in range(sz.sh_queries)]
+    server = GNNServer(store, max_batch=32, max_wait_ms=1.0)
+    try:
+        answers = [server.submit(q, with_meta=True).result(timeout=120.0)
+                   for q in queries]
+    finally:
+        server.close()
+    st = server.stats()
+    expect = np.argmax(store.snapshot().final_np, -1)
+    check(all(np.array_equal(a.preds, expect[q])
+              for a, q in zip(answers, queries)),
+          "12c: a served answer differs from the snapshot's argmax")
+    readings = limit_readings(params, cfg, graph, sz, dev, store, rep)
+    print(f"12c featshard store S={s}: plan in {plan_s:.3f} s, build "
+          f"{build_s:.3f} s (per layer {run.stats['per_layer_s']}), layers "
+          f"vs the replicated build max_abs_err {errs} (limit 2e-2), "
+          f"launches {counts}; {st['n_requests']} queries: p50_ms="
+          f"{st['p50_ms']:.4f} p99_ms={st['p99_ms']:.4f} qps="
+          f"{st['qps']:.1f} ({shard_label(s)})", flush=True)
+    return dict(build_s=build_s, plan_s=plan_s, errs=errs, counts=counts,
+                stats=st, readings=readings)
+
+
+@contextlib.contextmanager
+def phase1_rounded(fn):
+    """The featshard op with its phase-1 partial passed through ``fn``
+    before phase 2 adds to it: a control of 12c's limit, not a path of
+    the port."""
+    orig = FS._phase_forward
+
+    def rounded(phase, *args):
+        out = orig(phase, *args)
+        return fn(out) if phase == 1 else out
+    FS._phase_forward = rounded
+    try:
+        yield
+    finally:
+        FS._phase_forward = orig
+
+
+def round_bits(x, bits: int):
+    """f32 ``x`` rounded to ``bits`` significant bits (nearest, ties away
+    from zero)."""
+    drop = 24 - bits
+    i = x.contiguous().view(torch.int32)
+    return ((i + (1 << (drop - 1))) & ~((1 << drop) - 1)).view(torch.float32)
+
+
+def limit_readings(params, cfg, graph, sz: Sizes, dev, store, rep) -> dict:
+    """What 12c's 2e-2 limit sits between: the featshard build rebuilt
+    with its phase-1 partial rounded to bf16 (the reference's arithmetic)
+    and to 4 significant bits (a control in a lower precision, which the
+    limit must refuse), each against the replicated build; and every
+    build against a witness computed in f32 (the replicated build with
+    f32 aggregation).  A reading is per layer: the max abs error and the
+    largest |a - b| / (tol + tol·|b|) (at most 1 within the limit)."""
+    tol = TOL[torch.bfloat16]
+
+    def reading(a_layers, b_layers):
+        return [dict(max_abs_err=float((a.float() - b.float()).abs().max()),
+                     limit_ratio=float(((a.float() - b.float()).abs()
+                                        / (tol + tol * b.float().abs()))
+                                       .max()))
+                for a, b in zip(a_layers, b_layers)]
+    builds = {"port": [t.clone() for t in store.layers]}
+    for name, fn in (("reference_arith",
+                      lambda x: x.to(torch.bfloat16).float()),
+                     ("control_4bit", lambda x: round_bits(x, 4))):
+        with phase1_rounded(fn):
+            store.build()
+        builds[name] = [t.clone() for t in store.layers]
+    f32 = EmbeddingStore(params, dataclasses.replace(cfg, dtype="float32"),
+                         graph, chunk_size=sz.chunk, max_deg=cfg.max_degree,
+                         device=dev)
+    f32.build()
+    out = {f"{k}_vs_replicated": reading(v, rep.layers)
+           for k, v in builds.items()}
+    out.update({f"{k}_vs_f32": reading(v, f32.layers)
+                for k, v in builds.items()})
+    out["replicated_vs_f32"] = reading(rep.layers, f32.layers)
+    check(max(r["limit_ratio"] for r in out["control_4bit_vs_replicated"])
+          > 1, f"12c: the 4-bit control stays within the 2e-2 limit "
+          f"({out['control_4bit_vs_replicated']}): the limit cannot tell "
+          f"a precision fault")
+    for k, v in out.items():
+        print(f"12c limit reading {k}: " + ", ".join(
+            f"layer {i + 1} max_abs_err {r['max_abs_err']:.6g} limit_ratio "
+            f"{r['limit_ratio']:.4g}" for i, r in enumerate(v)) +
+            f" ({shard_label(sz.sh_shards)})", flush=True)
+    return out
+
+
+def sharded_phase(dev, sz: Sizes, graph) -> dict:
+    """Phase 12: 12a one shard (bit-equal), 12b S shards (training, the
+    kernels at the shard shapes), 12c the featshard store."""
+    secs, out = {}, {}
+    t0 = time.perf_counter()
+    out["12a s1"] = sharded_s1(dev, sz, graph)
+    secs["12a s1"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["12b s4"] = sharded_s4(dev, sz, graph, out["12a s1"])
+    out["12b shapes"] = shard_shapes(dev, sz, graph, out["12b s4"])
+    secs["12b s4"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["12c store"] = sharded_store(dev, sz, graph, out["12b s4"])
+    secs["12c store"] = time.perf_counter() - t0
+    out["12b s4"]["featshard"].pop("plan")
+    out["12a s1"]["fullgraph"].pop("params")
+    E.drop_device_cache(graph)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["seconds"] = secs
+    return out
+
+
 def run(dev: torch.device, sz: Sizes) -> dict:
     # full f32 products everywhere (TF32 off), bf16 GEMMs reduce in f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2974,9 +3603,10 @@ def run(dev: torch.device, sz: Sizes) -> dict:
     lm = timed("9 lm serving", lm_phase, dev, sz)
     figs = timed("10 figures", figure_phase, dev, sz, graph)
     srcs = timed("11 sources", sources_phase, dev, sz, graph)
+    shrd = timed("12 sharded", sharded_phase, dev, sz, graph)
     del graph
-    secs.update({k: round(v, 2) for k, v in figs["seconds"].items()})
-    secs.update({k: round(v, 2) for k, v in srcs["seconds"].items()})
+    for ph in (figs, srcs, shrd):
+        secs.update({k: round(v, 2) for k, v in ph["seconds"].items()})
     print(f"phase seconds: {json.dumps(secs)}", flush=True)
     fig_runs = figs["10c figures"]
     print("figure seconds and steps/s: " + json.dumps(
@@ -3001,11 +3631,27 @@ def run(dev: torch.device, sz: Sizes) -> dict:
     tc = srcs["11a cluster"]["counts"]
     ti = srcs["11b importance"]["counts"]
     cl_shapes = srcs["11a cluster"]["shapes"]
+    # phase 12's paths: each sharded call launches once per shard
+    sh1, sh4 = shrd["12a s1"], shrd["12b s4"]
+    ns = sz.sh_shards
+    sharded_counts_by_path = {
+        "train_fullgraph_sharded_s1": sh1["fullgraph_sharded"]["counts"],
+        "train_featshard_s1": sh1["featshard"]["counts"],
+        "train_minibatch_sharded_s1": sh1["minibatch_sharded"]["counts"],
+        f"train_fullgraph_sharded_s{ns}": sh4["fullgraph_sharded"]["counts"],
+        f"train_featshard_s{ns}": sh4["featshard"]["counts"],
+        f"train_minibatch_sharded_s{ns}": sh4["minibatch_sharded"]["counts"],
+        f"serve_featshard_s{ns}": shrd["12c store"]["counts"]}
+
+    def on_sharded(kernel):
+        return {p: c[kernel] for p, c in sharded_counts_by_path.items()}
+    sh_shapes = shrd["12b shapes"]
     by_route = {r: {"slab": c["tiled_slab"], "direct": c["tiled_direct"]}
                 for r, c in (("train_fullgraph", tf), ("train_minibatch", tm),
                              ("train_cluster", tc), ("train_importance", ti),
                              ("serve", serve["counts"]),
-                             ("gcn_serve", gcn["counts"]))}
+                             ("gcn_serve", gcn["counts"]),
+                             *sharded_counts_by_path.items())}
     sources = {"slab": CSRC + "neighbor_agg_slab.cu",
                "direct": CSRC + "neighbor_agg.cu"}
     fg = bwd["fullgraph_fwd"]
@@ -3030,7 +3676,12 @@ def run(dev: torch.device, sz: Sizes) -> dict:
                               "train_cluster": tc["tiled"],
                               "train_importance": ti["tiled"],
                               "serve": serve["launches"],
-                              **on_figures("tiled")},
+                              **on_figures("tiled"),
+                              **on_sharded("tiled"),
+                              f"featshard_phases_s{ns}": {
+                                  k: sh4["featshard"]["counts"][
+                                      f"featshard_{k}"]
+                                  for k in ("phase1", "phase2")}},
          "launches_by_path_and_route": by_route,
          **top,
          "shape": f"bf16, unfused, {cell} (the serving chunk)",
@@ -3039,7 +3690,8 @@ def run(dev: torch.device, sz: Sizes) -> dict:
                  m, launches=f"{tf['tiled']} over both widths (one each "
                              f"a full-graph forward)")
                 for dd, m in fg.items()},
-             **chunk, **train["mb_forward"], **cl_shapes["forward"]},
+             **chunk, **train["mb_forward"], **cl_shapes["forward"],
+             **sh_shapes["forward"]},
          "l2_table_sweep": measured["sweep"],
          "figure_shapes": figs["shapes"]["forward"]},
         {"name": "neighbor_agg_tiled_fused", "route": "cuda",
@@ -3047,11 +3699,14 @@ def run(dev: torch.device, sz: Sizes) -> dict:
              "planned"]], "sources": sources,
          "replaces": REF_AGG + "neighbor_agg.py:192",
          "launches": gcn["launches"],
-         "launches_by_path": {"gcn_serve": gcn["launches"]},
+         "launches_by_path": {
+             "gcn_serve": gcn["launches"],
+             f"featshard_phase2_s{ns}": sh4["featshard"]["counts"][
+                 "featshard_phase2"]},
          "launches_by_path_and_route": {"gcn_serve": by_route["gcn_serve"]},
          **measured[(torch.float32, d, True)],
          "shape": f"f32, fused self epilogue, {cell}",
-         "by_shape": gcn["by_shape"]},
+         "by_shape": {**gcn["by_shape"], **sh_shapes["fused"]}},
         {"name": "neighbor_agg_backward", "route": "cuda",
          "source": CSRC + "neighbor_agg_bwd.cu",
          "replaces": REF_AGG + "ops.py:55",
@@ -3060,7 +3715,8 @@ def run(dev: torch.device, sz: Sizes) -> dict:
                               "train_minibatch": tm["backward"],
                               "train_cluster": tc["backward"],
                               "train_importance": ti["backward"],
-                              **on_figures("backward")},
+                              **on_figures("backward"),
+                              **on_sharded("backward")},
          **bwd["minibatch_l2"],
          "figure_shapes": figs["shapes"]["backward"],
          "by_shape": {
@@ -3079,9 +3735,11 @@ def run(dev: torch.device, sz: Sizes) -> dict:
                               "train_minibatch": tm["backward_csr"],
                               "train_cluster": tc["backward_csr"],
                               "train_importance": ti["backward_csr"],
-                              **on_figures("backward_csr")},
+                              **on_figures("backward_csr"),
+                              **on_sharded("backward_csr")},
          **bwd["csr"],
-         "by_shape": cl_shapes["backward_csr"],
+         "by_shape": {**cl_shapes["backward_csr"],
+                      **sh_shapes["backward_csr"]},
          "figure_shapes": figs["shapes"]["backward_csr"],
          "atomic_ms_same_inputs": bwd["fullgraph_l2"]["ms"],
          "atomic_plain_ms_same_inputs": bwd["fullgraph_l2"]["plain_ms"]},

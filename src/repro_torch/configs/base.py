@@ -130,10 +130,11 @@ class GNNConfig:
     agg_b_tile: int = 8
     agg_d_tile: int = 128
     agg_k_slab: int = 4
-    # --- feature-table layout (multi-device paths) ---
-    # "replicated" | "sharded" (rows over the NODES axis with a hot cache
-    # of feat_cache_rows rows).  Validated for parity with the reference;
-    # the single-GPU port ignores both fields.
+    # --- feature-table layout (the sharded sources' kernel path) ---
+    # "replicated" | "sharded" (rows over the NODES shards with a
+    # degree-ordered hot cache of feat_cache_rows rows: featshard.py for
+    # the full-graph source and inference, an LRU model for the sampled
+    # one).  The unsharded sources ignore both fields.
     feats_layout: str = "replicated"     # replicated | sharded
     feat_cache_rows: int = -1            # -1 auto (n//8) | 0 off | explicit C
     source: str = ""

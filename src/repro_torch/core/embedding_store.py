@@ -82,7 +82,8 @@ from repro_torch.configs.base import GNNConfig
 from repro_torch.core import faults
 from repro_torch.core.graph import Graph, to_ell
 from repro_torch.core.inference import (InferenceRun, _chunk_apply,
-                                        _layer_sources, layerwise_layers)
+                                        _layer_sources, featshard_plan_for,
+                                        layerwise_layers)
 from repro_torch.device import resolve_device
 
 
@@ -108,7 +109,12 @@ class EmbeddingStore:
 
     ``max_deg=None`` keeps full neighborhoods (inference default).
     Tables live on ``device`` (``cuda`` unless the caller passes
-    ``"cpu"``).
+    ``"cpu"``).  ``mesh`` (a ``sharding.NodeMesh`` of ``device``'s type)
+    splits chunk aggregation over its NODES shards (requires
+    ``cfg.use_agg_kernel``); with ``cfg.feats_layout == "sharded"`` the
+    full build runs the row-sharded featshard pass instead (no whole
+    table per shard), while incremental refreshes keep the chunked path:
+    dirty frontiers are small row sets.
 
     Lock order (never taken in reverse): ``_refresh_mu`` (serializes
     build/refresh/WAL-apply — the only paths that mutate build state)
@@ -117,16 +123,20 @@ class EmbeddingStore:
 
     def __init__(self, params, cfg: GNNConfig, graph: Graph, *,
                  chunk_size: int = 1024, max_deg: Optional[int] = None,
-                 prefetch: bool = True, device="cuda"):
+                 prefetch: bool = True, device="cuda", mesh=None):
         self.params = params
         self.cfg = cfg
         self.device = resolve_device(device)
         self.graph = graph
         self.max_deg = max_deg
         self.prefetch = prefetch
+        self.mesh = mesh
         self.chunk_size = max(1, min(int(chunk_size), graph.n))
         self.idx, self.w, self.w_self = to_ell(graph, max_deg=max_deg)
         self.K = self.idx.shape[1]
+        self.feats_plan = featshard_plan_for(
+            cfg, graph, (self.idx, self.w, self.w_self), mesh)
+        self._replan = False
         # a COPY: on the CPU torch.as_tensor would alias graph.feats,
         # which feature updates write into before the refresh reads them
         self._h0 = torch.tensor(graph.feats, device=self.device)
@@ -183,11 +193,17 @@ class EmbeddingStore:
         publishes a new snapshot version, resetting all dirty state."""
         with self._refresh_mu:
             self._drain_apply()
+            if self._replan:
+                self.feats_plan = featshard_plan_for(
+                    self.cfg, self.graph, (self.idx, self.w, self.w_self),
+                    self.mesh)
+                self._replan = False
             run = layerwise_layers(self.params, self.cfg, self._h0,
                                    (self.idx, self.w, self.w_self),
                                    chunk_size=self.chunk_size,
                                    prefetch=self.prefetch,
-                                   device=self.device)
+                                   device=self.device, mesh=self.mesh,
+                                   feats_plan=self.feats_plan)
             self._publish(list(run.layers), clear_all=True)
             self.build_stats = run.stats
             with self._mu:
@@ -311,6 +327,10 @@ class EmbeddingStore:
             self.w_self[tids] = ws_t
             self.graph = new_graph
             self._rev = None
+            # the featshard plan encodes the ELL: the next full build
+            # plans anew (the reference keeps its first plan)
+            self._replan = self.feats_plan is not None or self._replan
+            self.feats_plan = None
             self._dirty_row[tids] = True
 
     # ------------------------------------------------------------------
@@ -532,7 +552,7 @@ class EmbeddingStore:
             out = _chunk_apply(
                 self.cfg, last, p, h, src, src_agg,
                 *(torch.as_tensor(a, device=self.device)
-                  for a in (rows_b, idx_b, w_b, ws_b)))
+                  for a in (rows_b, idx_b, w_b, ws_b)), mesh=self.mesh)
             outs.append(out[:m] if m < cs else out)
         return outs[0] if len(outs) == 1 else torch.cat(outs, 0)
 

@@ -12,7 +12,16 @@ and differ only in their ``BatchSource``:
   replacement, each row's loss weighted by 1/(n_train·p) (unbiased);
 - ``ClusterSource``   — Cluster-GCN: unions of BFS partitions
   (``core.partition``) as block-diagonal batch ELLs, on the full-graph
-  forward.
+  forward;
+- ``ShardedFullGraphSource`` / ``ShardedSampledSource`` — the same two
+  paradigms with their rows laid out over the NODES shards of a
+  ``sharding.NodeMesh`` (single-controller: one process drives every
+  shard, and a mesh may repeat one card).  With ``cfg.use_agg_kernel``
+  the aggregation runs once per shard (``ops.neighbor_agg_sharded`` /
+  ``neighbor_agg_batch_sharded``), and under ``cfg.feats_layout ==
+  "sharded"`` the full-graph table is row-sharded with a hot cache
+  (``featshard``).  The dense parts (``h @ W``, the loss) run on the
+  run's device, whole.
 
 How the reference's throughput knobs map (PyTorch runs eagerly, so
 there is no compiled step to cache):
@@ -31,8 +40,7 @@ The non-finite guard is an on-device ``isfinite`` reduction plus a
 ``TrainPlan.ckpt_every`` every save is an exact-resume snapshot
 (``save_trainer_state``: parameters, optimizer state, the source's
 stream position and rng, History), and ``Trainer.run(resume_from=)``
-continues a stopped run bit-for-bit.  The sharded sources are
-multi-GPU work (ROADMAP.md Queue 1, slice 4) and are not here.
+continues a stopped run bit-for-bit.
 
 Initial parameters: the reference draws them from
 ``jax.random.key(plan.seed)``, which torch cannot replay, so a
@@ -137,29 +145,91 @@ def _device_nodes(graph: Graph, which: str, device):
     return cache[key]
 
 
-def _eval_acc(params, cfg: GNNConfig, ell, nodes):
+def _sharded_ell(graph: Graph, max_deg: Optional[int], device, mesh):
+    """``(idx, w, w_self, feats, labels)`` on ``device`` with rows padded
+    by zero-weight rows up to a multiple of ``mesh``'s shards (reference
+    ``ShardedFullGraphSource.bind``), memoized on the graph: one
+    resident width and mesh per device, evicted with its reverse index
+    and featshard plan."""
+    from repro_torch import sharding as sh
+    dev = torch.device(device)
+    key = ("sharded_ell", str(dev), mesh.devices,
+           _resolve_max_deg(graph, max_deg))
+    cache = _graph_cache(graph)
+    if key not in cache:
+        for stale in [k for k in cache if k[0] in (
+                "sharded_ell", "sharded_rev", "featshard") and
+                k[1] == str(dev)]:
+            del cache[stale]
+        idx, w, w_self = to_ell(graph, max_deg=max_deg)
+        arrs = (idx, w, w_self, graph.feats, graph.labels.astype(np.int64))
+        cache[key] = tuple(torch.as_tensor(sh.pad_rows(a, mesh.size)).to(dev)
+                           for a in arrs)
+    return cache[key]
+
+
+def _sharded_reverse_index(graph: Graph, max_deg: Optional[int], device,
+                           mesh):
+    """The per-shard reverse indexes (``ops.ShardedReverseIndex``) of the
+    padded sharded ELL, built on the shards' devices and memoized beside
+    it."""
+    from repro_torch.kernels.neighbor_agg.ops import \
+        build_sharded_reverse_index
+    idx, w = _sharded_ell(graph, max_deg, device, mesh)[:2]
+    key = ("sharded_rev", str(torch.device(device)), mesh.devices,
+           _resolve_max_deg(graph, max_deg))
+    cache = _graph_cache(graph)
+    if key not in cache:
+        cache[key] = build_sharded_reverse_index(idx, w, idx.shape[0], mesh)
+    return cache[key]
+
+
+def _source_mesh(mesh, device):
+    """The mesh of a sharded source: ``mesh`` when given, else
+    ``node_mesh()`` (every visible card) for a CUDA run and the run's
+    own device alone otherwise."""
+    from repro_torch import sharding as sh
+    dev = torch.device(device)
+    if mesh is None:
+        mesh = (sh.node_mesh() if dev.type == "cuda"
+                else sh.node_mesh(devices=(dev,)))
+    if mesh.device_type != dev.type:
+        raise ValueError(f"the mesh {mesh} and the run's device {dev} are "
+                         f"of different types")
+    return mesh
+
+
+def _eval_acc(params, cfg: GNNConfig, ell, nodes, mesh=None,
+              feats_plan=None):
     """Accuracy over ``nodes`` with ALL neighbors (§4.1), as a device
-    scalar (no host sync)."""
+    scalar (no host sync).  ``mesh`` / ``feats_plan``: the sharded
+    sources' (see ``full_graph_forward``)."""
     idx, w, w_self, feats, labels = ell
     with torch.no_grad():
-        logits = G.full_graph_forward(params, cfg, feats, idx, w, w_self)
+        logits = G.full_graph_forward(params, cfg, feats, idx, w, w_self,
+                                      mesh=mesh, feats_plan=feats_plan)
         return G.accuracy(logits[nodes], labels[nodes])
 
 
-def _full_loss(params, cfg: GNNConfig, ell, sel):
+def _full_loss(params, cfg: GNNConfig, ell, sel, mesh=None,
+               feats_plan=None):
     """The full training objective at ``params`` as a device scalar."""
     idx, w, w_self, feats, labels = ell
     with torch.no_grad():
-        logits = G.full_graph_forward(params, cfg, feats, idx, w, w_self)
+        logits = G.full_graph_forward(params, cfg, feats, idx, w, w_self,
+                                      mesh=mesh, feats_plan=feats_plan)
         return G.gnn_loss(logits[sel], labels[sel], cfg.loss, cfg.n_classes)
 
 
-def evaluate_full(params, cfg: GNNConfig, graph: Graph, ell, nodes
-                  ) -> float:
-    """Full-neighborhood accuracy of ``params`` on ``nodes`` (§4.1)."""
+def evaluate_full(params, cfg: GNNConfig, graph: Graph, ell, nodes,
+                  mesh=None, feats_plan=None) -> float:
+    """Full-neighborhood accuracy of ``params`` on ``nodes`` (§4.1);
+    ``mesh`` / ``feats_plan`` partition the kernel path as the sharded
+    sources do (``feats_plan`` needs that source's padded ``ell``)."""
     dev = ell[0].device
     return float(_eval_acc(params, cfg, ell,
-                           torch.as_tensor(np.asarray(nodes)).long().to(dev)))
+                           torch.as_tensor(np.asarray(nodes)).long().to(dev),
+                           mesh, feats_plan))
 
 
 # ---------------------------------------------------------------------------
@@ -348,6 +418,9 @@ class BatchSource:
     #: the per-iteration training loss already IS the full objective
     loss_is_full_loss = False
     name = "source"
+    #: the sharded sources' NODES mesh and featshard plan (set at bind)
+    _mesh = None
+    feats_plan = None
 
     def bind(self, graph: Graph, cfg: GNNConfig, plan: TrainPlan,
              device, params: Optional[Sequence[dict]] = None
@@ -359,6 +432,13 @@ class BatchSource:
 
     def node_split(self, which: str):
         return _device_nodes(self.graph, which, self.device)
+
+    def kernel_mesh(self):
+        """The NODES mesh the aggregation kernel splits its rows over: the
+        source's mesh on the kernel path, else None."""
+        if self._mesh is None or not self.cfg.use_agg_kernel:
+            return None
+        return self._mesh
 
     def batches(self):
         raise NotImplementedError
@@ -411,7 +491,9 @@ class FullGraphSource(BatchSource):
     def loss(self, params, batch):
         idx, w, w_self, feats, labels = self.ell
         logits = G.full_graph_forward(params, self.cfg, feats, idx, w,
-                                      w_self, rev=self.rev)
+                                      w_self, rev=self.rev,
+                                      mesh=self.kernel_mesh(),
+                                      feats_plan=self.feats_plan)
         sel = self.train_nodes
         return G.gnn_loss(logits[sel], labels[sel], self.cfg.loss,
                           self.cfg.n_classes)
@@ -422,6 +504,65 @@ class FullGraphSource(BatchSource):
 
     def close(self) -> None:
         self.ell = self.rev = None
+
+
+class ShardedFullGraphSource(FullGraphSource):
+    """Full-graph GD with the ELL rows laid out over the NODES shards of
+    a ``NodeMesh`` (reference ``ShardedFullGraphSource``): rows are
+    padded with zero-weight entries up to a multiple of the shard count,
+    and with ``cfg.use_agg_kernel`` each shard's rows run the tiled
+    kernel over the whole table and the table's gradient is psum'd (each
+    shard's reverse index built once and memoized beside the padded
+    ELL).  Under ``cfg.feats_layout == "sharded"`` the table is
+    row-sharded instead, through the featshard plan of this (ELL, mesh,
+    C), and ``featshard_stats`` holds its bind-time accounting.
+
+    ``mesh=None`` takes every visible card for a CUDA run, the run's
+    device alone otherwise.  On one shard the loss sequence is bit-equal
+    to ``FullGraphSource``'s."""
+
+    name = "fullgraph_sharded"
+
+    featshard_stats = None
+
+    def __init__(self, max_deg: Optional[int] = None, mesh=None):
+        super().__init__(max_deg)
+        self.mesh = mesh
+
+    def bind(self, graph, cfg, plan, device, params=None):
+        self.graph, self.cfg, self.device = graph, cfg, device
+        mesh = self._mesh = _source_mesh(self.mesh, device)
+        self.ell = _sharded_ell(graph, self.max_deg, device, mesh)
+        #: host seconds of the featshard plan build (0 when memoized)
+        self.bind_s = {"featshard_plan": 0.0}
+        self.feats_plan = self.featshard_stats = None
+        self.rev = None
+        if cfg.use_agg_kernel and cfg.feats_layout == "sharded":
+            self.feats_plan = self._bind_featshard(graph, cfg, mesh)
+        elif cfg.use_agg_kernel:
+            self.rev = _sharded_reverse_index(graph, self.max_deg, device,
+                                              mesh)
+        self.train_nodes = self.node_split("train")
+        self.n_nodes = len(graph.train_nodes)
+        return self
+
+    def _bind_featshard(self, graph, cfg, mesh):
+        """The featshard plan of this (ELL, mesh, C), memoized on the
+        graph beside the padded ELL, and its accounting."""
+        from repro_torch.kernels.neighbor_agg import featshard as FS
+        key = ("featshard", str(torch.device(self.device)), mesh.devices,
+               _resolve_max_deg(graph, self.max_deg), cfg.feat_cache_rows)
+        cache = _graph_cache(graph)
+        if key not in cache:
+            t0 = time.perf_counter()
+            idx_h, w_h, _ = to_ell(graph, max_deg=self.max_deg)
+            cache[key] = FS.plan_for(idx_h, w_h, graph.degrees, mesh,
+                                     cfg.feat_cache_rows)
+            self.bind_s["featshard_plan"] = time.perf_counter() - t0
+        fsplan = cache[key]
+        self.featshard_stats = fsplan.accounting(
+            cfg, graph.feats.shape[1], graph.feats.dtype.itemsize)
+        return fsplan
 
 
 class _StagedSource(BatchSource):
@@ -583,7 +724,8 @@ class SampledSource(_StagedSource):
         feats, masks, weights, self_w, labels, *rest = batch
         valid = rest[0] if rest else None
         logits = G.minibatch_forward(params, self.cfg, feats, masks,
-                                     weights, self_w)
+                                     weights, self_w,
+                                     mesh=self.kernel_mesh())
         return G.gnn_loss(logits, labels, self.cfg.loss, self.cfg.n_classes,
                           valid=valid)
 
@@ -710,6 +852,57 @@ class SampledSource(_StagedSource):
             self._last_rng_state = rng.bit_generator.state
             self._consumed += 1
             yield self._to_device(payload), fb.batch_size
+
+
+class ShardedSampledSource(SampledSource):
+    """Data-parallel mini-batches (reference ``ShardedSampledSource``):
+    the batch's target axis is laid out over the NODES shards of a
+    ``NodeMesh``.  The host side is ``SampledSource``'s (sampler,
+    Prefetcher, staging ring); with ``cfg.use_agg_kernel`` every fan-out
+    level runs the tiled kernel once per shard on its own rows
+    (``ops.neighbor_agg_batch_sharded``, no collective).
+
+    ``b`` is rounded UP to a multiple of the shard count; the surplus
+    rows are masked out (the validity column keeps the loss the unpadded
+    mean).  Under ``cfg.feats_layout == "sharded"`` an ``LRURowCache``
+    models, on the Prefetcher's worker, which source rows a device cache
+    would have served (``feat_cache``; its counters reach
+    ``History.counters``).  Exact resume restores the stream and so the
+    losses; the LRU model restarts empty, so a resumed run's counters
+    cover the resumed part.  On one shard the batches and the loss
+    sequence are bit-equal to ``SampledSource``'s."""
+
+    name = "minibatch_sharded"
+    feat_cache = None
+
+    def __init__(self, batch_size: Optional[int] = None,
+                 fanouts: Optional[Sequence[int]] = None, mesh=None, **kw):
+        super().__init__(batch_size, fanouts, **kw)
+        self.mesh = mesh
+
+    def bind(self, graph, cfg, plan, device, params=None):
+        super().bind(graph, cfg, plan, device)
+        mesh = self._mesh = _source_mesh(self.mesh, device)
+        if self.b % mesh.size:           # surplus rows are masked out
+            self.b += (-self.b) % mesh.size
+        self.pad = max(0, self.b - min(self.b_request,
+                                       len(graph.train_nodes)))
+        self.feat_cache = None
+        if cfg.feats_layout == "sharded":
+            from repro_torch.core.featcache import (LRURowCache,
+                                                    resolve_cache_rows)
+            self.feat_cache = LRURowCache(
+                resolve_cache_rows(cfg.feat_cache_rows, graph.n),
+                row_bytes=graph.feats.shape[1] * graph.feats.dtype.itemsize)
+        return self
+
+    def _host_batch(self, graph, fb):
+        if self.feat_cache is not None:
+            # one Prefetcher worker (or the loop itself without
+            # prefetch) stages every batch in order: no lock needed
+            for ids in fb.nodes:
+                self.feat_cache.lookup(ids.reshape(-1))
+        return super()._host_batch(graph, fb)
 
 
 class ImportanceSampledSource(SampledSource):
@@ -1048,6 +1241,17 @@ class HistoryCallback(Callback):
             state.history.full_losses.append(fl)
             state.history.full_loss_iters.append(state.it + 1)
 
+    def on_train_end(self, state):
+        # feature-shard accounting: the plan's bind-time stats
+        # (full-graph) or the host LRU's run totals (sampled) land as
+        # run-level counters beside the per-iteration series
+        st = getattr(state.source, "featshard_stats", None)
+        if st:
+            state.history.counters.update(st)
+        fc = getattr(state.source, "feat_cache", None)
+        if fc is not None:
+            state.history.counters.update(fc.stats())
+
 
 class EarlyStop(Callback):
     """Stop when the batch loss <= target_loss (checked every step,
@@ -1165,6 +1369,11 @@ class Trainer:
         # one (a capped max_deg evaluates on the same adjacency)
         self._ell = (getattr(self.source, "ell", None)
                      or _device_ell(graph, None, self.device))
+        # the sharded sources' kernel path partitions eval and the full
+        # loss over their mesh too, and a featshard source's plan (built
+        # for its padded ELL, which ``_ell`` then is) row-shards the table
+        self._agg_mesh = self.source.kernel_mesh()
+        self._feats_plan = self.source.feats_plan
 
     # ------------------------------------------------------------------
     def _initial_params(self):
@@ -1187,11 +1396,13 @@ class Trainer:
         return params, opt_state, loss.detach(), good
 
     def _eval_dev(self, params, nodes):
-        return _eval_acc(params, self.cfg, self._ell, nodes)
+        return _eval_acc(params, self.cfg, self._ell, nodes, self._agg_mesh,
+                         self._feats_plan)
 
     def _full_loss_dev(self, params):
         return _full_loss(params, self.cfg, self._ell,
-                          self.source.node_split("train"))
+                          self.source.node_split("train"), self._agg_mesh,
+                          self._feats_plan)
 
     def evaluate(self, params, nodes) -> float:
         if not isinstance(nodes, torch.Tensor):
@@ -1200,7 +1411,7 @@ class Trainer:
 
     def close(self) -> None:
         """Release the device references this Trainer holds."""
-        self._ell = None
+        self._ell = self._feats_plan = None
         self.source.close()
 
     def _fire(self, hook: str, state: TrainState) -> None:

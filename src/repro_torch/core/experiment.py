@@ -17,6 +17,12 @@ CUDA kernels:
         --preset arxiv-like --n 400 --iters 4 --bs 32 64 --fanout 3 \
         --device cpu
 
+The sharded paradigms (``--sources fullgraph_sharded minibatch_sharded``,
+``--feats-layout sharded``) run on ``node_mesh()``: every visible card
+under ``--device cuda``, the one device otherwise; a ``mesh=`` argument
+of ``sweep`` / ``make_source`` picks another (``node_mesh(devices=
+("cuda:0",) * 4)`` is four shards on one card).
+
 ``sweep(journal=)`` / ``--journal`` make a sweep crash-safe: every
 finished point is appended to a JSONL journal, and a rerun with the same
 journal skips the points recorded ``ok``.
@@ -25,8 +31,7 @@ Deliberately NOT carried over: the reference sweep's degrade path
 (``experiment.py:356-383``), which retries a grid point with
 ``use_agg_kernel=False`` when the kernel fails.  Here a kernel failure
 raises out of ``sweep`` (without a journal) or becomes the point's error
-row (with one).  The sharded paradigms are multi-GPU work and raise
-``NotImplementedError``.
+row (with one).
 """
 from __future__ import annotations
 
@@ -45,7 +50,9 @@ from repro_torch.core import faults
 from repro_torch.core.engine import (BatchSource, Callback, ClusterSource,
                                      FullGraphSource,
                                      ImportanceSampledSource, SampledSource,
-                                     Trainer, TrainPlan, TrainResult)
+                                     ShardedFullGraphSource,
+                                     ShardedSampledSource, Trainer,
+                                     TrainPlan, TrainResult)
 from repro_torch.core.graph import Graph
 from repro_torch.core.metrics import (iteration_to_accuracy,
                                       iteration_to_full_loss,
@@ -56,11 +63,10 @@ from repro_torch.core.metrics import (iteration_to_accuracy,
 #: beside the reference's ``experiments/bench``, never over it
 OUT_DIR = os.environ.get("BENCH_OUT", "experiments/bench_torch")
 
-SLICE4 = "ROADMAP.md Queue 1, slice 4"
-#: paradigms of the reference and the slice that ports each
-PARADIGMS = {"fullgraph": None, "minibatch": None, "cluster": None,
-             "importance": None, "fullgraph_sharded": SLICE4,
-             "minibatch_sharded": SLICE4}
+#: every paradigm name `make_source` dispatches on — the sampler axis of
+#: the (b, β, sampler) cube `sweep(sources=...)` runs
+PARADIGMS = ("fullgraph", "fullgraph_sharded", "minibatch",
+             "minibatch_sharded", "cluster", "importance")
 
 
 def metrics_row(res: TrainResult, target_loss: Optional[float] = None,
@@ -133,21 +139,26 @@ def inference_metrics(graph: Graph, cfg: GNNConfig, params, *,
 
 
 def make_source(paradigm: str, b: Optional[int] = None,
-                fanouts: Optional[Sequence[int]] = None) -> BatchSource:
-    """The paradigm-name -> BatchSource mapping."""
+                fanouts: Optional[Sequence[int]] = None,
+                mesh=None) -> BatchSource:
+    """The paradigm-name -> BatchSource mapping.  ``mesh`` (a
+    ``sharding.NodeMesh``) is the sharded paradigms' NODES mesh; None
+    gives ``node_mesh()`` on a CUDA run, the run's device alone
+    otherwise."""
     if paradigm == "fullgraph":
         return FullGraphSource()
+    if paradigm == "fullgraph_sharded":
+        return ShardedFullGraphSource(mesh=mesh)
     if paradigm == "minibatch":
         return SampledSource(batch_size=b, fanouts=fanouts)
+    if paradigm == "minibatch_sharded":
+        return ShardedSampledSource(batch_size=b, fanouts=fanouts, mesh=mesh)
     if paradigm == "cluster":
         return ClusterSource(batch_size=b)
     if paradigm == "importance":
         return ImportanceSampledSource(batch_size=b, fanouts=fanouts)
-    if paradigm in PARADIGMS:
-        raise NotImplementedError(
-            f"paradigm {paradigm!r} is not ported yet ({PARADIGMS[paradigm]})")
     raise ValueError(
-        f"paradigm must be one of {tuple(PARADIGMS)}, got {paradigm!r}")
+        f"paradigm must be one of {PARADIGMS}, got {paradigm!r}")
 
 
 def run_experiment(graph: Graph, cfg: GNNConfig, plan: TrainPlan,
@@ -161,14 +172,15 @@ def run_experiment(graph: Graph, cfg: GNNConfig, plan: TrainPlan,
                    keep_result: bool = False,
                    inference: bool = False,
                    serve_queries: int = 64,
-                   params=None, device="cuda") -> Dict:
+                   params=None, device="cuda", mesh=None) -> Dict:
     """One grid point -> one structured row (spec + metrics).
 
-    ``paradigm`` is "minibatch" or "fullgraph"; a custom ``source``
-    overrides it.  ``report_loss`` / ``report_acc`` add iteration-to-*
-    metrics without stopping the run.  ``keep_result`` keeps the
-    TrainResult under "_result"; ``inference`` appends the serving-cost
-    columns.  ``params`` carries initial parameters across."""
+    ``paradigm`` is one of ``PARADIGMS``; a custom ``source`` overrides
+    it.  ``report_loss`` / ``report_acc`` add iteration-to-* metrics
+    without stopping the run.  ``keep_result`` keeps the TrainResult
+    under "_result"; ``inference`` appends the serving-cost columns.
+    ``params`` carries initial parameters across; ``mesh`` is the
+    sharded paradigms' NODES mesh."""
     if b is not None or fanouts is not None:
         cfg = dataclasses.replace(
             cfg,
@@ -176,7 +188,7 @@ def run_experiment(graph: Graph, cfg: GNNConfig, plan: TrainPlan,
             fanout=cfg.fanout if fanouts is None else tuple(fanouts))
     cfg.validate()
     if source is None:
-        source = make_source(paradigm, b=b, fanouts=fanouts)
+        source = make_source(paradigm, b=b, fanouts=fanouts, mesh=mesh)
     trainer = Trainer(graph, cfg, plan, source=source,
                       extra_callbacks=callbacks, params=params,
                       device=device)
@@ -185,7 +197,7 @@ def run_experiment(graph: Graph, cfg: GNNConfig, plan: TrainPlan,
     finally:
         trainer.close()
     name = getattr(source, "name", "custom")
-    if name == "fullgraph":
+    if name.startswith("fullgraph"):
         spec = {"paradigm": name, "b": len(graph.train_nodes),
                 "fanouts": f"d_max={graph.d_max}"}
     elif name == "cluster":
@@ -265,7 +277,7 @@ def sweep(graph: Graph, cfg: GNNConfig, plan: TrainPlan,
           inference: bool = False,
           serve_queries: int = 64,
           init_params: Optional[Callable[[int], Sequence[dict]]] = None,
-          device="cuda") -> List[Dict]:
+          device="cuda", mesh=None) -> List[Dict]:
     """Run the (b, β, sampler) product grid (the paper's §5 plane plus a
     sampler axis: ``sources`` from ``PARADIGMS``).
 
@@ -273,8 +285,9 @@ def sweep(graph: Graph, cfg: GNNConfig, plan: TrainPlan,
     broadcast to all ``cfg.n_layers`` hops); full-graph collapses to one
     point, and cluster to one point per b (fan-out does not apply).
     ``init_params(seed)`` gives each point's carried-across initial
-    parameters.  With ``plan.ckpt_every`` each point checkpoints under a
-    directory of its own below ``plan.ckpt_dir``.
+    parameters.  ``mesh`` is the sharded paradigms' NODES mesh (see
+    ``make_source``).  With ``plan.ckpt_every`` each point checkpoints
+    under a directory of its own below ``plan.ckpt_dir``.
 
     ``journal`` makes the sweep CRASH-SAFE: every completed point is
     appended to the JSONL file (flushed + fsynced) before the next one
@@ -332,7 +345,7 @@ def sweep(graph: Graph, cfg: GNNConfig, plan: TrainPlan,
                     fanouts=fo, inference=inference,
                     serve_queries=serve_queries,
                     params=init_params(seed) if init_params else None,
-                    device=device)
+                    device=device, mesh=mesh)
             except Exception as e:
                 # without a journal the sweep is interactive: fail fast.
                 # With one it is a long unattended grid: record the
@@ -405,8 +418,10 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     ap.add_argument("--fanout", type=int, nargs="+", default=[3])
     ap.add_argument("--sources", nargs="+", default=["minibatch"],
                     help="sampler axis of the grid (see PARADIGMS): "
-                         "minibatch, cluster, importance, fullgraph; the "
-                         "sharded ones raise NotImplementedError")
+                         "minibatch, minibatch_sharded, cluster, "
+                         "importance, fullgraph, fullgraph_sharded; the "
+                         "sharded ones run on node_mesh(): every visible "
+                         "card under --device cuda, else the one device")
     ap.add_argument("--layers", type=int, default=1)
     ap.add_argument("--lr", type=float, default=0.3)
     ap.add_argument("--eval-every", type=int, default=2)
@@ -416,9 +431,14 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
                          "CUDA kernels (their plain versions on the CPU)")
     ap.add_argument("--feats-layout", default="replicated",
                     choices=["replicated", "sharded"],
-                    help="'sharded' is multi-GPU, not ported yet: raises")
+                    help="gather-source table layout of the sharded "
+                         "paradigms' kernel path: 'sharded' rows the "
+                         "table over the NODES shards with a degree-"
+                         "ordered hot cache (full-graph) / host LRU "
+                         "accounting (sampled); pair with --kernel")
     ap.add_argument("--cache-rows", type=int, default=-1,
-                    help="hot-cache size for --feats-layout sharded")
+                    help="hot-cache size C for --feats-layout sharded "
+                         "(-1 auto = n//8, 0 off)")
     ap.add_argument("--journal", default=None,
                     help="JSONL completion journal: crash-safe sweeps "
                          "— rerunning with the same path skips points "
@@ -431,14 +451,6 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
                     help="torch device (cuda unless told otherwise)")
     args = ap.parse_args(argv)
 
-    if args.feats_layout == "sharded":
-        raise NotImplementedError(
-            f"--feats-layout sharded: the feature-sharded layout is not "
-            f"ported yet ({SLICE4})")
-    for src in args.sources:
-        if PARADIGMS.get(src) is not None:
-            raise NotImplementedError(
-                f"--sources {src}: not ported yet ({PARADIGMS[src]})")
     dev = resolve_device(args.device)
     graph = make_preset(args.preset, n=args.n, seed=0)
     cfg = GNNConfig(name="sweep", model="graphsage", n_nodes=graph.n,

@@ -91,27 +91,39 @@ def params_from_numpy(params: Sequence[Dict[str, Any]], device="cuda"
 # ---------------------------------------------------------------------------
 
 def _kernel_agg(cfg: GNNConfig, table, idx, w, self_rows=None,
-                w_self=None, rev=None):
+                w_self=None, rev=None, mesh=None):
     """Σ_k w[b,k] · table[idx[b,k]] (+ fused w_self[b] · self_rows[b]
     epilogue) through the hand-written kernel (its plain version on a
     CPU tensor); ``rev``, the reverse index of ``(idx, w)``, sends the
-    table's gradient through the reverse-index backward kernel.  The
-    reference's ``agg_*`` tile fields have no meaning for it."""
+    table's gradient through the reverse-index backward kernel.  With
+    ``mesh`` the rows split over its NODES shards, one launch per shard
+    over the whole table, and the table's gradient is psum'd (``rev`` is
+    then a ``ShardedReverseIndex``).  The reference's ``agg_*`` tile
+    fields have no meaning for it."""
+    if mesh is not None:
+        from repro_torch.kernels.neighbor_agg.ops import \
+            neighbor_agg_sharded
+        return neighbor_agg_sharded(table, idx, w, self_rows, w_self,
+                                    mesh=mesh, rev=rev)
     from repro_torch.kernels.neighbor_agg.ops import neighbor_agg
     return neighbor_agg(table, idx, w, self_rows, w_self, use_kernel=True,
                         kernel="tiled", rev=rev)
 
 
-def _wsum(cfg: GNNConfig, w_edge, h_nb, h_self=None, w_self=None):
+def _wsum(cfg: GNNConfig, w_edge, h_nb, h_self=None, w_self=None,
+          mesh=None):
     """Weighted neighbor sum over ALREADY-GATHERED features:
     out[..., :] = Σ_k w_edge[..., k] * h_nb[..., k, :]
                   [+ w_self[...] * h_self[..., :]]
-    (reference ``gnn.py:81-116`` without ``mesh``).
+    (reference ``gnn.py:81-116``).
 
     With ``cfg.use_agg_kernel`` the fan-out tree is flattened to a
     [B*K, d] table with identity ids, so the mini-batch path runs the
     same tiled kernel (zero-weight padding edges stay exact) and its
-    backward; the optional self term rides the fused epilogue."""
+    backward; the optional self term rides the fused epilogue.  With
+    ``mesh`` the flattened rows split over its NODES shards
+    (``neighbor_agg_batch_sharded``: each shard's table derives from its
+    own rows, so no collective)."""
     fused = h_self is not None
     if not cfg.use_agg_kernel:
         out = torch.einsum("...k,...kd->...d", w_edge, h_nb)
@@ -120,6 +132,14 @@ def _wsum(cfg: GNNConfig, w_edge, h_nb, h_self=None, w_self=None):
     lead = h_nb.shape[:-2]
     table = h_nb.reshape(-1, d)
     b = table.shape[0] // k
+    if mesh is not None:
+        from repro_torch.kernels.neighbor_agg.ops import \
+            neighbor_agg_batch_sharded
+        out = neighbor_agg_batch_sharded(
+            w_edge.reshape(b, k), h_nb.reshape(b, k, d),
+            h_self.reshape(b, d) if fused else None,
+            w_self.reshape(b) if fused else None, mesh=mesh)
+        return out.reshape(lead + (d,))
     idx = torch.arange(b * k, dtype=torch.int32,
                        device=table.device).reshape(b, k)
     out = _kernel_agg(cfg, table, idx, w_edge.reshape(b, k),
@@ -128,14 +148,14 @@ def _wsum(cfg: GNNConfig, w_edge, h_nb, h_self=None, w_self=None):
     return out.reshape(lead + (d,))
 
 
-def _gcn_layer(cfg, p, h_self, h_nb, w_edge, w_self):
+def _gcn_layer(cfg, p, h_self, h_nb, w_edge, w_self, mesh=None):
     """h_self [..., d]; h_nb [..., K, d]; w_edge [..., K]; w_self [...]."""
-    return _wsum(cfg, w_edge, h_nb, h_self, w_self) @ p["w"]
+    return _wsum(cfg, w_edge, h_nb, h_self, w_self, mesh=mesh) @ p["w"]
 
 
-def _sage_layer(cfg, p, h_self, h_nb, mask):
+def _sage_layer(cfg, p, h_self, h_nb, mask, mesh=None):
     cnt = torch.clamp(mask.sum(-1, keepdim=True), min=1.0)
-    mean = _wsum(cfg, mask, h_nb) / cnt
+    mean = _wsum(cfg, mask, h_nb, mesh=mesh) / cnt
     return h_self @ p["w_self"] + mean @ p["w_neigh"]
 
 
@@ -158,17 +178,34 @@ def _gat_layer(p, h_self, h_nb, mask):
 
 
 def _apply_layer(cfg: GNNConfig, p, h_self, h_nb, mask, w_edge, w_self,
-                 last: bool):
+                 last: bool, mesh=None):
     if cfg.model == "gcn":
-        out = _gcn_layer(cfg, p, h_self, h_nb, w_edge, w_self)
+        out = _gcn_layer(cfg, p, h_self, h_nb, w_edge, w_self, mesh=mesh)
     elif cfg.model == "graphsage":
-        out = _sage_layer(cfg, p, h_self, h_nb, mask)
+        out = _sage_layer(cfg, p, h_self, h_nb, mask, mesh=mesh)
     else:
         out = _gat_layer(p, h_self, h_nb, mask)
         if last:  # average heads into class logits
             h = cfg.gat_heads
             out = out.reshape(out.shape[:-1] + (h, -1)).mean(-2)
     return out if last else torch.relu(out)
+
+
+def gather_rows(table, idx):
+    """``table[idx]`` for int ids ``idx`` of any shape: rows of ``table``
+    [N, d] -> ``idx.shape + (d,)``, with a gradient that sums each row's
+    contributions in a fixed order on either device, as exact resume
+    and seeded repeats need.  On a CPU tensor it is ``index_select``,
+    whose gradient ``index_add_`` adds serially there; the gradient of
+    advanced indexing, ``index_put_(accumulate=True)``, adds with
+    parallel atomics on the CPU once the gather is large, so a row's
+    sum order followed thread scheduling.  On a CUDA tensor it is
+    advanced indexing, whose gradient sorts the ids and sums each row
+    in that order; ``index_add_`` adds with atomics there."""
+    ids = idx.reshape(-1).long()
+    flat = table[ids] if table.is_cuda else torch.index_select(table, 0,
+                                                               ids)
+    return flat.reshape(tuple(idx.shape) + (table.shape[-1],))
 
 
 def agg_dtype(cfg: GNNConfig, h_dtype: torch.dtype) -> torch.dtype:
@@ -182,11 +219,12 @@ def agg_dtype(cfg: GNNConfig, h_dtype: torch.dtype) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def full_graph_forward(params, cfg: GNNConfig, feats, ell_idx, ell_w,
-                       w_self, return_layers=False, rev=None):
+                       w_self, return_layers=False, rev=None, mesh=None,
+                       feats_plan=None):
     """feats [n, r]; ell_idx [n, K] int32; ell_w [n, K]; w_self [n] ->
-    logits [n, C] (reference ``gnn.py:165-298`` without ``mesh`` /
-    ``feats_plan``).  ``rev``: the reverse index of ``(ell_idx, ell_w)``
-    (``ops.build_reverse_index``), or None.
+    logits [n, C] (reference ``gnn.py:165-298``).  ``rev``: the reverse
+    index of ``(ell_idx, ell_w)`` (``ops.build_reverse_index``; with
+    ``mesh``, ``ops.build_sharded_reverse_index``), or None.
 
     * When a layer narrows (d_out < d_in) the linear transform runs
       BEFORE aggregation (Ã(hW) == (Ãh)W for GCN and the GraphSAGE
@@ -201,6 +239,15 @@ def full_graph_forward(params, cfg: GNNConfig, feats, ell_idx, ell_w,
       aggregations' weights (GraphSAGE's mask, GCN's ``ell_w``) are zero
       wherever ``ell_w`` is, so the index fits them.
 
+    ``mesh`` (the sharded sources) splits the KERNEL path's rows over
+    the mesh's NODES shards (``ops.neighbor_agg_sharded``: one launch
+    per shard over the whole table, the table's gradient psum'd); the
+    einsum path ignores it.  ``feats_plan`` (a ``FeatShardPlan`` built at
+    bind under ``cfg.feats_layout == "sharded"``) sends the gcn /
+    graphsage kernel path through ``neighbor_agg_featshard`` instead:
+    the source table is row-sharded, with the plan's hot cache and one
+    compacted miss all_gather per call.  GAT ignores both.
+
     ``return_layers`` also returns every layer's POST-activation table
     ``[h_1, ..., h_L]`` (``h_L`` = the logits).
     """
@@ -211,15 +258,22 @@ def full_graph_forward(params, cfg: GNNConfig, feats, ell_idx, ell_w,
     # aggregation consumes the mask in agg_dt: cast the bool ONCE
     mask_agg = mask if agg_dt == h.dtype else maskb.to(agg_dt)
     n_layers = len(params)
+    fs_active = (feats_plan is not None and cfg.use_agg_kernel
+                 and cfg.model in ("gcn", "graphsage"))
 
     def agg_w(srcr, w_edge):
         """Σ_k w_edge[n,k] · srcr[ell_idx[n,k]]; ``srcr`` is the already
         cast table."""
+        if fs_active:
+            from repro_torch.kernels.neighbor_agg.ops import \
+                neighbor_agg_featshard
+            return neighbor_agg_featshard(srcr, w_edge.to(agg_dt),
+                                          feats_plan).to(h.dtype)
         if cfg.use_agg_kernel:
             return _kernel_agg(cfg, srcr, ell_idx, w_edge.to(agg_dt),
-                               rev=rev).to(h.dtype)
+                               rev=rev, mesh=mesh).to(h.dtype)
         return torch.einsum("nk,nkd->nd", w_edge.to(agg_dt),
-                            srcr[ell_idx.long()]).to(h.dtype)
+                            gather_rows(srcr, ell_idx)).to(h.dtype)
 
     layers = []
     for li, p in enumerate(params):
@@ -229,11 +283,17 @@ def full_graph_forward(params, cfg: GNNConfig, feats, ell_idx, ell_w,
             pre = w.shape[1] < h.shape[1]
             src = (h @ w) if pre else h
             srcr = src.to(agg_dt)
-            if cfg.use_agg_kernel:
+            if fs_active:
+                from repro_torch.kernels.neighbor_agg.ops import \
+                    neighbor_agg_featshard
+                agg = neighbor_agg_featshard(
+                    srcr, ell_w.to(agg_dt), feats_plan, self_rows=srcr,
+                    w_self=w_self.to(agg_dt)).to(h.dtype)
+            elif cfg.use_agg_kernel:
                 # fused epilogue: the self row IS the source table row b
                 agg = _kernel_agg(cfg, srcr, ell_idx, ell_w.to(agg_dt),
                                   self_rows=srcr, w_self=w_self.to(agg_dt),
-                                  rev=rev).to(h.dtype)
+                                  rev=rev, mesh=mesh).to(h.dtype)
             else:
                 agg = agg_w(srcr, ell_w) + (w_self.to(agg_dt)[:, None]
                                             * srcr).to(h.dtype)
@@ -246,7 +306,7 @@ def full_graph_forward(params, cfg: GNNConfig, feats, ell_idx, ell_w,
             mean = agg_w(src.to(agg_dt), mask_agg) / cnt
             out = h @ p["w_self"] + (mean if pre else mean @ wn)
         else:  # gat — gathers the raw h (per-edge attention)
-            nb = h.to(agg_dt)[ell_idx.long()].to(h.dtype)
+            nb = gather_rows(h.to(agg_dt), ell_idx).to(h.dtype)
             out = _gat_layer(p, h, nb, maskb)
             if last:
                 heads = cfg.gat_heads
@@ -262,19 +322,21 @@ def full_graph_forward(params, cfg: GNNConfig, feats, ell_idx, ell_w,
 # ---------------------------------------------------------------------------
 
 def minibatch_forward(params, cfg: GNNConfig, hop_feats: Sequence,
-                      masks: Sequence, weights: Sequence, self_w: Sequence):
+                      masks: Sequence, weights: Sequence, self_w: Sequence,
+                      mesh=None):
     """hop_feats[d]: [b, f1..fd, r]; masks/weights[d]: [b, f1..f(d+1)].
     Layer l aggregates hop d+1 into hop d for d < L - l (reference
-    ``gnn.py:305-324`` without ``mesh``).  Like the reference, this path
-    does NOT cast to ``agg_dt``: it aggregates in the hop features' own
-    dtype."""
+    ``gnn.py:305-324``).  ``mesh`` (the sharded sources) splits the
+    kernel path's target rows over its NODES shards; the einsum path
+    ignores it.  Like the reference, this path does NOT cast to
+    ``agg_dt``: it aggregates in the hop features' own dtype."""
     hs = list(hop_feats)
     n_layers = len(params)
     for li, p in enumerate(params):
         last = li == n_layers - 1
         hs = [_apply_layer(cfg, p, hs[d], hs[d + 1],
                            masks[d].to(hs[d].dtype), weights[d], self_w[d],
-                           last)
+                           last, mesh=mesh)
               for d in range(len(hs) - 1)]
     assert len(hs) == 1
     return hs[0]                                      # [b, C]

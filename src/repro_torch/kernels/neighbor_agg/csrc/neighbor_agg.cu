@@ -3,10 +3,13 @@
 //   out[b, :] = sum_k w[b, k] * feats[idx[b, k], :]
 //               (+ w_self[b] * self_rows[b, :] when the epilogue is fused)
 //
-// feats [N, D] f32 or bf16; idx [B, K] int32; w [B, K] and the optional
-// self_rows [B, D] / w_self [B] in feats' dtype; out [B, D] in feats'
-// dtype.  Every product and sum is taken in f32; the result is rounded
-// to the output dtype once, at the store.
+// feats [N, D] f32 or bf16; idx [B, K] int32; w [B, K] in feats' dtype;
+// the optional self_rows [B, D] / w_self [B] and out [B, D] in the
+// output dtype: feats' own, or f32 for a bf16 table whose sum is a
+// partial that a later call goes on adding to (the fused epilogue of a
+// second call then starts from the unrounded partial).  Every product
+// and sum is taken in f32; the result is rounded to the output dtype
+// once, at the store.
 //
 // Replaces the TPU kernel neighbor_agg_pallas_tiled
 // (src/repro/kernels/neighbor_agg/neighbor_agg.py:192, pallas_call at
@@ -68,13 +71,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, like astype
 }
 
-template <typename T, int CPT, bool FUSED>
+template <typename T, typename O, int CPT, bool FUSED>
 __global__ void __launch_bounds__(kWarp * kRowsPerBlock)
     neighbor_agg_kernel(const T* __restrict__ feats,
                         const int32_t* __restrict__ idx,
                         const T* __restrict__ w,
-                        const T* __restrict__ self_rows,
-                        const T* __restrict__ w_self, T* __restrict__ out,
+                        const O* __restrict__ self_rows,
+                        const O* __restrict__ w_self, O* __restrict__ out,
                         int64_t n, int64_t b_total, int k_total,
                         int d_total) {
   const int lane = threadIdx.x;
@@ -123,17 +126,17 @@ __global__ void __launch_bounds__(kWarp * kRowsPerBlock)
     }
   }
 
-  T* out_row = out + b * d_total;
+  O* out_row = out + b * d_total;
 #pragma unroll
   for (int j = 0; j < CPT; ++j) {
     const int d = d0 + lane + kWarp * j;
     if (d < d_total) {
-      out_row[d] = from_f32<T>(bad ? __int_as_float(0x7fc00000) : acc[j]);
+      out_row[d] = from_f32<O>(bad ? __int_as_float(0x7fc00000) : acc[j]);
     }
   }
 }
 
-template <typename T, int CPT>
+template <typename T, typename O, int CPT>
 void launch_cpt(const void* feats, const void* idx, const void* w,
                 const void* self_rows, const void* w_self, void* out,
                 int64_t n, int64_t b, int k, int d, cudaStream_t stream) {
@@ -144,18 +147,18 @@ void launch_cpt(const void* feats, const void* idx, const void* w,
   const T* f = static_cast<const T*>(feats);
   const int32_t* i = static_cast<const int32_t*>(idx);
   const T* ww = static_cast<const T*>(w);
-  T* o = static_cast<T*>(out);
+  O* o = static_cast<O*>(out);
   if (self_rows != nullptr) {
-    neighbor_agg_kernel<T, CPT, true><<<grid, block, 0, stream>>>(
-        f, i, ww, static_cast<const T*>(self_rows),
-        static_cast<const T*>(w_self), o, n, b, k, d);
+    neighbor_agg_kernel<T, O, CPT, true><<<grid, block, 0, stream>>>(
+        f, i, ww, static_cast<const O*>(self_rows),
+        static_cast<const O*>(w_self), o, n, b, k, d);
   } else {
-    neighbor_agg_kernel<T, CPT, false><<<grid, block, 0, stream>>>(
+    neighbor_agg_kernel<T, O, CPT, false><<<grid, block, 0, stream>>>(
         f, i, ww, nullptr, nullptr, o, n, b, k, d);
   }
 }
 
-template <typename T>
+template <typename T, typename O>
 void launch(const void* feats, const void* idx, const void* w,
             const void* self_rows, const void* w_self, void* out, int64_t n,
             int64_t b, int k, int d, cudaStream_t stream) {
@@ -166,8 +169,8 @@ void launch(const void* feats, const void* idx, const void* w,
   switch (cpt) {
 #define NA_CASE(C)                                                        \
   case C:                                                                 \
-    launch_cpt<T, C>(feats, idx, w, self_rows, w_self, out, n, b, k, d, \
-                     stream);                                             \
+    launch_cpt<T, O, C>(feats, idx, w, self_rows, w_self, out, n, b, k, \
+                        d, stream);                                       \
     break;
     NA_CASE(1)
     NA_CASE(2)
@@ -177,8 +180,8 @@ void launch(const void* feats, const void* idx, const void* w,
     NA_CASE(6)
     NA_CASE(7)
     default:
-      launch_cpt<T, 8>(feats, idx, w, self_rows, w_self, out, n, b, k, d,
-                       stream);
+      launch_cpt<T, O, 8>(feats, idx, w, self_rows, w_self, out, n, b, k,
+                          d, stream);
 #undef NA_CASE
   }
 }
@@ -186,7 +189,9 @@ void launch(const void* feats, const void* idx, const void* w,
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  dtype: 0 = float32,
-// 1 = bfloat16.  self_rows/w_self both null (plain) or both set (fused).
+// 1 = bfloat16, 2 = a bfloat16 table and w with self_rows, w_self and
+// out in float32.  self_rows/w_self both null (plain) or both set
+// (fused).
 // Returns the cudaError_t of the launch (0 = launched); 1000 for an
 // unknown dtype or bad arguments.  Launches on `stream`, never syncs.
 extern "C" int neighbor_agg_forward(int dtype, const void* feats,
@@ -200,10 +205,14 @@ extern "C" int neighbor_agg_forward(int dtype, const void* feats,
   if ((b + kRowsPerBlock - 1) / kRowsPerBlock > 0x7fffffffLL) return 1000;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    launch<float>(feats, idx, w, self_rows, w_self, out, n, b, k, d, s);
+    launch<float, float>(feats, idx, w, self_rows, w_self, out, n, b, k, d,
+                         s);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16>(feats, idx, w, self_rows, w_self, out, n, b, k, d,
-                          s);
+    launch<__nv_bfloat16, __nv_bfloat16>(feats, idx, w, self_rows, w_self,
+                                         out, n, b, k, d, s);
+  } else if (dtype == 2) {
+    launch<__nv_bfloat16, float>(feats, idx, w, self_rows, w_self, out, n,
+                                 b, k, d, s);
   } else {
     return 1000;
   }

@@ -166,6 +166,11 @@ def build_reverse_index(idx: torch.Tensor, w: torch.Tensor,
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the tiled forward's (table dtype, output dtype) pairs and their codes:
+#: an f32 output of a bf16 table holds a partial sum unrounded
+_FORWARD_CODE = {(torch.float32, torch.float32): 0,
+                 (torch.bfloat16, torch.bfloat16): 1,
+                 (torch.bfloat16, torch.float32): 2}
 
 #: the routes of the tiled forward
 TILED_ROUTES = ("slab", "direct")
@@ -242,9 +247,13 @@ def _tiled_route(route: str, slab_bytes: Optional[int] = None):
         _forced_route = prev
 
 
-def _check_kernel_args(feats, idx, w, self_rows, w_self, rev=None) -> None:
+def _check_kernel_args(feats, idx, w, self_rows, w_self, rev=None,
+                       out_dtype=None) -> None:
     """Raise on anything the kernel does not take (checked on every
-    device, so the CPU tests hold the same contract as the card).  A
+    device, so the CPU tests hold the same contract as the card).
+    ``out_dtype`` (the tiled forward's output, ``feats.dtype`` when
+    None) may be f32 for a bf16 table; ``self_rows`` / ``w_self`` come
+    in the output dtype.  A
     reverse index must be the one of this ``idx`` (object and version),
     shapes and device; ``w`` nonzero on an edge it left out fails an
     on-device assert (raised at once on the CPU, by the card's next
@@ -260,14 +269,17 @@ def _check_kernel_args(feats, idx, w, self_rows, w_self, rev=None) -> None:
     req(w.shape == idx.shape and w.dtype == feats.dtype,
         f"w must be {feats.dtype} {tuple(idx.shape)}, got {w.dtype} "
         f"{tuple(w.shape)}")
+    odt = feats.dtype if out_dtype is None else out_dtype
+    req((feats.dtype, odt) in _FORWARD_CODE,
+        f"a {feats.dtype} table cannot give a {odt} output")
     ops = [feats, idx, w]
     if self_rows is not None:
         b, d = idx.shape[0], feats.shape[1]
-        req(self_rows.shape == (b, d) and self_rows.dtype == feats.dtype,
-            f"self_rows must be {feats.dtype} {(b, d)}, got "
+        req(self_rows.shape == (b, d) and self_rows.dtype == odt,
+            f"self_rows must be {odt} {(b, d)}, got "
             f"{self_rows.dtype} {tuple(self_rows.shape)}")
-        req(w_self.shape == (b,) and w_self.dtype == feats.dtype,
-            f"w_self must be {feats.dtype} {(b,)}, got {w_self.dtype} "
+        req(w_self.shape == (b,) and w_self.dtype == odt,
+            f"w_self must be {odt} {(b,)}, got {w_self.dtype} "
             f"{tuple(w_self.shape)}")
         ops += [self_rows, w_self]
     req(all(t.device == feats.device for t in ops),
@@ -292,22 +304,31 @@ def _check_kernel_args(feats, idx, w, self_rows, w_self, rev=None) -> None:
                         "its reverse index left out")
 
 
-def _launch(feats, idx, w, self_rows, w_self):
+def _launch(feats, idx, w, self_rows, w_self, out_dtype=None):
     """The tiled forward on the route ``tiled_plan`` gives (or the one
-    ``_tiled_route`` forces); a failed build or launch raises."""
+    ``_tiled_route`` forces); a failed build or launch raises.  An f32
+    output of a bf16 table (``out_dtype``) takes the direct route, the
+    one that has it."""
     from repro_torch.kernels.neighbor_agg.build import load_library
     n, d = feats.shape
     b, k = idx.shape
+    odt = feats.dtype if out_dtype is None else out_dtype
     forced = _forced_route
     plan = tiled_plan(n, b, k, d, feats.dtype, forced and forced[1])
     route = forced[0] if forced else plan.route
-    out = torch.empty((b, d), dtype=feats.dtype, device=feats.device)
+    if odt != feats.dtype:
+        if forced and route != "direct":
+            raise ValueError(f"neighbor_agg kernel: a {odt} output of a "
+                             f"{feats.dtype} table has the direct route "
+                             f"only, not {route!r}")
+        route = "direct"
+    out = torch.empty((b, d), dtype=odt, device=feats.device)
     if b == 0 or d == 0:                         # nothing to compute
         return out
     lib = load_library()
-    args = (_DTYPE_CODE[feats.dtype], feats.data_ptr(), idx.data_ptr(),
-            w.data_ptr(), _ptr(self_rows), _ptr(w_self), out.data_ptr(), n,
-            b, k, d)
+    args = (_FORWARD_CODE[feats.dtype, odt], feats.data_ptr(),
+            idx.data_ptr(), w.data_ptr(), _ptr(self_rows), _ptr(w_self),
+            out.data_ptr(), n, b, k, d)
     with torch.cuda.device(feats.device):     # launch on the tensors' card
         if route == "slab":
             err = lib.neighbor_agg_forward_slab(*args, plan.slab_cols,
@@ -408,14 +429,16 @@ def _device_of(feats) -> str:
     return feats.device.type
 
 
-def _forward(kernel, feats, idx, w, self_rows=None, w_self=None):
+def _forward(kernel, feats, idx, w, self_rows=None, w_self=None,
+             out_dtype=None):
     """The kernel's forward on a CUDA tensor, its plain version on a CPU
-    tensor."""
+    tensor.  ``out_dtype``: the tiled forward's output dtype (see
+    ``_check_kernel_args``)."""
     if _device_of(feats) == "cpu":
-        return neighbor_agg_ref(feats, idx, w, self_rows, w_self)
+        return neighbor_agg_ref(feats, idx, w, self_rows, w_self, out_dtype)
     if kernel == "row":
         return _launch_row(feats, idx, w)
-    return _launch(feats, idx, w, self_rows, w_self)
+    return _launch(feats, idx, w, self_rows, w_self, out_dtype)
 
 
 def _backward(feats, idx, w, g, self_rows, w_self, need):
@@ -539,3 +562,231 @@ def neighbor_agg(feats, idx, w, self_rows=None, w_self=None, *,
     if fused:
         return _AggSelf.apply(feats, idx, w, self_rows, w_self, rev)
     return _Agg.apply(feats, idx, w, "tiled", rev)
+
+
+# ---------------------------------------------------------------------------
+# NODES-partitioned entry points (reference ``ops.py:204-405``)
+# ---------------------------------------------------------------------------
+# The tiled kernel runs once per shard on that shard's contiguous row
+# block of the output / idx / w (+ self_rows / w_self), gathering from
+# the whole table, so the forward needs no collective.  Only the table's
+# gradient, summed into a table every shard reads, needs a psum; dw /
+# dself_rows / dw_self are row-local like their primals.
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedReverseIndex:
+    """The reverse index of each shard's row block of a NODES-sharded ELL
+    ``(idx, w)``: ``shard_idx[s]`` is block ``s`` of ``idx`` on shard
+    ``s``'s device and ``revs[s]`` its ``ReverseIndex`` over all N table
+    rows.  ``idx`` is the global tensor it was built from and
+    ``idx_version`` that tensor's ``_version`` then."""
+    mesh: object
+    idx: torch.Tensor
+    idx_version: int
+    shard_idx: Tuple[torch.Tensor, ...]
+    revs: Tuple[ReverseIndex, ...]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(r.nbytes for r in self.revs)
+
+
+def build_sharded_reverse_index(idx: torch.Tensor, w: torch.Tensor, n: int,
+                                mesh) -> ShardedReverseIndex:
+    """One ``build_reverse_index`` per shard, each over that shard's
+    rows of ``(idx, w)`` (rows must divide the shards: pad first) and
+    all ``n`` table rows, built on the shard's device."""
+    from repro_torch import sharding as sh
+    idx_s = sh.shard_rows(idx, mesh)
+    w_s = sh.shard_rows(w, mesh)
+    revs = tuple(build_reverse_index(i, ww, n) for i, ww in zip(idx_s, w_s))
+    return ShardedReverseIndex(mesh=mesh, idx=idx, idx_version=idx._version,
+                               shard_idx=tuple(idx_s), revs=revs)
+
+
+def _shard_blocks(mesh, *tensors):
+    """Per-shard row blocks of each tensor (None stays None), as one
+    tuple per shard."""
+    from repro_torch import sharding as sh
+    cols = [sh.shard_rows(t, mesh) if t is not None else [None] * mesh.size
+            for t in tensors]
+    return list(zip(*cols))
+
+
+class _AggSharded(torch.autograd.Function):
+    """``neighbor_agg`` with rows split over the NODES shards and the table
+    read whole by each (reference ``_agg_sharded``): one tiled launch per
+    shard; the backward runs ``_grads`` per shard and psums dfeats."""
+
+    @staticmethod
+    def forward(ctx, feats, idx, w, self_rows, w_self, mesh, rev):
+        from repro_torch import sharding as sh
+        shards = _shard_blocks(mesh, idx, w, self_rows, w_self)
+        if rev is not None:
+            shards = [(ri,) + blk[1:] for ri, blk in zip(rev.shard_idx,
+                                                         shards)]
+        outs = []
+        for s, (i_s, w_s, sr_s, ws_s) in enumerate(shards):
+            f_s = feats.to(mesh.devices[s])
+            _check_kernel_args(f_s, i_s, w_s, sr_s, ws_s,
+                               rev.revs[s] if rev is not None else None)
+            outs.append(_forward("tiled", f_s, i_s, w_s, sr_s, ws_s))
+        ctx.save_for_backward(feats, idx, w, self_rows, w_self)
+        ctx.mesh, ctx.rev = mesh, rev
+        return sh.unshard_rows(outs, feats.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch import sharding as sh
+        feats, idx, w, self_rows, w_self = ctx.saved_tensors
+        mesh, rev = ctx.mesh, ctx.rev
+        need_f, _, need_w, need_s, need_ws, _, _ = ctx.needs_input_grad
+        need = (need_f, need_w, need_s and self_rows is not None,
+                need_ws and self_rows is not None)
+        shards = _shard_blocks(mesh, idx, w, self_rows, w_self,
+                               g.contiguous())
+        if rev is not None:
+            shards = [(ri,) + blk[1:] for ri, blk in zip(rev.shard_idx,
+                                                         shards)]
+        grads = []
+        for s, (i_s, w_s, sr_s, ws_s, g_s) in enumerate(shards):
+            grads.append(_grads(feats.to(mesh.devices[s]), i_s, w_s, g_s,
+                                sr_s, ws_s, need,
+                                rev.revs[s] if rev is not None else None))
+        dfeats = (sh.psum([gr[0] for gr in grads], mesh)[0].to(
+            device=feats.device, dtype=feats.dtype) if need[0] else None)
+
+        def rows(j):
+            if not need[j]:
+                return None
+            return sh.unshard_rows([gr[j] for gr in grads], feats.device)
+        return dfeats, None, rows(1), rows(2), rows(3), None, None
+
+
+def neighbor_agg_sharded(feats, idx, w, self_rows=None, w_self=None, *,
+                         mesh=None, use_kernel: bool = True,
+                         rev: Optional[ShardedReverseIndex] = None):
+    """``out[b] = Σ_k w[b,k]·feats[idx[b,k]] [+ w_self[b]·self_rows[b]]``
+    partitioned over the NODES shards of ``mesh`` (reference
+    ``neighbor_agg_sharded``): output rows / ``idx`` / ``w`` /
+    ``self_rows`` / ``w_self`` split into contiguous row blocks, one per
+    shard, and every shard gathers from the whole table.  Rows are
+    padded with zero-weight edges up to a multiple of the shard count,
+    so any B is legal.  ``rev`` (from ``build_sharded_reverse_index`` on
+    this ``idx``, whose rows must then divide the shards) sends each
+    shard's table gradient through the reverse-index kernel.
+
+    With one shard this is bit-equal to ``neighbor_agg(...,
+    use_kernel=True)``, forward and gradients (the psum of one part is
+    that part).  ``mesh=None`` or ``use_kernel=False`` call
+    ``neighbor_agg`` itself."""
+    fused = self_rows is not None
+    if fused != (w_self is not None):
+        raise ValueError("self_rows and w_self must be passed together")
+    if mesh is None or not use_kernel:
+        if rev is not None:
+            raise ValueError("a ShardedReverseIndex needs a mesh and the "
+                             "kernel path")
+        return neighbor_agg(feats, idx, w, self_rows, w_self,
+                            use_kernel=use_kernel, kernel="tiled")
+    from repro_torch import sharding as sh
+    b = idx.shape[0]
+    n_sh = sh.nodes_shards(mesh)
+    if rev is not None:
+        if not isinstance(rev, ShardedReverseIndex):
+            raise ValueError(f"rev must be a ShardedReverseIndex, got "
+                             f"{type(rev).__name__}")
+        if rev.idx is not idx or rev.idx_version != idx._version \
+                or rev.mesh is not mesh:
+            raise ValueError("neighbor_agg_sharded: rev was built for "
+                             "another idx (or mesh), or idx changed in "
+                             "place since")
+    elif b % n_sh:
+        idx, w = sh.pad_rows(idx, n_sh), sh.pad_rows(w, n_sh)
+        if fused:
+            self_rows = sh.pad_rows(self_rows, n_sh)
+            w_self = sh.pad_rows(w_self, n_sh)
+    _device_of(feats)
+    out = _AggSharded.apply(feats, idx, w, self_rows, w_self, mesh, rev)
+    return out[:b] if out.shape[0] != b else out
+
+
+class _AggBatchSharded(torch.autograd.Function):
+    """The mini-batch twin (reference ``_agg_batch_sharded``): each
+    shard flattens its ``[b_loc, K, D]`` block of an already-gathered
+    fan-out level to a ``[b_loc·K, D]`` table with identity ids; no
+    collective in either direction."""
+
+    @staticmethod
+    def forward(ctx, w, h_nb, h_self, w_self, mesh):
+        from repro_torch import sharding as sh
+        outs = []
+        for s, (w_s, nb_s, sr_s, ws_s) in enumerate(
+                _shard_blocks(mesh, w, h_nb, h_self, w_self)):
+            table, ids = _identity_table(nb_s)
+            _check_kernel_args(table, ids, w_s, sr_s, ws_s)
+            outs.append(_forward("tiled", table, ids, w_s, sr_s, ws_s))
+        ctx.save_for_backward(w, h_nb, h_self, w_self)
+        ctx.mesh = mesh
+        return sh.unshard_rows(outs, h_nb.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch import sharding as sh
+        w, h_nb, h_self, w_self = ctx.saved_tensors
+        fused = h_self is not None
+        need_w, need_nb, need_s, need_ws, _ = ctx.needs_input_grad
+        need = (need_nb, need_w, need_s and fused, need_ws and fused)
+        grads = []
+        for w_s, nb_s, sr_s, ws_s, g_s in _shard_blocks(
+                ctx.mesh, w, h_nb, h_self, w_self, g.contiguous()):
+            table, ids = _identity_table(nb_s)
+            dt, dw, dsr, dws = _grads(table, ids, w_s, g_s, sr_s, ws_s,
+                                      need, None)
+            grads.append((dw, None if dt is None else dt.reshape(
+                nb_s.shape), dsr, dws))
+
+        def rows(j):
+            if grads[0][j] is None:
+                return None
+            return sh.unshard_rows([gr[j] for gr in grads], h_nb.device)
+        return rows(0), rows(1), rows(2), rows(3), None
+
+
+def _identity_table(nb):
+    """``nb`` [b, K, D] as a [b·K, D] table and its identity ids [b, K]."""
+    b, k, d = nb.shape
+    ids = torch.arange(b * k, dtype=torch.int32,
+                       device=nb.device).reshape(b, k)
+    return nb.reshape(b * k, d), ids
+
+
+def neighbor_agg_batch_sharded(w, h_nb, h_self=None, w_self=None, *, mesh):
+    """The tiled kernel's weighted sum over an ALREADY-GATHERED fan-out
+    level (``h_nb [B, K, D]``, ``w [B, K]`` [+ fused ``h_self [B, D]`` /
+    ``w_self [B]``]) with the target rows split over the NODES shards
+    (reference ``neighbor_agg_batch_sharded``).  B must be a multiple of
+    the shard count (the sharded mini-batch source rounds b up at bind,
+    and fan-out products keep every level divisible).  With one shard
+    this is bit-equal to the unsharded mini-batch kernel path."""
+    fused = h_self is not None
+    if fused != (w_self is not None):
+        raise ValueError("h_self and w_self must be passed together")
+    from repro_torch import sharding as sh
+    n_sh = sh.nodes_shards(mesh)
+    if w.shape[0] % n_sh:
+        raise ValueError(
+            f"neighbor_agg_batch_sharded: B={w.shape[0]} must be a "
+            f"multiple of the {n_sh} NODES shards (the sharded sources "
+            f"round b up to a mesh multiple at bind)")
+    _device_of(h_nb)
+    return _AggBatchSharded.apply(w.contiguous(), h_nb.contiguous(),
+                                  h_self, w_self, mesh)
+
+
+# -- NODES-sharded feature table + degree-ordered hot cache -----------------
+# Kept in its own module; re-exported so callers keep one import surface
+# for every neighbor-agg front end (as the reference does).
+from repro_torch.kernels.neighbor_agg.featshard import (  # noqa: E402
+    FeatShardPlan, build_featshard_plan, neighbor_agg_featshard,
+    resolve_cache_rows)

@@ -38,16 +38,18 @@ CSR_BF16_ROW_TOL = 2.0 ** -8
 FWD_ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
 
 
-def neighbor_agg_ref(feats, idx, w, self_rows=None, w_self=None):
+def neighbor_agg_ref(feats, idx, w, self_rows=None, w_self=None,
+                     out_dtype=None):
     """feats [N, D]; idx [B, K] int32/int64; w [B, K] (0 = padding);
-    optional self_rows [B, D] + w_self [B]."""
+    optional self_rows [B, D] + w_self [B]; the sum cast to
+    ``out_dtype`` (``feats.dtype`` when None)."""
     b, k = idx.shape
     gathered = torch.index_select(feats, 0, idx.reshape(-1)).reshape(
         b, k, feats.shape[1])                                # [B, K, D]
     acc = torch.einsum("bk,bkd->bd", w.float(), gathered.float())
     if self_rows is not None:
         acc = w_self.float()[:, None] * self_rows.float() + acc
-    return acc.to(feats.dtype)
+    return acc.to(feats.dtype if out_dtype is None else out_dtype)
 
 
 def neighbor_agg_backward_ref(feats, idx, w, g, self_rows=None,

@@ -84,6 +84,31 @@ def test_kernel_matches_plain_version(cuda, n, d, b, k, dtype, tol, fused):
                                atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("n,d,b,k", [(4096, 128, 1000, 32),
+                                     (4096, 172, 777, 32)])
+def test_f32_output_kernel_matches_plain_version(cuda, n, d, b, k, fused):
+    """A bf16 table with f32 self_rows / w_self / out (the featshard
+    phases): within 1e-5 of the plain version's f32 sum, and rounded to
+    bf16 bit-equal to the bf16 launch (one accumulation chain); direct
+    route only."""
+    bf, f32 = torch.bfloat16, torch.float32
+    arrays = [torch.tensor(a, device=cuda)
+              for a in _inputs(3, n, d, b, k, fused)]
+    feats, idx, w = arrays[0].to(bf), arrays[1], arrays[2].to(bf)
+    rest = [a.to(bf) for a in arrays[3:]]
+    rest32 = [r.float() for r in rest]
+    ops.reset_launches()
+    got = ops._forward("tiled", feats, idx, w, *rest32, out_dtype=f32)
+    assert got.dtype == f32 and ops.launch_counts()["tiled_direct"] == 1
+    want = neighbor_agg_ref(feats.float(), idx, w.float(), *rest32)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got.to(bf),
+                       ops._forward("tiled", feats, idx, w, *rest))
+    with ops._tiled_route("slab"), pytest.raises(ValueError):
+        ops._forward("tiled", feats, idx, w, *rest32, out_dtype=f32)
+
+
 def test_kernel_rejects_mixed_devices(cuda):
     feats, idx, w = (torch.tensor(a) for a in _inputs(0, 10, 8, 4, 3, False))
     with pytest.raises(ValueError, match="one device"):
@@ -794,3 +819,184 @@ def test_fig6_kernel_switch_matches_plain_on_the_card(cuda, tmp_path,
         for key in ("first_loss", "final_loss"):
             assert a[key] == pytest.approx(b[key], rel=1e-3), (key, a, b)
         assert abs(a["test_acc"] - b["test_acc"]) <= share
+
+
+# ---------------------------------------------------------------------------
+# the NODES-sharded ops and sources, S shards on one card
+# ---------------------------------------------------------------------------
+
+def _card_mesh(cuda, s):
+    from repro_torch import sharding as sh
+    return sh.node_mesh(devices=(cuda,) * s)
+
+
+def _sharded_case(cuda, fused, dtype=torch.bfloat16, n=4096, k=16, d=128,
+                  seed=9):
+    """A square ELL (B = N) with 30 % zero weights and its reverse
+    indexes: ``(feats, idx, w, extra, rev)``."""
+    rng = np.random.default_rng(seed)
+    feats = torch.tensor(rng.normal(size=(n, d)), dtype=dtype, device=cuda)
+    idx = torch.tensor(rng.integers(0, n, size=(n, k)), dtype=torch.int32,
+                       device=cuda)
+    w = torch.tensor(rng.random((n, k)) * (rng.random((n, k)) > 0.3),
+                     dtype=dtype, device=cuda)
+    extra = []
+    if fused:
+        extra = [torch.tensor(rng.normal(size=(n, d)), dtype=dtype,
+                              device=cuda),
+                 torch.tensor(rng.random(n), dtype=dtype, device=cuda)]
+    return feats, idx, w, extra
+
+
+def _fwd_bwd(fn, feats, w, extra):
+    args = [t.clone().requires_grad_() for t in [feats, w] + extra]
+    out = fn(*args)
+    g = torch.ones_like(out)
+    return out.detach(), torch.autograd.grad(out, args, g)
+
+
+@pytest.mark.parametrize("model", ["graphsage", "gcn", "gat"])
+def test_plain_fullgraph_grads_repeat_bit_for_bit_on_the_card(cuda, model):
+    """The plain full-graph path (no kernel; GAT always) repeats its
+    gradients bit for bit on the card, as exact resume needs: every row
+    of a hub graph points at one of four rows, so a gather gradient that
+    added with atomics would sum those rows in a new order each call."""
+    rng = np.random.default_rng(0)
+    n, k, feat = 4096, 16, 64
+    idx = torch.tensor(rng.integers(0, 4, size=(n, k)), dtype=torch.int32,
+                       device=cuda)
+    w = torch.tensor(rng.random(size=(n, k)), dtype=torch.float32,
+                     device=cuda)
+    w_self = torch.tensor(rng.random(size=n), dtype=torch.float32,
+                          device=cuda)
+    feats = torch.tensor(rng.normal(size=(n, feat)), dtype=torch.float32,
+                         device=cuda)
+    cfg = GNNConfig(name="det", model=model, n_nodes=n, feat_dim=feat,
+                    hidden=32, n_classes=8, n_layers=2, fanout=(4, 4),
+                    batch_size=32, use_agg_kernel=False)
+    params = G.init_gnn(torch.Generator().manual_seed(0), cfg, feat,
+                        device=cuda)
+    leaves = [v.requires_grad_() for p in params for v in p.values()]
+    labels = torch.arange(n, device=cuda) % cfg.n_classes
+
+    def grads():
+        logits = G.full_graph_forward(params, cfg, feats, idx, w, w_self)
+        loss = G.gnn_loss(logits, labels, "ce", cfg.n_classes)
+        return torch.autograd.grad(loss, leaves)
+
+    first = grads()
+    for _ in range(4):
+        for a, b in zip(first, grads()):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("shards", [1, 4])
+def test_sharded_op_on_the_card(cuda, shards, fused):
+    """One tiled launch per shard (and a reverse-index backward per
+    shard); at S = 1 bit-equal to the unsharded kernel path with its
+    reverse index, forward and gradients; at S = 4 the forward
+    bit-equal (each row is the same sum) and the gradients within 2e-2
+    (bf16: the table gradient is summed over shards)."""
+    feats, idx, w, extra = _sharded_case(cuda, fused)
+    rev1 = ops.build_reverse_index(idx, w, feats.shape[0])
+    base, gb = _fwd_bwd(lambda f, ww, *r: neighbor_agg(
+        f, idx, ww, *r, use_kernel=True, rev=rev1), feats, w, extra)
+    mesh = _card_mesh(cuda, shards)
+    rev = ops.build_sharded_reverse_index(idx, w, feats.shape[0], mesh)
+    ops.reset_launches()
+    out, gs = _fwd_bwd(lambda f, ww, *r: ops.neighbor_agg_sharded(
+        f, idx, ww, *r, mesh=mesh, rev=rev), feats, w, extra)
+    n = ops.launch_counts()
+    assert n["tiled"] == shards and n["backward_csr"] == shards, n
+    assert torch.equal(out, base)
+    for a, b in zip(gs, gb):
+        if shards == 1:
+            assert torch.equal(a, b)
+        rel = float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max())
+        assert rel <= 2e-2, rel
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_batch_sharded_op_on_the_card(cuda, shards):
+    rng = np.random.default_rng(2)
+    b, k, d = 256, 10, 128
+    nb = torch.tensor(rng.normal(size=(b, k, d)), dtype=torch.float32,
+                      device=cuda)
+    w = torch.tensor(rng.random((b, k)), dtype=torch.float32, device=cuda)
+    ids = torch.arange(b * k, dtype=torch.int32, device=cuda).reshape(b, k)
+    base = neighbor_agg(nb.reshape(-1, d), ids, w, use_kernel=True)
+    ops.reset_launches()
+    out = ops.neighbor_agg_batch_sharded(w, nb, mesh=_card_mesh(cuda, shards))
+    assert ops.launch_counts()["tiled"] == shards
+    assert torch.equal(out, base)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("shards", [1, 4])
+def test_featshard_op_on_the_card(cuda, shards, fused):
+    """S = 1: bit-equal to the unsharded kernel path with its reverse
+    index (no miss, phase 1 only); S = 4: phase 2 launches on the card,
+    the forward within 2e-2 of the plain version (bf16), the gradients
+    within 2e-2 of the unsharded kernel path's."""
+    from repro_torch.kernels.neighbor_agg import featshard as fs
+    feats, idx, w, extra = _sharded_case(cuda, fused, seed=3)
+    idx_h, w_h = idx.cpu().numpy(), w.float().cpu().numpy()
+    degrees = np.bincount(idx_h.reshape(-1), minlength=feats.shape[0])
+    plan = fs.build_featshard_plan(idx_h, w_h, degrees,
+                                   _card_mesh(cuda, shards))
+    rev1 = ops.build_reverse_index(idx, w, feats.shape[0])
+    base, gb = _fwd_bwd(lambda f, ww, *r: neighbor_agg(
+        f, idx, ww, *r, use_kernel=True, rev=rev1), feats, w, extra)
+    fs.reset_launches()
+    out, gs = _fwd_bwd(lambda f, ww, *r: fs.neighbor_agg_featshard(
+        f, ww, plan, *r), feats, w, extra)
+    n = fs.launch_counts()
+    assert n["phase1"] == shards
+    assert n["phase2"] == (shards if plan.M else 0) and \
+        (shards == 1) == (plan.M == 0), (n, plan.M)
+    if shards == 1:
+        assert torch.equal(out, base)
+        for a, b in zip(gs, gb):
+            assert torch.equal(a, b)
+        return
+    want = neighbor_agg_ref(feats.float(), idx, w.float(),
+                            *[t.float() for t in extra])
+    assert torch.allclose(out.float(), want, atol=2e-2, rtol=2e-2)
+    nz = w != 0
+    for i, (a, b) in enumerate(zip(gs, gb)):
+        if i == 1:
+            a, b = a[nz], b[nz]
+        rel = float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max())
+        assert rel <= 2e-2, (i, rel)
+
+
+@pytest.mark.parametrize("layout", ["replicated", "sharded"])
+def test_sharded_sources_on_the_card(cuda, layout):
+    """Three steps: at S = 1 the sharded sources' losses bit-equal to the
+    unsharded sources'; at S = 4 the full-graph source launches each
+    kernel four times as often (replicated table), and both give finite
+    losses that repeat bit for bit from the seed."""
+    E, g, cfg = _sources_case()
+    cfg = dataclasses.replace(cfg, dtype="bfloat16", feats_layout=layout)
+    plan = E.TrainPlan(lr=0.3, n_iters=3, eval_every=2, seed=0)
+
+    def run(src):
+        ops.reset_launches()
+        res = E.Trainer(g, cfg, plan, source=src, device=cuda).run()
+        return res.history.losses, ops.launch_counts()
+    fg, n_fg = run(E.FullGraphSource(max_deg=16))
+    mb, _ = run(E.SampledSource(batch_size=256))
+    m1, m4 = _card_mesh(cuda, 1), _card_mesh(cuda, 4)
+    assert run(E.ShardedFullGraphSource(max_deg=16, mesh=m1))[0] == fg
+    assert run(E.ShardedSampledSource(batch_size=256, mesh=m1))[0] == mb
+    l4, n4 = run(E.ShardedFullGraphSource(max_deg=16, mesh=m4))
+    assert np.isfinite(l4).all()
+    assert run(E.ShardedFullGraphSource(max_deg=16, mesh=m4))[0] == l4
+    if layout == "replicated":
+        assert n4["tiled"] == 4 * n_fg["tiled"], (n4, n_fg)
+        assert n4["backward_csr"] == 4 * n_fg["backward_csr"], (n4, n_fg)
+    lm4, _ = run(E.ShardedSampledSource(batch_size=256, mesh=m4))
+    assert np.isfinite(lm4).all()

@@ -7,9 +7,10 @@ CLI draws its own in each package), so no loss is compared here:
 ``tests/test_torch_train.py`` holds ``sweep``'s numbers to the
 reference's.  Also: ``--sources cluster importance`` gives the
 reference's grid points, ``--journal`` skips completed points on a rerun,
-the unported sharded sources and layout raise ``NotImplementedError``
-naming their slice, and without ``--device`` the CLI asks for the
-card."""
+the sharded sources and the feature-sharded layout give the reference's
+grid points (the port's mesh is the one CPU device under ``--device
+cpu``, as the reference's is one CPU device here), and without
+``--device`` the CLI asks for the card."""
 import io
 import json
 import math
@@ -107,16 +108,28 @@ def test_cli_journal_skips_completed_points(tmp_path, monkeypatch):
     assert rows[:2] == [x["row"] for x in lines[:2]]
 
 
-@pytest.mark.parametrize("extra,slice_", [
-    (["--sources", "minibatch", "minibatch_sharded"], "slice 4"),
-    (["--sources", "fullgraph_sharded"], "slice 4"),
-    (["--feats-layout", "sharded", "--kernel"], "slice 4"),
+@pytest.mark.parametrize("extra,paradigms", [
+    (["--sources", "minibatch", "minibatch_sharded"],
+     {"fullgraph", "minibatch", "minibatch_sharded"}),
+    (["--sources", "fullgraph_sharded"], {"fullgraph", "fullgraph_sharded"}),
+    (["--feats-layout", "sharded", "--kernel", "--sources",
+      "minibatch_sharded", "fullgraph_sharded"],
+     {"fullgraph", "minibatch_sharded", "fullgraph_sharded"}),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, extra,
-                                        slice_):
+                                        paradigms):
+    """The paths this test once found refused (the sharded sources and
+    the feature-sharded layout) run: the reference's grid points, row
+    schema and JSON line."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=slice_):
-        TX.main(ARGV + ["--device", "cpu"] + extra)
+    want, want_line = _run(RX.main, ARGV + extra)
+    got, line = _run(TX.main, ARGV + ["--device", "cpu"] + extra)
+    assert [tuple(r[k] for k in POINT) for r in got] == \
+        [tuple(r[k] for k in POINT) for r in want]
+    assert [list(r) for r in got] == [list(r) for r in want]
+    assert {r["paradigm"] for r in got} == paradigms
+    assert all(math.isfinite(r["final_loss"]) for r in got)
+    assert line.keys() == want_line.keys()
     assert not (tmp_path / "sweep.jsonl").exists()
 
 

@@ -1,6 +1,8 @@
 """The port stands alone: every ``repro_torch`` module (the figure
 layer's named: the experiment CLI, theory, wasserstein and the eleven
-``repro_torch.bench`` modules) and ``chip_smoke.py`` import without
+``repro_torch.bench`` modules; the sharded paradigms' named: the NODES
+mesh, the feature-sharded table and its host caches) and
+``chip_smoke.py`` import without
 pulling in ``jax``, the reference package ``repro`` or the reference's
 ``benchmarks`` (checked in a fresh interpreter, so nothing this test
 process already imported can hide a dependency)."""
@@ -27,7 +29,11 @@ figures = ["repro_torch.core.experiment", "repro_torch.core.theory",
         "bench_fig5_iter_to_acc", "bench_fig6_throughput",
         "bench_table1_tuned", "bench_thm3_wasserstein",
         "bench_theory_slopes")]
-missing = sorted(set(figures) - set(names))
+sharded = ["repro_torch.sharding", "repro_torch.core.featcache",
+           "repro_torch.kernels.neighbor_agg.featshard",
+           "repro_torch.kernels.neighbor_agg.ops", "repro_torch.core.engine",
+           "repro_torch.core.inference", "repro_torch.core.embedding_store"]
+missing = sorted(set(figures + sharded) - set(names))
 assert not missing, missing
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro", "benchmarks") or m.startswith(

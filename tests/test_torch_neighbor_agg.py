@@ -318,3 +318,43 @@ def test_kernel_path_rejects_what_the_kernel_does_not_take(bad):
         args[3] = sr[:, :8].contiguous()
     with pytest.raises(ValueError):
         neighbor_agg(*args, use_kernel=True)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_f32_output_of_a_bf16_table_is_the_unrounded_sum(fused):
+    """A bf16 table with an f32 output (the featshard phases' partial
+    sums): the f32 sum of the bf16 values, which rounds to the bf16
+    output bit for bit."""
+    arrays = _inputs(5, 40, 24, 9, 5, fused=fused)
+    bf, f32 = torch.bfloat16, torch.float32
+    feats, idx, w = (torch.tensor(arrays[0]).to(bf), torch.tensor(arrays[1]),
+                     torch.tensor(arrays[2]).to(bf))
+    rest = [torch.tensor(a).to(bf) for a in arrays[3:]]
+    rest32 = [r.float() for r in rest]
+    ops._check_kernel_args(feats, idx, w, *(rest32 or [None, None]),
+                           out_dtype=f32)
+    got = ops._forward("tiled", feats, idx, w, *rest32, out_dtype=f32)
+    assert got.dtype == f32
+    want = neighbor_agg_ref(feats.float(), idx, w.float(), *rest32)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert torch.equal(got.to(bf),
+                       ops._forward("tiled", feats, idx, w, *rest))
+
+
+@pytest.mark.parametrize("bad", ["f32_table_bf16_out", "self_rows_bf16",
+                                 "w_self_bf16"])
+def test_f32_output_takes_f32_epilogue_operands_only(bad):
+    feats, idx, w, sr, ws = (torch.tensor(a) for a in
+                             _inputs(6, 20, 16, 6, 3, fused=True))
+    bf = torch.bfloat16
+    out_dtype = torch.float32
+    if bad == "f32_table_bf16_out":
+        out_dtype = bf
+    else:
+        feats, w = feats.to(bf), w.to(bf)
+        if bad == "self_rows_bf16":
+            sr = sr.to(bf)
+        else:
+            ws = ws.to(bf)
+    with pytest.raises(ValueError):
+        ops._check_kernel_args(feats, idx, w, sr, ws, out_dtype=out_dtype)

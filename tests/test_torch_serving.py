@@ -334,14 +334,29 @@ def test_chip_smoke_rehearsal_on_cpu():
     cluster = sorted(x for x in tiled["by_shape"]
                      if x.startswith("cluster_batch_"))
     assert [x[x.rindex("_"):] for x in cluster] == ["_d128", "_d172"]
-    assert set(tiled["by_shape"]) - set(cluster) == {
+    # phase 12: one shard's shapes (the full-graph shard, featshard's
+    # phase 1, the mini-batch levels at b/S)
+    shard = sorted(x for x in tiled["by_shape"] if x.startswith(
+        ("fullgraph_shard_", "featshard_", "minibatch_shard_")))
+    assert [x[:x.index("_n") if "_n" in x else x.index("_b")]
+            for x in shard] == ["featshard_phase1", "fullgraph_shard",
+                                "fullgraph_shard", "minibatch_shard",
+                                "minibatch_shard", "minibatch_shard"]
+    assert set(tiled["by_shape"]) - set(cluster) - set(shard) == {
         "fullgraph_d128", "fullgraph_d172", "serving_chunk_d128",
         "serving_chunk_d172", "minibatch_l1_hop0", "minibatch_l1_hop1",
         "minibatch_l2_hop0"}
-    assert [x[x.rindex("_"):] for x in csr["by_shape"]] == ["_d172"]
-    assert set(fused["by_shape"]) == {"gcn_l1_d128", "gcn_l2_d172"}
+    assert [x[x.rindex("_"):] for x in csr["by_shape"]] == ["_d172"] * 2
+    assert any(x.startswith("fullgraph_shard_") for x in csr["by_shape"])
+    phase2 = set(fused["by_shape"]) - {"gcn_l1_d128", "gcn_l2_d172"}
+    assert len(phase2) == 1 and phase2.pop().startswith("featshard_phase2")
     for m in [tiled, fused, *tiled["by_shape"].values(),
               *fused["by_shape"].values()]:
+        if m["shape"].startswith("bf16 table, f32 sum: featshard"):
+            # a featshard phase: its f32 sum has the direct route only
+            assert "routes" not in m
+            assert m["row_rel_err"] <= m["row_check_limit"] == 1e-5
+            continue
         assert {"slab", "direct"} <= set(m["routes"])
         assert max(m["row_rel_err_by_route"].values()) <= \
             m["row_check_limit"]
@@ -363,5 +378,9 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert set(tiled["sources"]) == {"slab", "direct"}
     assert set(tiled["launches_by_path_and_route"]) == {
         "train_fullgraph", "train_minibatch", "train_cluster",
-        "train_importance", "serve", "gcn_serve"}
+        "train_importance", "serve", "gcn_serve",
+        "train_fullgraph_sharded_s1", "train_featshard_s1",
+        "train_minibatch_sharded_s1", "train_fullgraph_sharded_s4",
+        "train_featshard_s4", "train_minibatch_sharded_s4",
+        "serve_featshard_s4"}
     assert tiled["l2_table_sweep"]

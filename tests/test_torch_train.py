@@ -285,18 +285,20 @@ def test_launch_train_defaults_to_the_card():
 
 
 def test_engine_refuses_slice3_features(graphs):
-    """What slice 3 ported (checkpoints, rollback, resume, the cluster and
-    importance sources, the journal) no longer raises; the sharded
-    sources of slice 4 still do."""
+    """What the engine once refused now runs: checkpoints, rollback,
+    resume, the cluster and importance sources, the journal, and the
+    sharded sources (here on the CPU device's one-shard mesh)."""
     _, tg = graphs
     cfg = GNNConfig(**_kw(tg))
-    for paradigm in ("minibatch_sharded", "fullgraph_sharded"):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            TX.make_source(paradigm)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        TX.sweep(tg, cfg, TE.TrainPlan(n_iters=1), batch_sizes=[8],
-                 fanout_grid=[2], sources=["minibatch_sharded"],
-                 device="cpu")
+    assert type(TX.make_source("minibatch_sharded")) is \
+        TE.ShardedSampledSource
+    assert type(TX.make_source("fullgraph_sharded")) is \
+        TE.ShardedFullGraphSource
+    rows = TX.sweep(tg, cfg, TE.TrainPlan(n_iters=1), batch_sizes=[8],
+                    fanout_grid=[2], sources=["minibatch_sharded"],
+                    device="cpu")
+    assert [r["paradigm"] for r in rows] == ["minibatch_sharded"]
+    assert np.isfinite(rows[0]["final_loss"])
     assert TE.BadStepPolicy(on_bad="rollback").needs_ckpt()
     assert type(TX.make_source("cluster")) is TE.ClusterSource
     assert type(TX.make_source("importance")) is TE.ImportanceSampledSource

@@ -228,6 +228,31 @@ or of the reference package ``repro``.
    and to 4 significant bits, a control the limit must refuse; each
    build against an f32 witness).  Each ms/step line names the card and
    its power limit.
+13. LM training and the dry-run against the card.  (a) stablelm-1.6b at
+   full width and depth (bf16 compute, f32 master weights and AdamW
+   state, every layer checkpointed) through ``launch/train.py``'s
+   ``train_lm``: batch 8 at sequence 4096 (train_4k's sequence, its
+   global batch of 256 cut to 8 for one card), ``microbatches_for``'s 4
+   micro-batches, 20 steps of ``adamw(3e-3)`` on ``token_batches``:
+   losses finite, the mean of the last 3 below the first, no kernel
+   launched (training attends through the chunked path); ms/step by
+   CUDA events, tokens/s, ``max_memory_allocated``; then one step with
+   1 and with 2 micro-batches on one batch (the default optimizer):
+   loss within 1e-4 relative, parameters within 5e-3.  (b) ``python -m
+   repro_torch.launch.dryrun`` for gnn-papers100m's two GNN shapes at
+   its full n, stablelm-1.6b train_4k and gemma3-12b prefill_32k and
+   decode_32k: every record ``ok``; the full-graph record beside the
+   plain path's.  (c) the dry-run at the sizes the card runs against
+   one measured step (the peak with the arguments resident): the
+   full-graph step at the shared graph's n with the reverse index, the
+   mini-batch step at b = 8192, fan-out (15, 10), and (a)'s step, each
+   ``device_bytes_total`` within [0.8, 1.25] of the measured peak, its
+   time beside ``bound_s``, the traced kernel calls equal to the
+   launches; the steps on meta copies of their arguments (the kernels'
+   shape-only stand-ins) give outputs of the real steps' shapes and
+   dtypes, and so does every kernel entry.  (d) the reading of
+   ``tests/test_torch_cuda.py::test_prefill_launches_wgmma_kernel_once_per_layer``
+   with seeded tokens: three times with seed 0, then for 16 seeds.
 
 Every failed check raises.  The last stdout line is
 ``{"ok": true, "device": {...}}``; the line before it names the card and
@@ -239,6 +264,7 @@ its own, ``neighbor_agg_tiled_slab``, at the full-graph shape of layer 1.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import functools
@@ -248,6 +274,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -258,6 +285,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves, tree_map_only
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -285,13 +313,22 @@ from repro_torch.kernels.neighbor_agg import featshard as FS  # noqa: E402
 from repro_torch.kernels.neighbor_agg import ops  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import steps  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.data.synth import token_batches  # noqa: E402
+from repro_torch.launch import dryrun as DR  # noqa: E402
+from repro_torch.launch import gnn_steps  # noqa: E402
+from repro_torch.launch import roofline as R  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.kernels.neighbor_agg.ref import (  # noqa: E402
     CSR_BF16_ROW_TOL, FWD_ROW_TOL, neighbor_agg_backward_csr_ref,
     neighbor_agg_backward_ref, neighbor_agg_ref)
+# the card's peak rates and the kernels' byte and operation model: the
+# kernel table's bounds and the dry-run's kernel bytes come from one place
+from repro_torch.kernels.cost import (  # noqa: E402,F401
+    BF16_FLOPS_PER_S, F32_FLOPS_PER_S, HBM_BYTES_PER_S, bound, bound_bwd,
+    bound_bwd_csr, flash_bound)
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
-F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # gradients: dfeats sums with f32 atomics in no fixed order (f32); one
 # rounding of each cotangent to bf16 (bf16)
@@ -370,6 +407,13 @@ class Sizes:
     sh_fg_steps: int = 5           # full-graph runs
     sh_mb_steps: int = 10          # mini-batch runs
     sh_queries: int = 64           # queries to the featshard store
+    # phase 13: LM training (stablelm-1.6b, train_4k's sequence, its
+    # global batch 256 cut to 8 for one card)
+    lt_arch: str = "stablelm-1.6b"
+    lt_smoke: bool = False
+    lt_b: int = 8
+    lt_s: int = 4096
+    lt_steps: int = 20
 
 
 FULL = Sizes()
@@ -381,7 +425,8 @@ TINY = Sizes(agg_n=600, agg_b=300, sweep_n=(64, 128), n_serve=3_000,
              lm_smoke=True, lm_s=128,
              lm_gen=4, lm_tf=3, fig_n=160, fig_iters=4, fw_bs=(16, 64),
              fw_steps=4, fw_eval=2, cl_steps=4, im_steps=4, repeat_steps=2,
-             sh_fg_steps=3, sh_mb_steps=3, sh_queries=8)
+             sh_fg_steps=3, sh_mb_steps=3, sh_queries=8, lt_smoke=True,
+             lt_b=4, lt_s=128, lt_steps=4)
 
 
 def check(cond, msg: str) -> None:
@@ -430,54 +475,6 @@ def time_ms(fn, dev: torch.device, iters: int, warmup: int = 3,
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def bound(feats, idx, self_rows, out_el=None) -> tuple:
-    """The least time for one call: the bytes it must move (each distinct
-    referenced feature row, idx, w, out and, fused, self_rows + w_self,
-    once each) over the HBM rate, against its f32 multiply-adds over the
-    f32 rate.  ``out_el``: the bytes of an output (and self_rows /
-    w_self) element, feats' own when None.  Returns (ms, "bytes" |
-    "operations", bytes)."""
-    b, k = idx.shape
-    d = feats.shape[1]
-    el = feats.element_size()
-    oel = el if out_el is None else out_el
-    rows = int(torch.unique(idx).numel())
-    nbytes = rows * d * el + b * k * 4 + b * k * el + b * d * oel
-    flops = 2 * b * k * d
-    if self_rows is not None:
-        nbytes += b * d * oel + b * oel
-        flops += 2 * b * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes)
-
-
-def bound_bwd(feats, idx, g, self_rows, need) -> tuple:
-    """The least time for one backward call: g, idx and w read, the
-    distinct feature rows read (only when dw is asked for), dfeats and dw
-    written once (fused: self_rows and w_self read, dself and dw_self
-    written), over the HBM rate, against its f32 operations (2 per
-    element for dfeats, 2 for dw) over the f32 rate.  Returns (ms,
-    "bytes" | "operations", bytes)."""
-    b, k = idx.shape
-    n, d = feats.shape
-    el = feats.element_size()
-    nbytes = b * d * el + b * k * 4 + b * k * el
-    flops = 0
-    if need[0]:
-        nbytes += n * d * el
-        flops += 2 * b * k * d
-    if need[1]:
-        nbytes += int(torch.unique(idx).numel()) * d * el + b * k * el
-        flops += 2 * b * k * d
-    if self_rows is not None:
-        nbytes += 2 * b * d * el + 2 * b * el
-        flops += 3 * b * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
 def make_case(gen, dev, n, b, k, d, dtype, fused, zero=False):
@@ -787,20 +784,6 @@ def row_phase(dev, sz: Sizes) -> dict:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return measured
-
-
-def bound_bwd_csr(rev, d: int, el: int) -> tuple:
-    """The least time for one reverse-index backward call: g, the kept
-    edges' weights, indptr and edges read once, dfeats written once,
-    over the HBM rate, against its f32 multiply-adds (2 per kept edge
-    and column) over the f32 rate.  Returns (ms, "bytes" |
-    "operations", bytes)."""
-    nbytes = (rev.b * d * el + rev.nnz * el + (rev.n + 1) * 4
-              + rev.nnz * 4 + rev.n * d * el)
-    flops = 2 * rev.nnz * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
 def csr_dfeats(feats, idx, w, g, rev):
@@ -1631,23 +1614,6 @@ def gcn_phase(dev, sz: Sizes) -> dict:
     return dict(launches=launches, counts=counts, by_shape=by_shape)
 
 
-def flash_bound(b, s, hq, hkv, d, window, dtype) -> tuple:
-    """The least time for one flash-attention call: q, k, v and o moved
-    once (k and v at Hkv heads, as the kernel reads them) over the HBM
-    rate, against 4·D flops for each (query, key) pair the mask keeps over
-    the peak rate of the inputs' type (bf16 tensor cores, or f32).
-    Returns (ms, "bytes" | "operations", bytes, flops)."""
-    el = torch.empty((), dtype=dtype).element_size()
-    nbytes = (2 * hq + 2 * hkv) * b * s * d * el
-    w = window or s
-    pairs = w * (w + 1) // 2 + (s - w) * w if w < s else s * (s + 1) // 2
-    flops = 4 * b * hq * pairs * d
-    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
-
-
 def _plain_keep(q, k, v, keep):
     """The plain version's attention with any mask: ``keep[s, t]`` says
     query s attends to key t ([B, S, H, D], GQA repeated)."""
@@ -1935,7 +1901,7 @@ def lm_phase(dev, sz: Sizes) -> dict:
     params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
                           dev, dtype=M._dt(cfg))
     sync()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     print(f"lm: {cfg.name} {'smoke' if sz.lm_smoke else 'full'} config, "
           f"{n_params} parameters in {M._dt(cfg)} drawn on {dev} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -2080,17 +2046,6 @@ def check_plain(cfg, got, want, what) -> None:
           f"{err:.4g} (limit {LM_PLAIN_TOL[dt]})", flush=True)
     check(err <= LM_PLAIN_TOL[dt],
           f"prefill kernel vs plain rel err {err} beyond {LM_PLAIN_TOL[dt]}")
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (tuple, list)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 # ---------------------------------------------------------------------------
@@ -3577,6 +3532,493 @@ def sharded_phase(dev, sz: Sizes, graph) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: LM training and the dry-run against the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_OUT = "experiments/dryrun_torch/chip_smoke"
+# 13c: the dry-run's device_bytes_total against the measured peak
+PEAK_RATIO = (0.8, 1.25)
+# 13a: one step with 1 and with 2 micro-batches on one batch: the loss
+# and the parameters at the reference's own limits (tests/test_archs.py:
+# 89-105), each leaf's accumulated f32 gradient within 1e-3 of its
+# largest element
+MB_LOSS_RTOL = 1e-4
+MB_PARAM_TOL = 5e-3
+MB_GRAD_TOL = 1e-3
+# 13b: the dry-run CLI's combinations, one invocation each
+DRYRUN_CALLS = (["--arch", "gnn-papers100m"],
+                ["--arch", "stablelm-1.6b", "--shape", "train_4k"],
+                ["--arch", "gemma3-12b", "--shape", "prefill_32k",
+                 "--shape", "decode_32k"])
+KERNEL_KEYS = ("tiled_slab", "tiled_direct", "backward", "backward_csr",
+               "row")
+
+
+def lm_args(sz: Sizes, dev, mb: int) -> argparse.Namespace:
+    """``launch/train.py``'s arguments for the LM run of 13a."""
+    return argparse.Namespace(
+        arch=sz.lt_arch, smoke=sz.lt_smoke, steps=sz.lt_steps, batch=sz.lt_b,
+        seq=sz.lt_s, microbatches=mb, model_par=1, seed=0, log_every=5,
+        ckpt_every=0, ckpt_dir="", keep_last=0, device=str(dev))
+
+
+def lm_train(dev, sz: Sizes, tag: str) -> dict:
+    """13a: ``train_lm``'s code path at full width, then one step with 1
+    and with 2 micro-batches on one batch."""
+    cfg = get_config(sz.lt_arch, smoke=sz.lt_smoke)
+    if not sz.lt_smoke:
+        check(cfg.n_layers == 24 and cfg.d_model == 2048
+              and cfg.n_heads == 32 and cfg.d_ff == 5632
+              and cfg.vocab_size == 100_352 and cfg.dtype == "bfloat16"
+              and cfg.remat, f"unexpected stablelm-1.6b config {cfg}")
+    shape = InputShape("train_4k", "train", sz.lt_s, sz.lt_b)
+    mb = DR.microbatches_for(cfg, shape)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    fa.reset_launches()
+    # adamw(3e-3), as the reference's loss-falls test (tests/
+    # test_system.py:22): the default schedule's warm-up barely moves
+    # the loss in 20 steps
+    res = launch_train.train_lm(lm_args(sz, dev, mb), optimizer=adamw(3e-3))
+    run_s = time.perf_counter() - t0
+    # training attends through the reference model's chunked attention:
+    # no flash launch (its kernel has no backward), no aggregation
+    launches = {**ops.launch_counts(), **fa.launch_counts()}
+    check_launch(dev, not any(launches.values()),
+                 f"13a launched kernels: {launches}")
+    losses = res["losses"]
+    check(all(math.isfinite(x) for x in losses), f"13a losses {losses}")
+    check(np.mean(losses[-3:]) < losses[0],
+          f"13a: the loss did not fall: {losses}")
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    out = {"arch": cfg.name, "microbatches": mb, "losses": losses,
+           "run_s": run_s, "peak_bytes": peak, "launches": launches}
+    if res["step_ms"]:
+        ms = float(np.median(res["step_ms"][1:]))
+        out.update(step_ms=ms, tokens_per_s=sz.lt_b * sz.lt_s / ms * 1e3)
+        print(f"13a train_lm {cfg.name} b={sz.lt_b} s={sz.lt_s} "
+              f"microbatches={mb}: {ms:.2f} ms/step (median of steps "
+              f"2-{sz.lt_steps}, CUDA events), "
+              f"{out['tokens_per_s']:.0f} tokens/s, max_memory_allocated "
+              f"{peak} B, loss {losses[0]:.4f} -> {losses[-1]:.4f} ({tag})",
+              flush=True)
+
+    out["microbatch_check"] = microbatch_check(dev, cfg, sz, tag)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mb_readings(ref_grads, ref_params, ref_loss, grads, params, loss):
+    """(loss relative error, gradients: the largest leaf's max|a - b| /
+    max|b|, parameters: max|a - b|, parameters beyond MB_PARAM_TOL) of
+    one step against another."""
+    g_err = max(float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(tree_leaves(grads), tree_leaves(ref_grads))
+                if bool(b.any()))
+    p_diff = [(a - b).abs() for a, b in zip(tree_leaves(params),
+                                            tree_leaves(ref_params))]
+    return (abs(loss - ref_loss) / abs(ref_loss), g_err,
+            max(float(d.max()) for d in p_diff),
+            sum(int((d > MB_PARAM_TOL).sum()) for d in p_diff))
+
+
+def microbatch_check(dev, cfg, sz: Sizes, tag: str) -> dict:
+    """13a's check of gradient accumulation: one train step (``steps.
+    accumulate_grads``, then the optimizer's update, which is what
+    ``make_train_step``'s step does) with 1 and with 2 micro-batches on
+    one batch of b = 2, under ``adamw(3e-3)``, whose first update moves
+    each parameter by about 3e-3 times the sign of its gradient.  Held
+    in f32 (the arch at full width with f32 compute), where a planted
+    fault, the gradient of the last micro-batch alone, read the same way,
+    must fail the limits.  Under the arch's bf16 compute the reading is
+    printed, not held: the two gradients round apart, which flips the
+    sign of the first update for elements whose gradient is near 0, and
+    such a parameter moves 2 * 3e-3 apart, beyond the reference's
+    5e-3."""
+    hb = next(token_batches(cfg.vocab_size, 2, sz.lt_s, seed=0))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in hb.items()}
+    last = {k: v[1:] for k, v in batch.items()}
+    opt = adamw(3e-3)
+    limits = (MB_LOSS_RTOL, MB_GRAD_TOL, MB_PARAM_TOL)
+    readings = {}
+    for dtype, cases in (
+            ("float32", (("2 micro-batches", batch, 2),
+                         ("planted fault: last micro-batch alone", last,
+                          1))),
+            ("bfloat16", (("2 micro-batches", batch, 2),))):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        params = M.init_model(torch.Generator(device=dev).manual_seed(0),
+                              c, dev)
+
+        def step(b_, n_mb):
+            g, m = steps.accumulate_grads(params, c, b_, n_mb)
+            with torch.no_grad():
+                new_p = opt.update(g, opt.init(params), params)[0]
+            return g, new_p, float(m["loss"])
+        ref = step(batch, 1)
+        for name, b_, n_mb in cases:
+            got = step(b_, n_mb)
+            r = readings[f"{dtype}, {name}"] = _mb_readings(*ref, *got)
+            del got
+            print(f"13a microbatch check, {name} against 1 micro-batch "
+                  f"({dtype} compute, b=2, s={sz.lt_s}, adamw(3e-3)): loss "
+                  f"rel {r[0]:.4g}, gradients {r[1]:.4g}, parameters "
+                  f"{r[2]:.4g} ({r[3]} beyond {MB_PARAM_TOL}); limits "
+                  f"{limits}, {'held' if dtype == 'float32' else 'not held'}"
+                  f" ({tag})", flush=True)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        del params, ref
+    ok = readings["float32, 2 micro-batches"]
+    fault = readings["float32, planted fault: last micro-batch alone"]
+    check(all(x <= lim for x, lim in zip(ok, limits)),
+          f"13a microbatches 1 vs 2: {ok} against {limits}")
+    check(fault[1] > MB_GRAD_TOL and fault[2] > MB_PARAM_TOL,
+          f"13a: the planted fault passed the limits: {fault}")
+    return {"limits": limits, **{k: list(v) for k, v in readings.items()}}
+
+
+@contextlib.contextmanager
+def dryrun_started():
+    """13b's ``python -m repro_torch.launch.dryrun`` calls at the
+    production sizes (gnn-papers100m at its full n), one process each,
+    all started at once: they trace on the host's cores while 13a trains
+    on the card.  Yields (records directory, [(argv, process)]); on exit
+    kills any still running and removes the records."""
+    os.makedirs(DRYRUN_OUT, exist_ok=True)
+    out_dir = tempfile.mkdtemp(dir=DRYRUN_OUT)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"),
+         os.environ.get("PYTHONPATH", "")]))
+    procs = []
+    try:
+        for argv in DRYRUN_CALLS:
+            procs.append((argv, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+                 "--single-pod", "--out", out_dir], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, env=env)))
+        yield out_dir, procs
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.communicate()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def dryrun_cli(tag: str, out_dir: str, procs, t0: float) -> dict:
+    """13b: wait for ``dryrun_started``'s processes; every record ``ok``,
+    printed, and the full-graph one beside the plain path's."""
+    for argv, proc in procs:
+        _, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"13b dryrun {argv}: {err[-2000:]}")
+    secs = time.perf_counter() - t0
+    recs = {}
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name)) as f:
+            rec = json.load(f)
+        check(rec["status"] == "ok",
+              f"13b {name}: {rec.get('error')} {rec.get('traceback')}")
+        r = rec["roofline"]
+        print(f"13b dryrun {rec['arch']} {rec['shape']} {rec['mesh']}: "
+              f"device_bytes_total {rec['device_bytes_total']} B, "
+              f"fits_hbm {rec['fits_hbm']}, dominant {r['dominant']}, "
+              f"bound_s {r['bound_s']:.6g} (at the H100's published "
+              f"peaks; run beside {tag}; the trace ran on the host in "
+              f"{rec['compile_seconds']:.1f} s)", flush=True)
+        recs[f"{rec['arch']}__{rec['shape']}"] = {
+            k: rec[k] for k in ("device_bytes_total", "fits_hbm",
+                                "per_device_flops", "per_device_bytes",
+                                "memory", "roofline", "kernel_calls",
+                                "compile_seconds")}
+    want = {"gnn-papers100m__fullgraph_train",
+            "gnn-papers100m__minibatch_train", "stablelm-1.6b__train_4k",
+            "gemma3-12b__prefill_32k", "gemma3-12b__decode_32k"}
+    check(set(recs) == want, f"13b records {sorted(recs)}")
+    # the reference's choice (its kernel off, dryrun.py:140-147), for the
+    # record: the plain path materialises the [n, K, d] gather
+    plain = DR.dryrun_gnn("gnn-papers100m", "fullgraph_train",
+                          cfg=dataclasses.replace(
+                              get_config("gnn-papers100m"),
+                              use_agg_kernel=False))
+    kern = recs["gnn-papers100m__fullgraph_train"]["device_bytes_total"]
+    print(f"13b dryrun gnn-papers100m fullgraph_train on the plain path "
+          f"(use_agg_kernel=False): device_bytes_total "
+          f"{plain['device_bytes_total']} B against {kern} B on the kernel "
+          f"path (run beside {tag})", flush=True)
+    return {"records": recs, "seconds_since_start": secs,
+            "plain_fullgraph_bytes": plain["device_bytes_total"]}
+
+
+def measured_step(dev, step, args, reps: int) -> tuple:
+    """One ``step(*args)`` with the arguments resident: the step's peak
+    device bytes (the arguments' own plus what the step added above what
+    was allocated before it), the launch counts of both kernel packages,
+    and the mean device time of ``reps`` more steps (CUDA events)."""
+    ops.reset_launches()
+    fa.reset_launches()
+    if dev.type != "cuda":                       # the CPU rehearsal
+        step(*args)
+        return None, {**ops.launch_counts(), **fa.launch_counts()}, None
+    sync(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = step(*args)
+    sync(dev)
+    counts = {**ops.launch_counts(), **fa.launch_counts()}
+    peak = (torch.cuda.max_memory_allocated(dev) - before
+            + R.resident_bytes(args))
+    del out
+    ms = time_ms(lambda: step(*args), dev, reps, warmup=0) if reps else None
+    return peak, counts, ms
+
+
+def meta_of(tree):
+    """The tree with every tensor as a meta tensor of its shape and dtype
+    (no data); other leaves as they are."""
+    return tree_map_only(torch.Tensor,
+                         lambda t: torch.empty_like(t, device="meta"), tree)
+
+
+def prediction_line(label, pred, peak, ms, tag) -> dict:
+    """Print and hold one 13c comparison (the ratio on the card only: the
+    CPU rehearsal measures no device memory)."""
+    ratio = pred["device_bytes_total"] / peak if peak else None
+    r = pred["roofline"]
+    share = r["bound_s"] * 1e3 / ms if ms else None
+    print(f"13c {label}: dry-run device_bytes_total "
+          f"{pred['device_bytes_total']} B, measured peak {peak} B, ratio "
+          f"{ratio} (limits {PEAK_RATIO}); step {ms} ms (CUDA events) "
+          f"against bound_s {r['bound_s'] * 1e3:.4f} ms ({r['dominant']}), "
+          f"share {share} ({tag})", flush=True)
+    check(peak is None or PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1],
+          f"13c {label}: predicted {pred['device_bytes_total']} B against "
+          f"{peak} B measured")
+    return {"predicted_bytes": pred["device_bytes_total"],
+            "measured_peak_bytes": peak, "ratio": ratio, "step_ms": ms,
+            "bound_ms": r["bound_s"] * 1e3, "dominant": r["dominant"],
+            "bound_share": share, "kernel_calls": pred["kernel_calls"]}
+
+
+def gnn_checks(dev, sz: Sizes, graph, tag: str) -> dict:
+    """13c for the GNN: the full-graph step at the shared graph's n with
+    the reverse index, and the mini-batch step at b = mb_b, fan-out
+    mb_fanout, each predicted by the dry-run at the same sizes and
+    measured; the traced kernel calls against the real launches."""
+    cfg = papers_cfg(graph, sz)
+    out = {}
+    E.drop_device_cache(graph)
+    idx, w, w_self, feats, labels = E._device_ell(graph, cfg.max_degree,
+                                                  dev)
+    rev = ops.build_reverse_index(idx, w, graph.n)
+    gen = torch.Generator().manual_seed(0)
+    params = G.init_gnn(gen, cfg, cfg.feat_dim, dev)
+    opt, step = gnn_steps.make_fullgraph_step(cfg)
+    args = (params, opt.init(params), feats, idx, w, w_self,
+            labels.to(torch.int32), rev)
+    pred = DR.dryrun_gnn("gnn-papers100m", "fullgraph_train",
+                         cfg=dataclasses.replace(cfg, max_degree=idx.shape[1]))
+    peak, counts, ms = measured_step(dev, step, args, sz.path_iters)
+    out["fullgraph"] = prediction_line(
+        f"full-graph step n={graph.n} K={idx.shape[1]} (kernels, reverse "
+        f"index)", pred, peak, ms, tag)
+    out["fullgraph"]["launches"] = counts
+    check_launch(dev, all(counts[k] == pred["kernel_calls"].get(k, 0)
+                          for k in KERNEL_KEYS),
+                 f"13c full-graph: traced {pred['kernel_calls']} against "
+                 f"launched {counts}")
+    standins = {"fullgraph_step": standin_shapes(step, args)}
+    del args, rev, idx, w, w_self, feats, labels
+    E.drop_device_cache(graph)
+
+    b, (f1, f2), r = sz.mb_b, sz.mb_fanout, cfg.feat_dim
+    tg = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=tg, device=dev)
+    masks = [(rand(b, f1) > 0.2).float(), (rand(b, f1, f2) > 0.2).float()]
+    batch = ([torch.randn((b, r), generator=tg, device=dev),
+              torch.randn((b, f1, r), generator=tg, device=dev),
+              torch.randn((b, f1, f2, r), generator=tg, device=dev)],
+             masks, [m * rand(*m.shape) for m in masks],
+             [rand(b), rand(b, f1), rand(b, f1, f2)],
+             torch.randint(0, cfg.n_classes, (b,), generator=tg, device=dev,
+                           dtype=torch.int32))
+    opt, step = gnn_steps.make_minibatch_step(cfg)
+    args = (params, opt.init(params), *batch)
+    pred = DR.dryrun_gnn("gnn-papers100m", "minibatch_train", cfg=cfg)
+    peak, counts, ms = measured_step(dev, step, args, sz.path_iters)
+    out["minibatch"] = prediction_line(
+        f"mini-batch step b={b} fan-out {sz.mb_fanout}", pred, peak, ms, tag)
+    out["minibatch"]["launches"] = counts
+    check_launch(dev, all(counts[k] == pred["kernel_calls"].get(k, 0)
+                          for k in KERNEL_KEYS),
+                 f"13c mini-batch: traced {pred['kernel_calls']} against "
+                 f"launched {counts}")
+    standins["minibatch_step"] = standin_shapes(step, args)
+    out["standins"] = standins
+    return out
+
+
+def standin_shapes(step, args) -> dict:
+    """The step on meta copies of ``args`` (the stand-ins in place of the
+    kernels) against the step on the real ones: every output's shape and
+    dtype equal."""
+    real = step(*args)
+    meta_args = list(meta_of(args))
+    if isinstance(meta_args[-1], ops.ReverseIndex):
+        meta_args[-1] = ops.build_reverse_index(meta_args[3], meta_args[4],
+                                                meta_args[-1].n)
+    meta = step(*meta_args)
+    got = [(tuple(t.shape), t.dtype) for t in tree_leaves(meta)]
+    want = [(tuple(t.shape), t.dtype) for t in tree_leaves(real)]
+    check(got == want, f"stand-in step outputs {got} against {want}")
+    return {"outputs": len(want), "equal": True}
+
+
+def kernel_standins(dev, sz: Sizes) -> dict:
+    """Every kernel entry on shape-only copies of real inputs against its
+    launch on the card: output shapes and dtypes equal (the reverse
+    index's edges excepted: the stand-in keeps every edge)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, k = sz.agg_n, sz.agg_k
+    res = {}
+
+    def same(name, fn, *inputs):
+        real = fn(*inputs)
+        meta = fn(*meta_of(inputs))
+        got = [(tuple(t.shape), t.dtype) for t in tree_leaves(meta)
+               if t is not None]
+        want = [(tuple(t.shape), t.dtype) for t in tree_leaves(real)
+                if t is not None]
+        check(got == want, f"stand-in {name}: {got} against {want}")
+        res[name] = want
+    for d, dt in ((128, torch.bfloat16), (172, torch.bfloat16)):
+        feats = torch.randn((n, d), generator=gen, device=dev).to(dt)
+        idx = torch.randint(0, n, (n, k), generator=gen, device=dev,
+                            dtype=torch.int32)
+        w = torch.rand((n, k), generator=gen, device=dev).to(dt)
+        same(f"tiled_d{d}", lambda f, i, ww: ops.neighbor_agg(
+            f, i, ww, use_kernel=True), feats, idx, w)
+    sr = torch.randn((sz.agg_b, 172), generator=gen, device=dev)
+    ws = torch.rand((sz.agg_b,), generator=gen, device=dev)
+    f32 = torch.randn((n, 172), generator=gen, device=dev)
+    i32 = idx[:sz.agg_b].contiguous()
+    w32 = torch.rand((sz.agg_b, k), generator=gen, device=dev)
+    same("tiled_fused_f32", lambda f, i, ww, s_, ws_: ops.neighbor_agg(
+        f, i, ww, s_, ws_, use_kernel=True), f32, i32, w32, sr, ws)
+    same("row", lambda f, i, ww: ops.neighbor_agg(
+        f, i, ww, use_kernel=True, kernel="row"), f32, i32, w32)
+    g = torch.randn((sz.agg_b, 172), generator=gen, device=dev)
+    same("backward", lambda f, i, ww, gg, s_, ws_: ops.neighbor_agg_backward(
+        f, i, ww, gg, s_, ws_), f32, i32, w32, g, sr, ws)
+
+    def csr(f, i, ww, gg):
+        rev = ops.build_reverse_index(i, ww, f.shape[0])
+        return ops.neighbor_agg_backward(f, i, ww, gg, need=DFEATS, rev=rev)
+    same("backward_csr", csr, f32, i32, w32, g)
+    rev = ops.build_reverse_index(i32, w32, n)
+    mrev = ops.build_reverse_index(*meta_of((i32, w32)), n)
+    check(mrev.indptr.shape == rev.indptr.shape
+          and mrev.kept.shape == rev.kept.shape
+          and mrev.edges.shape[0] == i32.numel() >= rev.nnz,
+          "stand-in reverse index shapes")
+    for (b_, s_, hq, hkv, d), dt in ((sz.fa_shape, torch.bfloat16),
+                                     ((1, 256, 4, 2, 32), torch.float32)):
+        q = torch.randn((b_, s_, hq, d), generator=gen, device=dev).to(dt)
+        kk = torch.randn((b_, s_, hkv, d), generator=gen, device=dev).to(dt)
+        vv = torch.randn((b_, s_, hkv, d), generator=gen, device=dev).to(dt)
+        same(f"flash_{fa.kernel_route(dt, d)}_{str(dt)[6:]}",
+             lambda a, b2, c: fa.flash_attention(a, b2, c, use_kernel=True),
+             q, kk, vv)
+    sync(dev)
+    return res
+
+
+def lm_check(dev, sz: Sizes, tag: str, train: dict) -> dict:
+    """13c for 13a's step: the dry-run at the same batch, sequence and
+    micro-batches against one measured step."""
+    cfg = get_config(sz.lt_arch, smoke=sz.lt_smoke)
+    shape = InputShape("train_4k", "train", sz.lt_s, sz.lt_b)
+    pred = DR.dryrun_lm(sz.lt_arch, shape, cfg=cfg)
+    check(pred["microbatches"] == train["microbatches"],
+          "13c: the dry-run and 13a split the batch alike")
+    params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                          dev)
+    opt, step = steps.make_train_step(cfg, adamw(3e-3),
+                                      microbatches=pred["microbatches"])
+    hb = next(token_batches(cfg.vocab_size, sz.lt_b, sz.lt_s, seed=0))
+    args = (params, opt.init(params),
+            {k: torch.from_numpy(v).to(dev) for k, v in hb.items()})
+    peak, _, _ = measured_step(dev, step, args, 0)
+    out = prediction_line(
+        f"{cfg.name} train step b={sz.lt_b} s={sz.lt_s} microbatches="
+        f"{pred['microbatches']}", pred, peak, train.get("step_ms"), tag)
+    del args, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def prefill_readings(dev, tag: str = "", seeds=range(16),
+                     repeats: int = 3) -> dict:
+    """The reading of tests/test_torch_cuda.py::
+    test_prefill_launches_wgmma_kernel_once_per_layer (a bf16 gemma3-12b
+    smoke prefill at head dim 64, kernel against the plain path, relative
+    max error): tokens from generator seed 0 ``repeats`` times, then one
+    reading per token seed in ``seeds``."""
+    cfg = dataclasses.replace(get_config("gemma3-12b", smoke=True),
+                              dtype="bfloat16", head_dim=64)
+    params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                          dev, dtype=M._dt(cfg))
+
+    def reading(seed):
+        toks = torch.randint(0, cfg.vocab_size, (2, 192), device=dev,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(seed))
+        with torch.inference_mode():
+            got, _ = M.prefill(params, cfg, {"tokens": toks}, kernel=True)
+            want, _ = M.prefill(params, cfg, {"tokens": toks}, kernel=False)
+        return float((got.float() - want.float()).abs().max()
+                     / want.float().abs().max())
+    rep = [reading(0) for _ in range(repeats)]
+    by_seed = [reading(s) for s in seeds]
+    print(f"13d flash prefill reading (limit 2e-2): token seed 0 x "
+          f"{repeats}: {rep}; seeds {list(seeds)[0]}-{list(seeds)[-1]}: "
+          f"max {max(by_seed)}, {by_seed} ({tag or card_tag()})", flush=True)
+    return {"seed0": rep, "by_seed": by_seed}
+
+
+def lm_dryrun_phase(dev, sz: Sizes, graph) -> dict:
+    """Phase 13 (13a-13d)."""
+    tag = card_tag()
+    secs, out = {}, {}
+    E.drop_device_cache(graph)
+    if dev.type == "cuda":              # the allocator's statistics exist
+        torch.zeros(1, device=dev)      # once it has allocated
+
+    def timed(key, fn, *args):
+        t0 = time.perf_counter()
+        out[key] = fn(*args)
+        secs[key] = time.perf_counter() - t0
+    with dryrun_started() as (out_dir, procs):
+        t0 = time.perf_counter()
+        timed("13a lm train", lm_train, dev, sz, tag)
+        timed("13b dryrun cli (wait)", dryrun_cli, tag, out_dir, procs, t0)
+    timed("13c gnn", gnn_checks, dev, sz, graph, tag)
+    timed("13c kernels", kernel_standins, dev, sz)
+    timed("13d prefill readings", prefill_readings, dev, tag)
+    timed("13c lm", lm_check, dev, sz, tag, out["13a lm train"])
+    out["seconds"] = secs
+    return out
+
+
 def run(dev: torch.device, sz: Sizes) -> dict:
     # full f32 products everywhere (TF32 off), bf16 GEMMs reduce in f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3604,8 +4046,9 @@ def run(dev: torch.device, sz: Sizes) -> dict:
     figs = timed("10 figures", figure_phase, dev, sz, graph)
     srcs = timed("11 sources", sources_phase, dev, sz, graph)
     shrd = timed("12 sharded", sharded_phase, dev, sz, graph)
+    p13 = timed("13 lm train + dry-run", lm_dryrun_phase, dev, sz, graph)
     del graph
-    for ph in (figs, srcs, shrd):
+    for ph in (figs, srcs, shrd, p13):
         secs.update({k: round(v, 2) for k, v in ph["seconds"].items()})
     print(f"phase seconds: {json.dumps(secs)}", flush=True)
     fig_runs = figs["10c figures"]
@@ -3791,7 +4234,37 @@ def run(dev: torch.device, sz: Sizes) -> dict:
          "slab_width_ms": fg1["routes"]["slab_width_ms"],
          "shape": f"bf16, unfused, full-graph {fg1['shape']} (layer 1)"},
     ]
+    add_phase13(kernels, p13)
     return {"kernels": kernels}
+
+
+#: phase 13's launch-counter key and stand-in checks of each kernel entry
+PHASE13 = {
+    "neighbor_agg_tiled": ("tiled", ("tiled_d128", "tiled_d172")),
+    "neighbor_agg_tiled_fused": ("tiled_fused", ("tiled_fused_f32",)),
+    "neighbor_agg_backward": ("backward", ("backward",)),
+    "neighbor_agg_backward_csr": ("backward_csr", ("backward_csr",)),
+    "neighbor_agg_row": ("row", ("row",)),
+    "neighbor_agg_tiled_slab": ("tiled_slab", ("tiled_d128",)),
+    "flash_attention_wgmma": ("wgmma", ("flash_wgmma_bfloat16",)),
+    "flash_attention": ("simt", ("flash_simt_float32",)),
+}
+
+
+def add_phase13(kernels: list, p13: dict) -> None:
+    """Each kernel entry's launches on phase 13's paths (13a's LM
+    training, 13c's full-graph and mini-batch steps), read from its
+    counter, and the stand-in shapes it was held to."""
+    c13 = p13["13c gnn"]
+    paths = {"lm_train": p13["13a lm train"]["launches"],
+             "dryrun_check_fullgraph": c13["fullgraph"]["launches"],
+             "dryrun_check_minibatch": c13["minibatch"]["launches"]}
+    for kern in kernels:
+        key, names = PHASE13[kern["name"]]
+        kern["launches_phase13"] = {p: c[key] for p, c in paths.items()}
+        kern["stand_in_shapes_equal"] = {
+            n: [[list(sh), str(dt)] for sh, dt in p13["13c kernels"][n]]
+            for n in names}
 
 
 def _own(m: dict) -> dict:

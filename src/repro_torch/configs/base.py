@@ -78,6 +78,15 @@ class ModelConfig:
         return ("attn",) * self.n_layers
 
     @property
+    def supports_long_decode(self) -> bool:
+        """long_500k eligibility: SSM/hybrid, or dense with a sliding-window
+        variant on some layers (reference ``configs/base.py:88-100``)."""
+        toks = set(self.pattern)
+        if "mamba" in toks:
+            return True
+        return "local" in toks and self.sliding_window > 0
+
+    @property
     def has_decode(self) -> bool:
         return True
 
@@ -179,6 +188,42 @@ class GNNConfig:
         req(self.feat_cache_rows >= -1,
             f"feat_cache_rows must be -1 (auto), 0 (off) or a positive "
             f"cache size, got {self.feat_cache_rows}")
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (reference ``configs/base.py:209-238``)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    kind: str           # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k":    InputShape("train_4k",    "train",   4_096,   256),
+    "prefill_32k": InputShape("prefill_32k", "prefill", 32_768,  32),
+    "decode_32k":  InputShape("decode_32k",  "decode",  32_768,  128),
+    "long_500k":   InputShape("long_500k",   "decode",  524_288, 1),
+}
+
+
+def shape_applicable(cfg, shape: InputShape) -> Tuple[bool, str]:
+    """Whether (arch, shape) should run, and why not if skipped."""
+    if cfg.family == "gnn":
+        return False, (
+            "GNN configs use their own dry-run shapes (fullgraph_step / "
+            "minibatch_step); see launch/dryrun.py")
+    if shape.name == "long_500k" and not cfg.supports_long_decode:
+        return False, (
+            f"{cfg.name} is a pure full-attention stack; long_500k needs "
+            "sub-quadratic attention (see DESIGN.md §Arch-applicability)")
+    if shape.kind == "decode" and not cfg.has_decode:
+        return False, f"{cfg.name} has no decode step"
+    return True, ""
 
 
 # ---------------------------------------------------------------------------

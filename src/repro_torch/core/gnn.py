@@ -201,10 +201,11 @@ def gather_rows(table, idx):
     parallel atomics on the CPU once the gather is large, so a row's
     sum order followed thread scheduling.  On a CUDA tensor it is
     advanced indexing, whose gradient sorts the ids and sums each row
-    in that order; ``index_add_`` adds with atomics there."""
+    in that order; ``index_add_`` adds with atomics there.  A
+    shape-only tensor on the trace device takes the card's form."""
     ids = idx.reshape(-1).long()
-    flat = table[ids] if table.is_cuda else torch.index_select(table, 0,
-                                                               ids)
+    flat = (torch.index_select(table, 0, ids) if table.device.type == "cpu"
+            else table[ids])
     return flat.reshape(tuple(idx.shape) + (table.shape[-1],))
 
 

@@ -1,6 +1,6 @@
 """Synthetic data: SBM graphs standing in for the paper's OGB datasets
-(numpy copy of the reference ``repro.data.synth``; the LM token pipeline
-waits for the LM part of the port).
+and the Markov-chain token pipeline of the LM archs (numpy copy of the
+reference ``repro.data.synth``).
 
 Features are class-conditioned Gaussians (matches the paper's assumption
 that labels are sampled conditioned on features, §2).  Presets mirror each
@@ -8,7 +8,7 @@ dataset's *regime* (classes, homophily, average degree), not its size.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -105,3 +105,29 @@ def make_preset(name: str, seed: int = 0, **overrides) -> Graph:
     kw = dict(PRESETS[name])
     kw.update(overrides)
     return make_sbm_graph(seed=seed, **kw)
+
+
+# ---------------------------------------------------------------------------
+# toy token pipeline for the LM archs (smoke training)
+# ---------------------------------------------------------------------------
+
+def token_batches(vocab: int, batch: int, seq: int, seed: int = 0,
+                  n_batches: Optional[int] = None) -> Iterator[dict]:
+    """Markov-chain synthetic tokens (learnable structure, not uniform
+    noise): ``{"tokens", "labels"}`` int32 [batch, seq], labels the
+    tokens shifted by one.  Array-equal to the reference's for a seed."""
+    rng = np.random.default_rng(seed)
+    v_eff = min(vocab, 256)
+    trans = rng.dirichlet(np.ones(v_eff) * 0.1, size=v_eff)
+    cum = np.cumsum(trans, axis=1)
+    i = 0
+    while n_batches is None or i < n_batches:
+        toks = np.zeros((batch, seq + 1), np.int64)
+        toks[:, 0] = rng.integers(0, v_eff, batch)
+        u = rng.random((batch, seq))
+        for t in range(seq):
+            toks[:, t + 1] = (u[:, t:t + 1]
+                              < cum[toks[:, t]]).argmax(1)
+        yield {"tokens": toks[:, :-1].astype(np.int32),
+               "labels": toks[:, 1:].astype(np.int32)}
+        i += 1

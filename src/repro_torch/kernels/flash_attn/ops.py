@@ -23,9 +23,13 @@ picks one, by those two alone:
 
 The reference's ``q_block``/``k_block``/``interpret`` are the TPU
 kernel's tiling and have no meaning here; the CUDA kernels tile by
-themselves and take any S.  ``launches`` counts the launches of both
-kernels, ``launch_counts()`` each one's; both change only where a
-kernel launches.
+themselves and take any S.  Shape-only tensors (fake or meta, which the
+dry-run traces) take the kernel path up to the launch, where a stand-in
+returns the empty output and adds the call's bytes and FLOPs
+(``kernels.cost.flash_cost``) to the active trace counters; a real
+tensor never reaches it, and it counts no launch.  ``launches`` counts
+the launches of both kernels, ``launch_counts()`` each one's; both
+change only where a kernel launches.
 """
 from __future__ import annotations
 
@@ -34,6 +38,8 @@ import threading
 
 import torch
 
+from repro_torch.device import is_shape_only
+from repro_torch.kernels import cost
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 
 #: launches of the flash-attention kernels, both routes together
@@ -118,13 +124,13 @@ def _check_kernel_args(q, k, v) -> str:
         "all operands must be on one device")
     req(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
         "operands must be contiguous")
-    req(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+    req(is_shape_only(q) or all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
         "operands must start on a 16-byte boundary (the kernel loads "
         "16 bytes at a time)")
     req(q.shape[0] <= 65535 and q.shape[1] <= 65535 * 64,
         f"batch must be <= 65535 and S <= {65535 * 64}, got "
         f"{tuple(q.shape)}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention kernel: unsupported device "
                          f"{q.device}")
     return route
@@ -151,6 +157,11 @@ def _launch(q, k, v, window, route):
     hkv = k.shape[2]
     out = torch.empty_like(q)
     if b == 0 or s == 0 or hq == 0:           # nothing to compute
+        return out
+    if is_shape_only(q):
+        cost.note_kernel("flash_" + route, *cost.flash_cost(
+            b, s, hq, hkv, d, window, q.element_size()),
+            "bfloat16" if route == "wgmma" else cost.F32_FMA)
         return out
     lib = load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream

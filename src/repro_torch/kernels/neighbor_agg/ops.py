@@ -40,10 +40,22 @@ weights, masks and layer 1's raw feature table never do).  ``dfeats`` is
 summed in f32 and cast to ``feats.dtype``; ``dw`` is in ``w.dtype``.
 The kernels mask ragged B/K/D themselves, so nothing is padded to tiles.
 
+Shape-only tensors (fake tensors under ``FakeTensorMode``, or meta
+tensors: ``device.is_shape_only``), which the dry-run traces, take the
+CUDA path up to the launch: each launcher allocates its outputs as it
+does for the card, and then, in place of the library call, its
+stand-in adds the kernel's bytes and FLOPs (``kernels.cost``'s model,
+every referenced row counted once: ``min(N, B·K)``) to the active
+``TraceCounter``s and returns the empty outputs.  A real tensor, CPU or
+CUDA, never reaches a stand-in, and a stand-in counts no launch.
+``build_reverse_index`` of shape-only tensors gives an index of their
+shapes with every edge kept (``nnz = B·K``, the worst case).
+
 One launch counter per kernel, changed only where that kernel launches:
 ``launches`` (tiled forward, both routes), ``backward_launches``,
 ``backward_csr_launches`` and ``row_launches``; ``launch_counts()`` also
-splits the tiled forward by route (``tiled_slab``, ``tiled_direct``).
+splits the tiled forward by route (``tiled_slab``, ``tiled_direct``) and
+counts its launches with the fused self epilogue (``tiled_fused``).
 """
 from __future__ import annotations
 
@@ -54,6 +66,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.device import is_shape_only
+from repro_torch.kernels import cost
 from repro_torch.kernels.neighbor_agg.ref import (
     neighbor_agg_backward_csr_ref, neighbor_agg_backward_ref,
     neighbor_agg_ref)
@@ -63,6 +77,8 @@ launches = 0
 #: launches of the tiled forward by route
 slab_launches = 0
 direct_launches = 0
+#: launches of the tiled forward with the fused self epilogue
+fused_launches = 0
 #: launches of the backward kernel
 backward_launches = 0
 #: launches of the reverse-index backward kernel
@@ -75,25 +91,28 @@ _count_lock = threading.Lock()
 def reset_launches() -> None:
     """Set every kernel's launch counter to 0."""
     global launches, backward_launches, backward_csr_launches, row_launches
-    global slab_launches, direct_launches
+    global slab_launches, direct_launches, fused_launches
     with _count_lock:
         launches = backward_launches = backward_csr_launches = 0
-        row_launches = slab_launches = direct_launches = 0
+        row_launches = slab_launches = direct_launches = fused_launches = 0
 
 
 def launch_counts() -> dict:
     """The launch counters by kernel: tiled (both routes), backward,
-    backward_csr, row; and the tiled forward by route: tiled_slab,
-    tiled_direct."""
+    backward_csr, row; the tiled forward by route: tiled_slab,
+    tiled_direct; and its launches with the fused self epilogue:
+    tiled_fused."""
     return {"tiled": launches, "backward": backward_launches,
             "backward_csr": backward_csr_launches, "row": row_launches,
-            "tiled_slab": slab_launches, "tiled_direct": direct_launches}
+            "tiled_slab": slab_launches, "tiled_direct": direct_launches,
+            "tiled_fused": fused_launches}
 
 
-def _count(name: str) -> None:
+def _count(name: str, fused: bool = False) -> None:
     global launches, backward_launches, backward_csr_launches, row_launches
-    global slab_launches, direct_launches
+    global slab_launches, direct_launches, fused_launches
     with _count_lock:
+        fused_launches += fused
         if name == "tiled_slab":
             launches += 1
             slab_launches += 1
@@ -155,6 +174,12 @@ def build_reverse_index(idx: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"build_reverse_index: B*K = {b * k} edges do "
                          f"not fit the index's int32 positions")
     kept = (w != 0) & (idx >= 0) & (idx < n)
+    if is_shape_only(idx):                  # no data: every edge kept
+        i32 = dict(dtype=torch.int32, device=idx.device)
+        return ReverseIndex(indptr=torch.empty(n + 1, **i32),
+                            edges=torch.empty(b * k, **i32), kept=kept,
+                            n=int(n), b=b, k=k, idx=idx,
+                            idx_version=idx._version)
     pos = torch.nonzero(kept.reshape(-1)).squeeze(1)        # ascending
     src = idx.reshape(-1)[pos].long()
     order = torch.sort(src, stable=True).indices
@@ -325,6 +350,11 @@ def _launch(feats, idx, w, self_rows, w_self, out_dtype=None):
     out = torch.empty((b, d), dtype=odt, device=feats.device)
     if b == 0 or d == 0:                         # nothing to compute
         return out
+    if is_shape_only(feats):
+        _stand_in("tiled_" + route, *cost.agg_cost(
+            n, b, k, d, feats.element_size(), out.element_size(),
+            self_rows is not None))
+        return out
     lib = load_library()
     args = (_FORWARD_CODE[feats.dtype, odt], feats.data_ptr(),
             idx.data_ptr(), w.data_ptr(), _ptr(self_rows), _ptr(w_self),
@@ -337,8 +367,14 @@ def _launch(feats, idx, w, self_rows, w_self, out_dtype=None):
             err = lib.neighbor_agg_forward(*args, _stream(feats))
     _raise_on(err, f"neighbor_agg (tiled, {route} route)", b, k, d, n,
               feats.dtype)
-    _count("tiled_" + route)
+    _count("tiled_" + route, fused=self_rows is not None)
     return out
+
+
+def _stand_in(name: str, nbytes: int, flops: int) -> None:
+    """A shape-only call of kernel ``name``: its bytes and f32 FLOPs to
+    the active trace counters; no launch, no count."""
+    cost.note_kernel(name, nbytes, flops, cost.F32_FMA)
 
 
 def _raise_on(err: int, what: str, b, k, d, n, dtype) -> None:
@@ -362,6 +398,10 @@ def _launch_row(feats, idx, w):
     b, k = idx.shape
     out = torch.empty((b, d), dtype=feats.dtype, device=feats.device)
     if b == 0 or d == 0:                         # nothing to compute
+        return out
+    if is_shape_only(feats):
+        _stand_in("row", *cost.agg_cost(n, b, k, d,
+                                              feats.element_size()))
         return out
     lib = load_library()
     with torch.cuda.device(feats.device):
@@ -388,7 +428,11 @@ def _launch_backward(feats, idx, w, g, self_rows, w_self, need):
     dself = alloc(self_rows) if fused and need[2] else None
     dws = alloc(w_self) if fused and need[3] else None
     outs = (df32, dw, dself, dws)
-    if b > 0 and d > 0 and any(o is not None for o in outs):
+    launch = b > 0 and d > 0 and any(o is not None for o in outs)
+    if launch and is_shape_only(feats):
+        _stand_in("backward", *cost.bwd_cost(
+            n, b, k, d, feats.element_size(), need, fused))
+    elif launch:
         lib = load_library()
         with torch.cuda.device(feats.device):
             err = lib.neighbor_agg_backward(
@@ -410,6 +454,10 @@ def _launch_backward_csr(rev, w, g):
     out = torch.empty((rev.n, d), dtype=g.dtype, device=g.device)
     if rev.n == 0 or d == 0:                     # nothing to compute
         return out
+    if is_shape_only(g):
+        _stand_in("backward_csr", *cost.csr_cost(
+            rev.n, rev.b, rev.nnz, d, g.element_size()))
+        return out
     lib = load_library()
     with torch.cuda.device(g.device):
         err = lib.neighbor_agg_backward_csr(
@@ -423,7 +471,10 @@ def _launch_backward_csr(rev, w, g):
 
 
 def _device_of(feats) -> str:
-    if feats.device.type not in ("cpu", "cuda"):
+    """``"cpu"`` (the plain versions) or the kernels' path: ``"cuda"``,
+    and ``"meta"`` for shape-only tensors on the trace device (their
+    stand-ins)."""
+    if feats.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"neighbor_agg kernel: unsupported device "
                          f"{feats.device}")
     return feats.device.type

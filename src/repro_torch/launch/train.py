@@ -1,22 +1,32 @@
-"""Training entry point of the port, GNN family: runs the paper's two
-paradigms (full-graph GD and (b, β) mini-batch SGD) through one
-``Trainer`` on a synthetic preset and prints the final loss and test
-accuracy of each as JSON (the port of the reference
-``repro.launch.train.train_gnn``).
+"""Training entry point of the port (reference ``repro.launch.train``).
+
+GNN family: runs the paper's two paradigms (full-graph GD and (b, β)
+mini-batch SGD) through one ``Trainer`` on a synthetic preset and prints
+the final loss and test accuracy of each as JSON (``train_gnn``).
+LM family (the dense archs): the Markov-chain token pipeline into the
+AdamW ``train_step`` (``models/steps.py``, every layer checkpointed when
+the config's ``remat`` is set), optional checkpoints, and the
+reference's JSON line ``{"arch", "first_loss", "final_loss", "steps"}``
+(``train_lm``).
 
     # on the card (default --device cuda)
     PYTHONPATH=src python -m repro_torch.launch.train --arch gnn-papers100m
-    # on the CPU, reduced config
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
+        --batch 8 --seq 4096 --microbatches 4 --steps 20
+    # on the CPU, reduced configs
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch gnn-papers100m --smoke --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch stablelm-1.6b --smoke --device cpu --steps 5
 
 ``--sweep-bs`` / ``--sweep-fanout`` run a (b, β) grid (plus the
 full-graph corner) through ``core.experiment.sweep`` and save its rows;
 ``--journal`` makes that sweep crash-safe.  ``--ckpt-every`` writes
 exact-resume checkpoints under ``--ckpt-dir`` (one namespace per
 paradigm, ``--keep-last`` retention) and ``--resume`` continues each
-paradigm from its newest one.  The LM family (slice 6) is not ported and
-raises.
+paradigm from its newest one (GNN only; the LM saves its parameters
+every ``--ckpt-every`` steps, as the reference does).  ``--model-par``
+other than 1 raises: one card has no tensor-parallel backend.
 """
 from __future__ import annotations
 
@@ -25,10 +35,70 @@ import dataclasses
 import json
 import os
 import sys
+import time
 
-from repro_torch.configs.base import LM_ARCHS, get_config
-from repro_torch.data.synth import make_preset
+import torch
+
+from repro_torch.configs.base import get_config
+from repro_torch.data.synth import make_preset, token_batches
 from repro_torch.device import resolve_device
+
+
+def train_lm(args, optimizer=None) -> dict:
+    """Train a dense LM arch on synthetic tokens (reference
+    ``train_lm``): random weights from ``--seed`` (torch's generator, not
+    the reference's draws), ``--steps`` steps of ``--batch`` x ``--seq``
+    tokens, ``--microbatches`` micro-batches a step, the default AdamW
+    of ``make_train_step`` unless ``optimizer`` is given.  Prints a log
+    line every ``--log-every`` steps and the reference's JSON line;
+    returns that line's keys plus ``losses`` and, on the card, each
+    step's device time ``step_ms`` (CUDA events)."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.models import model as M
+    from repro_torch.models import steps as S
+
+    if args.model_par != 1:
+        raise NotImplementedError(
+            f"--model-par {args.model_par}: the port runs on one card with "
+            f"no tensor-parallel backend (ROADMAP.md Queue 1 item 5)")
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    params = M.init_model(torch.Generator(device=dev).manual_seed(args.seed),
+                          cfg, dev)
+    opt, train_step = S.make_train_step(cfg, optimizer,
+                                        microbatches=args.microbatches)
+    opt_state = opt.init(params)
+    gen = token_batches(cfg.vocab_size, args.batch, args.seq, seed=args.seed)
+    losses, events = [], []
+    t0 = time.perf_counter()
+    for it in range(args.steps):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(gen).items()}
+        if dev.type == "cuda":
+            pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            pair[0].record()
+        params, opt_state, metrics = train_step(params, opt_state, batch)
+        if dev.type == "cuda":
+            pair[1].record()
+            events.append(pair)
+        loss = float(metrics["loss"])
+        losses.append(loss)
+        if it % args.log_every == 0:
+            tok_s = (args.batch * args.seq * (it + 1)
+                     / (time.perf_counter() - t0))
+            print(f"step {it:5d} loss {loss:8.4f} "
+                  f"acc {float(metrics['acc']):.3f} tok/s {tok_s:,.0f}",
+                  flush=True)
+        if args.ckpt_every and it and it % args.ckpt_every == 0:
+            save_checkpoint(args.ckpt_dir, it, params,
+                            {"arch": args.arch, "loss": loss},
+                            keep_last=args.keep_last or None)
+    result = {"arch": args.arch, "first_loss": losses[0],
+              "final_loss": losses[-1], "steps": len(losses)}
+    print(json.dumps(result), flush=True)
+    if events:
+        torch.cuda.synchronize(dev)
+    return dict(result, losses=losses,
+                step_ms=[a.elapsed_time(b) for a, b in events] or None)
 
 
 def train_gnn(args) -> dict:
@@ -92,7 +162,14 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-trainable)")
     ap.add_argument("--steps", type=int, default=100)
-    ap.add_argument("--lr", type=float, default=0.5)
+    ap.add_argument("--batch", type=int, default=8, help="LM only")
+    ap.add_argument("--seq", type=int, default=128, help="LM only")
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="LM only: gradient-accumulation micro-batches a "
+                         "step")
+    ap.add_argument("--model-par", type=int, default=1,
+                    help="LM only: tensor-parallel degree (1: one card)")
+    ap.add_argument("--lr", type=float, default=0.5, help="GNN only")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--preset", default="arxiv-like")
     ap.add_argument("--device", default="cuda",
@@ -118,11 +195,10 @@ def main(argv=None):
                     help="sweeps: JSONL completion journal for crash-safe "
                          "resume (see core.experiment.sweep)")
     args = ap.parse_args(argv)
-    if args.arch.replace("_", "-") in LM_ARCHS:
-        raise NotImplementedError(
-            f"--arch {args.arch}: the LM family is not ported yet "
-            f"(ROADMAP.md Queue 1, slice 6)")
-    train_gnn(args)
+    if get_config(args.arch, smoke=args.smoke).family == "gnn":
+        train_gnn(args)
+    else:
+        train_lm(args)
     return 0
 
 

@@ -168,7 +168,7 @@ def chunked_causal_attention(q, k, v, *, q_chunk: int, window: int = 0):
             keep = kpos[None, :] <= qpos[:, None]
         scores = torch.einsum("bqhd,bkhd->bhqk", qc, kc).float()
         scores = torch.where(keep, scores * scale,
-                             torch.tensor(-1e30, device=dev))
+                             torch.full((), -1e30, device=dev))
         probs = torch.softmax(scores, dim=-1).to(dt)
         outs.append(torch.einsum("bhqk,bkhd->bqhd", probs, vc))
     return torch.cat(outs, dim=1)

@@ -1,6 +1,7 @@
 """The dense decoder assembled from a layer-pattern plan (reference
-``repro/models/model.py``, its dense subset) and its serving path:
-``prefill`` over a prompt, then one ``decode_step`` per token.
+``repro/models/model.py``, its dense subset): its training forward
+(``forward_train``, the loss chunked over the sequence) and its serving
+path, ``prefill`` over a prompt, then one ``decode_step`` per token.
 
 A config's ``pattern`` (gemma3's 5 x local + 1 x global ...) is grouped
 into runs of consecutive identical block types; each run's layer
@@ -28,11 +29,18 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
+from torch.utils._pytree import tree_map_with_path
 
 from repro_torch import sharding as sh
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.optim.optimizers import dict_keys
+
+
+F32 = torch.float32
+LOSS_CHUNK = 512          # vocab-logit seq chunks (never materialise [B,S,V])
 
 
 def _unported(what: str):
@@ -163,6 +171,55 @@ def _layer(rp, i: int):
             for k, v in rp.items()}
 
 
+def _map_with_names(fn, tree):
+    """``fn(names, leaf)`` over a tree; ``names`` are the dict keys on the
+    way to the leaf (``optim.dict_keys``)."""
+    return tree_map_with_path(lambda path, leaf: fn(dict_keys(path), leaf),
+                              tree)
+
+
+def param_specs(cfg: ModelConfig, params) -> Any:
+    """The reference's logical shardings from parameter names and shapes
+    (``model.py:142-205``, its dense rules), as tuples of the logical
+    axis names of ``sharding`` (``MODEL``, ``FSDP``) or None, one per
+    dim, in the tree of ``params`` (tensors, fake tensors, or anything
+    with ``.shape``).  On one card nothing places a tensor by them; the
+    dry-run records them."""
+    _check_dense(cfg)
+
+    def fs(dim: int):
+        return sh.FSDP if dim % sh.MODEL_PAR == 0 else None
+
+    def rule(names, leaf):
+        name = names[-1] if names else ""
+        stacked = "runs" in names and "final_norm" not in names
+        shape = tuple(leaf.shape)
+        shp = shape[1:] if stacked else shape
+        if name == "embed":
+            base = (sh.MODEL, fs(shp[1]))
+        elif name == "lm_head":
+            base = (fs(shp[0]), sh.MODEL)
+        elif name in ("wq", "wk", "wv"):
+            ax = sh.MODEL if sh.shard_heads(shp[1]) else None
+            base = (fs(shp[0]), ax, None)
+        elif name == "wo":
+            ax = sh.MODEL if sh.shard_heads(shp[0]) else None
+            base = (ax, None, fs(shp[2]))
+        elif name == "w_down":          # dense mlp [f, d]
+            base = (sh.MODEL, fs(shp[1]))
+        elif name in ("w_gate", "w_up"):  # dense mlp [d, f]
+            base = (fs(shp[0]), sh.MODEL)
+        else:                           # norms
+            base = (None,) * len(shp)
+        if stacked:
+            base = (None,) + base
+        if len(base) != len(shape):
+            raise ValueError(f"param_specs: {names} {shape} -> {base}")
+        return base
+
+    return _map_with_names(rule, params)
+
+
 # ---------------------------------------------------------------------------
 # blocks (prefill)
 # ---------------------------------------------------------------------------
@@ -177,11 +234,31 @@ def _attn_mlp_block(lp, x, cfg: ModelConfig, ltype: str, positions,
     return x + L.mlp_block(lp["mlp"], y, cfg), kv
 
 
+def _remat_block(lp, x, cfg: ModelConfig, ltype: str, positions,
+                 kernel: bool):
+    """``_attn_mlp_block``'s output under ``torch.utils.checkpoint``: only
+    the layer's input is kept, the rest is recomputed in the backward
+    (the reference's ``jax.checkpoint`` of each scanned layer,
+    ``model.py:250,258``)."""
+    def body(x, lp):
+        return _attn_mlp_block(lp, x, cfg, ltype, positions, kernel)[0]
+    return checkpoint(body, x, lp, use_reentrant=False)
+
+
 def _run_forward(run: Run, rp, shared_p, x, cfg: ModelConfig, positions,
-                 collect_kv: bool, kernel: bool):
-    """One run in prefill mode.  Returns (x, (k, v) stacked over the run's
-    layers, or None).  Every dense layer uses RoPE (the reference drops
-    it only on the global layers of the MoE family)."""
+                 collect_kv: bool, kernel: bool, remat: bool = False):
+    """One run in prefill (or, with ``remat``, training) mode.  Returns
+    (x, (k, v) stacked over the run's layers, or None).  Every dense
+    layer uses RoPE (the reference drops it only on the global layers of
+    the MoE family).  ``remat`` checkpoints each layer and collects no
+    cache."""
+    if remat:
+        layers = ([shared_p] if run.shared else
+                  [_layer(rp, i) for i in range(run.count)])
+        ltype = "attn" if run.shared else run.type
+        for lp in layers:
+            x = _remat_block(lp, x, cfg, ltype, positions, kernel)
+        return x, None
     if run.shared:
         x, (k, v) = _attn_mlp_block(shared_p, x, cfg, "attn", positions,
                                     kernel)
@@ -219,24 +296,90 @@ def logits_fn(params, cfg: ModelConfig, hidden):
     return logits
 
 
+def _loss_chunk(w, hc, lc, vocab: int):
+    """One chunk of ``chunked_lm_loss``: (valid count, loss sum, correct
+    count), all f32 scalars, from hidden ``hc`` [B, c, d], the head matrix
+    ``w`` [d, Vp] and labels ``lc`` [B, c]."""
+    lg = hc @ w.to(hc.dtype)
+    vp = lg.shape[-1]
+    if vp != vocab:                         # mask the vocab padding
+        pad = torch.arange(vp, device=lg.device) >= vocab
+        lg = lg.masked_fill(pad, -1e30)
+    lg = lg.to(F32)
+    mask = lc >= 0
+    li = torch.clamp(lc, min=0).long()
+    logz = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, li[..., None])[..., 0]
+    loss_sum = torch.sum((logz - ll) * mask)
+    correct = torch.sum((torch.argmax(lg, -1) == li) * mask).to(F32)
+    return torch.sum(mask).to(F32), loss_sum, correct
+
+
+def chunked_lm_loss(params, cfg: ModelConfig, hidden, labels):
+    """Mean CE over the vocab and accuracy, without materialising
+    [B, S, V]: a loop over sequence chunks of ``LOSS_CHUNK`` (reference
+    ``model.py:316-348``).  labels: int [B, S], -1 = ignored position.
+    Each chunk runs under ``torch.utils.checkpoint``, so its logits are
+    recomputed in the backward and never kept (the reference's
+    ``nothing_saveable``): the f32 logits are the largest buffer of a
+    train step otherwise.  Returns (loss, acc), f32 scalars."""
+    b, s, d = hidden.shape
+    c = min(LOSS_CHUNK, s)
+    nc = s // c
+    if nc * c != s:
+        raise ValueError(f"sequence {s} is not a multiple of the loss "
+                         f"chunk {c}")
+    w = _head_matrix(params, cfg)
+    zero = torch.zeros((), dtype=F32, device=hidden.device)
+    tot, loss_sum, correct = zero, zero, zero
+    for i in range(nc):
+        t, ls, cr = checkpoint(_loss_chunk, w, hidden[:, i * c:(i + 1) * c],
+                               labels[:, i * c:(i + 1) * c], cfg.vocab_size,
+                               use_reentrant=False)
+        tot, loss_sum, correct = tot + t, loss_sum + ls, correct + cr
+    denom = torch.clamp(tot, min=1.0)
+    return loss_sum / denom, correct / denom
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
 def backbone(params, cfg: ModelConfig, x, positions,
-             collect_kv: bool = False, *, kernel: bool = True):
+             collect_kv: bool = False, *, kernel: bool = True,
+             remat: bool = False):
     """Every run, then the final norm.  Returns (hidden, per-run (k, v)
     stacks or None).  The reference also returns the MoE aux loss; the
     dense family has none.  ``kernel`` picks the attention of every
-    layer (``layers.attention_block``)."""
+    layer (``layers.attention_block``); ``remat`` checkpoints every layer
+    (training)."""
     _check_dense(cfg)
     kvs = []
     for i, run in enumerate(build_plan(cfg)):
         x, kv = _run_forward(run, params["runs"][i],
                              params.get("shared_attn"), x, cfg, positions,
-                             collect_kv, kernel)
+                             collect_kv, kernel, remat)
         kvs.append(kv)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), kvs
+
+
+def forward_train(params, cfg: ModelConfig, batch):
+    """The training forward (reference ``model.py:366-389``): embed, the
+    backbone through the reference model's own chunked attention (the
+    flash kernel has no backward and the reference never trains through
+    it), each layer checkpointed when ``cfg.remat``, the final norm and
+    ``chunked_lm_loss``.  batch: tokens [B, S], labels [B, S] (-1
+    ignored).  Returns ``(total, {"loss", "aux", "acc"})`` with ``total =
+    loss + 0.01 * aux``; the dense family's aux is 0."""
+    _check_dense(cfg)
+    x = embed_tokens(params, cfg, batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    h, _ = backbone(params, cfg, x, positions, kernel=False,
+                    remat=cfg.remat)
+    loss, acc = chunked_lm_loss(params, cfg, h, batch["labels"])
+    aux = torch.zeros((), dtype=F32, device=h.device)
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux": aux, "acc": acc}
 
 
 # --- serving ---------------------------------------------------------------
@@ -263,6 +406,28 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cuda"):
             "slot_pos": torch.full((run.count, cap), -1, device=dev,
                                    dtype=torch.int32)})
     return {"pos": 0, "runs": tuple(run_caches)}
+
+
+def cache_specs(cfg: ModelConfig, cache, batch_shardable: bool = True) -> Any:
+    """The reference's logical shardings of a cache tree
+    (``model.py:443-465``): batch on ``BATCH``, the cache's sequence on
+    ``MODEL`` (on every axis, ``ALL``, when the batch cannot shard), as
+    tuples in the tree of ``cache``; ``pos`` (a Python int here, a 0-d
+    array there) gets ``()``."""
+    b_ax = sh.BATCH if batch_shardable else None
+    s_ax = sh.MODEL if batch_shardable else sh.ALL
+    # divisibility guards: MODEL axis = 16; ALL = up to 512 (2 pods)
+    s_div = sh.MODEL_PAR if batch_shardable else 512
+
+    def spec_for(names, leaf):
+        name = names[-1] if names else ""
+        shape = tuple(getattr(leaf, "shape", ()))
+        nd = len(shape)
+        if name in ("k", "v"):
+            s_ok = shape[2] % s_div == 0
+            return (None, b_ax, s_ax if s_ok else None) + (None,) * (nd - 3)
+        return (None,) * nd
+    return _map_with_names(spec_for, cache)
 
 
 def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,

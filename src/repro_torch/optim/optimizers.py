@@ -2,10 +2,12 @@
 global-norm clipping (torch copy of the reference
 ``repro.optim.optimizers``).
 
-Parameters and states are lists of per-layer dicts of tensors (the
-reference's pytrees).  ``Optimizer.update(grads, state, params)`` is
-functional and returns ``(new_params, new_state)``; the engine writes the
-results into the parameter and state tensors IN PLACE under
+Parameters and states are trees of tensors (the reference's pytrees):
+dicts, lists and tuples, a GNN's list of per-layer dicts or an LM's
+nested dict, walked with ``torch.utils._pytree``.
+``Optimizer.update(grads, state, params)`` is functional and returns
+``(new_params, new_state)``; the engine writes the results into the
+parameter and state tensors IN PLACE under
 ``torch.no_grad()`` (``engine._guarded_update``), which is the port's
 form of the reference's buffer donation (``TrainPlan.donate``).
 
@@ -20,6 +22,7 @@ import math
 from typing import Any, Callable, Optional
 
 import torch
+from torch.utils._pytree import MappingKey, tree_leaves, tree_map
 
 F32 = torch.float32
 
@@ -31,18 +34,31 @@ class Optimizer:
     #                                            (new_params, new_state)
 
 
-def _map(fn, *trees):
-    """``fn`` over the leaves of parallel lists of dicts of tensors."""
-    return [{k: fn(*(t[i][k] for t in trees)) for k in trees[0][i]}
-            for i in range(len(trees[0]))]
+def dict_keys(path) -> tuple:
+    """The dict keys of a ``tree_flatten_with_path`` key path (list and
+    tuple positions dropped, as the reference's ``p.key`` filter drops
+    them)."""
+    return tuple(p.key for p in path if isinstance(p, MappingKey))
 
 
-def _leaves(tree):
-    return [v for p in tree for v in p.values()]
+def value_and_grad(fn, params, *args):
+    """``fn(params, *args) -> (value, aux)``'s value (detached), its aux
+    as ``fn`` returned it, and the value's gradients with respect to
+    every leaf of ``params`` (a tree like it): the reference steps'
+    ``jax.value_and_grad(..., has_aux=True)``.  The caller's tensors are
+    not marked: the graph runs on detached aliases of them."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    it = iter(leaves)
+    tracked = tree_map(lambda _: next(it), params)
+    with torch.enable_grad():
+        value, aux = fn(tracked, *args)
+        grads = torch.autograd.grad(value, leaves)
+    it = iter(grads)
+    return value.detach(), aux, tree_map(lambda _: next(it), params)
 
 
 def _step0(params):
-    dev = _leaves(params)[0].device if _leaves(params) else "cpu"
+    dev = tree_leaves(params)[0].device if tree_leaves(params) else "cpu"
     return torch.zeros((), dtype=torch.int32, device=dev)
 
 
@@ -67,9 +83,9 @@ def cosine_schedule(peak: float, warmup: int, total: int,
 
 def clip_by_global_norm(grads, max_norm: float):
     gn = torch.sqrt(sum(torch.sum(torch.square(g.to(F32)))
-                        for g in _leaves(grads)))
+                        for g in tree_leaves(grads)))
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
-    return _map(lambda g: (g.to(F32) * scale).to(g.dtype), grads), gn
+    return tree_map(lambda g: (g.to(F32) * scale).to(g.dtype), grads), gn
 
 
 def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
@@ -80,7 +96,7 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
     def init(params):
         zeros = lambda p: torch.zeros(p.shape, dtype=F32,  # noqa: E731
                                       device=p.device)
-        return {"mu": _map(zeros, params), "nu": _map(zeros, params),
+        return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
                 "step": _step0(params)}
 
     def update(grads, state, params):
@@ -91,20 +107,18 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
         t = step.to(F32)
         c1 = 1.0 - b1 ** t
         c2 = 1.0 - b2 ** t
-        new_p, new_mu, new_nu = [], [], []
-        for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
-            pp, mm, nn = {}, {}, {}
-            for k in p:
-                gk = g[k].to(F32)
-                mm[k] = b1 * mu[k] + (1 - b1) * gk
-                nn[k] = b2 * nu[k] + (1 - b2) * torch.square(gk)
-                delta = (mm[k] / c1) / (torch.sqrt(nn[k] / c2) + eps)
-                if weight_decay:
-                    delta = delta + weight_decay * p[k].to(F32)
-                pp[k] = (p[k].to(F32) - lr_t * delta).to(p[k].dtype)
-            new_p.append(pp)
-            new_mu.append(mm)
-            new_nu.append(nn)
+        def upd(p, g, mu, nu):
+            g = g.to(F32)
+            mu2 = b1 * mu + (1 - b1) * g
+            nu2 = b2 * nu + (1 - b2) * torch.square(g)
+            delta = (mu2 / c1) / (torch.sqrt(nu2 / c2) + eps)
+            if weight_decay:
+                delta = delta + weight_decay * p.to(F32)
+            return (p.to(F32) - lr_t * delta).to(p.dtype), mu2, nu2
+
+        out = tree_map(upd, params, grads, state["mu"], state["nu"])
+        new_p, new_mu, new_nu = (tree_map(lambda _, o: o[i], params, out)
+                                 for i in range(3))
         return new_p, {"mu": new_mu, "nu": new_nu, "step": step}
 
     return Optimizer(init, update)
@@ -117,7 +131,7 @@ def sgd(lr: Callable | float, momentum: float = 0.0) -> Optimizer:
 
     def init(params):
         if momentum:
-            return {"vel": _map(lambda p: torch.zeros(
+            return {"vel": tree_map(lambda p: torch.zeros(
                 p.shape, dtype=F32, device=p.device), params),
                 "step": _step0(params)}
         return {"step": _step0(params)}
@@ -126,12 +140,12 @@ def sgd(lr: Callable | float, momentum: float = 0.0) -> Optimizer:
         step = state["step"] + 1
         lr_t = sched(step)
         if momentum:
-            vel = _map(lambda v, g: momentum * v + g.to(F32),
+            vel = tree_map(lambda v, g: momentum * v + g.to(F32),
                        state["vel"], grads)
-            new_p = _map(lambda p, v: (p.to(F32) - lr_t * v).to(p.dtype),
+            new_p = tree_map(lambda p, v: (p.to(F32) - lr_t * v).to(p.dtype),
                          params, vel)
             return new_p, {"vel": vel, "step": step}
-        new_p = _map(lambda p, g: (p.to(F32) - lr_t * g.to(F32)).to(
+        new_p = tree_map(lambda p, g: (p.to(F32) - lr_t * g.to(F32)).to(
             p.dtype), params, grads)
         return new_p, {"step": step}
 

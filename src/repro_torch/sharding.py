@@ -1,5 +1,6 @@
 """Sharding of the port: the reference's padding rules for the LM
-parameter shapes (``repro/sharding.py:24-42``) and its NODES mesh
+parameter shapes and its logical axis names (``repro/sharding.py:17-48``)
+and its NODES mesh
 (``:119-210``), copied, since that module imports jax.
 
 The NODES mesh is single-controller, as the reference's is: one process
@@ -28,8 +29,23 @@ import torch.nn.functional as F
 # are padded against it so parameter shapes equal the reference's.
 MODEL_PAR = 16
 
+# The reference's logical axis names (``repro/sharding.py:17-19,47-48``).
+# On one card nothing places a tensor by them; ``models.model.param_specs``
+# and ``cache_specs`` return them as plain data, which the dry-run records.
+BATCH = "batch"    # data-parallel axis (pod x data)
+MODEL = "model"    # tensor-parallel axis
+ALL = "all"        # every mesh axis (unshardable-batch decode caches)
+FSDP = "fsdp"      # weight sharding over the data axis (ZeRO-3 style)
+
+
 def pad_to(n: int, m: int = MODEL_PAR) -> int:
     return ((n + m - 1) // m) * m
+
+
+def shard_heads(n: int) -> bool:
+    """Shard a heads-like dim over ``model`` only when it stays
+    divisible."""
+    return n % MODEL_PAR == 0
 
 
 def padded_heads(n: int) -> int:

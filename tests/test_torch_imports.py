@@ -1,7 +1,9 @@
 """The port stands alone: every ``repro_torch`` module (the figure
 layer's named: the experiment CLI, theory, wasserstein and the eleven
 ``repro_torch.bench`` modules; the sharded paradigms' named: the NODES
-mesh, the feature-sharded table and its host caches) and
+mesh, the feature-sharded table and its host caches; LM training and
+the dry-run's named: the steps, the launchers, the meshes, the
+roofline and the kernels' cost model) and
 ``chip_smoke.py`` import without
 pulling in ``jax``, the reference package ``repro`` or the reference's
 ``benchmarks`` (checked in a fresh interpreter, so nothing this test
@@ -33,7 +35,11 @@ sharded = ["repro_torch.sharding", "repro_torch.core.featcache",
            "repro_torch.kernels.neighbor_agg.featshard",
            "repro_torch.kernels.neighbor_agg.ops", "repro_torch.core.engine",
            "repro_torch.core.inference", "repro_torch.core.embedding_store"]
-missing = sorted(set(figures + sharded) - set(names))
+dryrun = ["repro_torch.models.steps", "repro_torch.launch.train",
+          "repro_torch.launch.dryrun", "repro_torch.launch.gnn_steps",
+          "repro_torch.launch.mesh", "repro_torch.launch.roofline",
+          "repro_torch.kernels.cost"]
+missing = sorted(set(figures + sharded + dryrun) - set(names))
 assert not missing, missing
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro", "benchmarks") or m.startswith(

@@ -269,7 +269,9 @@ def test_launch_train_smoke_prints_both_paradigms():
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--arch", "granite-3-2b"], NotImplementedError, "slice 6"),
+    (["--arch", "mamba2-130m"], NotImplementedError, "later LM slice"),
+    (["--arch", "granite-3-2b", "--smoke", "--device", "cpu",
+      "--model-par", "2"], NotImplementedError, "Queue 1 item 5"),
 ])
 def test_launch_train_refuses_what_is_not_ported(argv, exc, match):
     with pytest.raises(exc, match=match):

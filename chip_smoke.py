@@ -233,7 +233,7 @@ or of the reference package ``repro``.
    state, every layer checkpointed) through ``launch/train.py``'s
    ``train_lm``: batch 8 at sequence 4096 (train_4k's sequence, its
    global batch of 256 cut to 8 for one card), ``microbatches_for``'s 4
-   micro-batches, 20 steps of ``adamw(3e-3)`` on ``token_batches``:
+   micro-batches, 10 steps of ``adamw(3e-3)`` on ``token_batches``:
    losses finite, the mean of the last 3 below the first, no kernel
    launched (training attends through the chunked path); ms/step by
    CUDA events, tokens/s, ``max_memory_allocated``; then one step with
@@ -253,6 +253,36 @@ or of the reference package ``repro``.
    dtypes, and so does every kernel entry.  (d) the reading of
    ``tests/test_torch_cuda.py::test_prefill_launches_wgmma_kernel_once_per_layer``
    with seeded tokens: three times with seed 0, then for 16 seeds.
+14. The MoE, SSM, hybrid, audio and VLM families, each through
+   ``serve_case`` (phase 9's checks: the flash launches of a prefill
+   counted from the layer plan, one per causal self-attention on the
+   routed kernel and none on the other, the calls' windows and head dims
+   as the plan says, the last logits against the plain path, a
+   teacher-forced decode against the forward, profiler tables), random
+   weights in bf16 from seeded generators: (a) zamba2-7b at full width
+   and depth (81 layers: 70 mamba, 11 applications of one shared
+   attention block at head dim 112), batch 2, prompt 4096, 32 greedy
+   decode steps: 11 launches of the tensor-core kernel a prefill; the
+   model drawn again in f32, 11 of the f32 kernel, held at 1e-3; the
+   prefill's peak device bytes.  (b) llama4-scout-17b-a16e at full width,
+   depth cut to one iRoPE period (3 local layers at window 8192, 1
+   global NoPE layer; 16 experts), batch 1, prompt 16384: 4 launches
+   (3 at window 8192, 1 at 0); the drop share by layer; the f32 twin.
+   (c) mamba2-130m at full width and depth, batch 2, prompt 4096: no
+   launch; then ``train_lm`` for 10 ``adamw(3e-3)`` steps at batch 8,
+   sequence 2048 (losses finite and falling; ms/step, tokens/s, peak).
+   (d) whisper-medium (24 encoder and 24 decoder layers; frames [2,
+   1500, 1024]), decoder prompt 448: 24 launches at head dim 64.  (e)
+   internvl2-76b at full width, depth cut to 8, batch 2, 1024 patch
+   embeddings and 3072 tokens: 8 launches at head dim 128.  (f) the
+   dry-run CLI for the six archs at every input shape (records ``ok``
+   or skipped where ``shape_applicable`` says, each stating
+   ``fits_hbm``); (a)'s prefill traced at the card's shapes, its
+   ``device_bytes_total`` within [0.8, 1.25] of the measured peak and
+   its traced flash calls equal to the launches.  Then the flash
+   kernel at each new prefill shape (time, bound, plain version,
+   ``scaled_dot_product_attention``), with a row check at head dim 112
+   in f32 and planted faults that must break it.
 
 Every failed check raises.  The last stdout line is
 ``{"ok": true, "device": {...}}``; the line before it names the card and
@@ -265,6 +295,7 @@ its own, ``neighbor_agg_tiled_slab``, at the full-graph shape of layer 1.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -311,9 +342,12 @@ from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
 from repro_torch.kernels.neighbor_agg import build as na_build  # noqa: E402
 from repro_torch.kernels.neighbor_agg import featshard as FS  # noqa: E402
 from repro_torch.kernels.neighbor_agg import ops  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import steps  # noqa: E402
-from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.configs.base import (  # noqa: E402
+    INPUT_SHAPES, InputShape, shape_applicable)
 from repro_torch.data.synth import token_batches  # noqa: E402
 from repro_torch.launch import dryrun as DR  # noqa: E402
 from repro_torch.launch import gnn_steps  # noqa: E402
@@ -413,7 +447,23 @@ class Sizes:
     lt_smoke: bool = False
     lt_b: int = 8
     lt_s: int = 4096
-    lt_steps: int = 20
+    lt_steps: int = 10
+    # phase 14: the MoE, SSM, hybrid, audio and VLM families (full
+    # configs at the depths below; smoke configs when fam_smoke)
+    fam_smoke: bool = False
+    fam_gen: int = 32
+    fam_tf: int = 8
+    zb_b: int = 2                  # zamba2-7b (14a) and mamba2-130m (14c)
+    zb_s: int = 4096
+    l4_layers: int = 4             # llama4-scout (14b): one iRoPE period
+    l4_s: int = 16384              # two windows of 8192
+    wh_s: int = 448                # whisper-medium's decoder prompt (14d)
+    vl_layers: int = 8             # internvl2-76b (14e)
+    vl_text: int = 3072            # after its 1024 patch embeddings
+    m2_b: int = 8                  # mamba2-130m training (14c)
+    m2_s: int = 2048
+    m2_steps: int = 10
+    fam_shapes: tuple = ()         # 14f's input shapes (): all of them
 
 
 FULL = Sizes()
@@ -426,7 +476,9 @@ TINY = Sizes(agg_n=600, agg_b=300, sweep_n=(64, 128), n_serve=3_000,
              lm_gen=4, lm_tf=3, fig_n=160, fig_iters=4, fw_bs=(16, 64),
              fw_steps=4, fw_eval=2, cl_steps=4, im_steps=4, repeat_steps=2,
              sh_fg_steps=3, sh_mb_steps=3, sh_queries=8, lt_smoke=True,
-             lt_b=4, lt_s=128, lt_steps=4)
+             lt_b=4, lt_s=128, lt_steps=4, fam_smoke=True, fam_gen=4,
+             fam_tf=3, zb_s=256, l4_s=128, wh_s=64, vl_text=112, m2_b=2,
+             m2_s=256, m2_steps=8, fam_shapes=("decode_32k", "long_500k"))
 
 
 def check(cond, msg: str) -> None:
@@ -1865,11 +1917,12 @@ def profile_device(dev, fn) -> dict:
                     for e in top]}
 
 
-def _print_profile(what, prof) -> None:
+def _print_profile(what, prof, label: str = "lm") -> None:
     if not prof or not prof["device_ms"]:
-        print(f"lm: profiled {what}: device time not measured", flush=True)
+        print(f"{label}: profiled {what}: device time not measured",
+              flush=True)
         return
-    print(f"lm: profiled {what}: wall {prof['wall_ms']:.2f} ms (traced), "
+    print(f"{label}: profiled {what}: wall {prof['wall_ms']:.2f} ms (traced), "
           f"device time {prof['device_ms']:.2f} ms "
           f"({prof['device_ms'] / prof['wall_ms']:.3f} of the wall), "
           f"flash kernels {prof['flash_ms']:.2f} ms "
@@ -1889,6 +1942,98 @@ def lm_phase(dev, sz: Sizes) -> dict:
               and cfg.dtype == "bfloat16" and cfg.tie_embeddings
               and cfg.pattern.count("local") == 40,
               f"unexpected gemma3-12b config {cfg}")
+    return serve_case(dev, cfg, "lm", b=sz.lm_b, s=sz.lm_s, ngen=sz.lm_gen,
+                      ntf=sz.lm_tf, f32_twin=True)
+
+
+def stub_inputs(cfg, b: int, dev, seed: int) -> dict:
+    """The stub frontends' embeddings of a batch of ``b``, drawn from a
+    seeded generator: the VLM's patches [b, frontend_seq, d], whisper's
+    frames [b, enc_seq, d] (nothing for the other families)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    out = {}
+    for key, n in (("patches", cfg.frontend_seq), ("frames", cfg.enc_seq)):
+        if n and (key == "patches" or cfg.n_enc_layers):
+            out[key] = torch.randn(b, n, cfg.d_model, generator=gen,
+                                   device=dev).to(M._dt(cfg))
+    return out
+
+
+@contextlib.contextmanager
+def observed(replay=None):
+    """While open, records every flash-attention call of the model's
+    layers as (window, head dim) and every MoE layer's expert a token
+    ([B, S]) and dropped share (``moe.route``).  With ``replay`` (the
+    experts an earlier run recorded, one [B, S] a MoE call, in order, or
+    positions of them) each MoE call sends its tokens to those experts
+    instead of the router's choice: two runs then route alike, and a
+    comparison of them sees the kernels' rounding alone (a router near a
+    tie flips an expert under another rounding, which moves that
+    token's output by O(1)).  Launches nothing and counts nothing (the
+    checks use it, never a counted window)."""
+    seen = {"flash": [], "experts": [], "dropped": []}
+    orig_fa, orig_route = L.flash_attention, MOE.route
+    forced = iter(replay) if replay is not None else None
+
+    def fa_obs(q, k, v, *, window=0, use_kernel=False):
+        seen["flash"].append((window, q.shape[-1]))
+        return orig_fa(q, k, v, window=window, use_kernel=use_kernel)
+
+    def route_obs(params, x, cfg, expert=None):
+        b, s = x.shape[:2]
+        if forced is not None:
+            expert = next(forced).reshape(b, -1, min(cfg.moe_group, s))
+        out = orig_route(params, x, cfg, expert)
+        seen["experts"].append(out[2].reshape(b, s))
+        seen["dropped"].append(1.0 - float(out[0].sum()) / (b * s))
+        return out
+    L.flash_attention, MOE.route = fa_obs, route_obs
+    try:
+        yield seen
+    finally:
+        L.flash_attention, MOE.route = orig_fa, orig_route
+
+
+def plain_cfg(cfg, s: int):
+    """The config of the plain path at a prompt of ``s`` positions: its
+    query chunk cut to divide ``s`` (whisper's 448 tokens against 512),
+    which tiles the same function."""
+    return dataclasses.replace(cfg, q_chunk=math.gcd(cfg.q_chunk, s))
+
+
+def plan_flash_calls(cfg) -> collections.Counter:
+    """The (window, head dim) of every causal self-attention of one
+    forward, from the layer plan."""
+    return collections.Counter(
+        (cfg.sliding_window if t == "local" else 0, cfg.resolved_head_dim)
+        for t in cfg.pattern if t != "mamba")
+
+
+def serve_case(dev, cfg, label: str, *, b: int, s: int, ngen: int,
+               ntf: int, f32_twin: bool = False, hold_tf: bool = True,
+               measure_peak: bool = False) -> dict:
+    """One model through the port's serving steps (``models.steps``),
+    random weights drawn on the card from a seeded generator in the
+    config's dtype: prefill of ``b`` x ``s`` tokens (after the VLM's
+    patches, beside whisper's frames) then ``ngen`` greedy decode steps,
+    between a reset and a read of the flash launch counts (the main
+    path): one launch of the routed kernel per causal self-attention of
+    the plan and none of the other.  Outside that window: the flash
+    calls' windows and head dims against the plan; the prefill's last
+    logits against the plain path (LM_PLAIN_TOL); ``ntf`` teacher-forced
+    decode steps against the forward over the prompt and ``ext`` more
+    tokens (256 where MoE groups or SSD chunks need a multiple of 256,
+    with the MoE's capacity factor raised to its expert count, under
+    which nothing drops and decode computes the same function); profiler
+    tables of one prefill and one decode step.  The run compared with the
+    kernel's replays its MoE routing (``observed(replay=)``).  With
+    ``f32_twin`` the model is drawn again in f32, its prefill counted the
+    same way (the f32 kernel) and held to the plain path at 1e-3; without
+    ``hold_tf`` the bf16 teacher-forced reading is printed, not held, and
+    the f32 twin's is held at 1e-3 instead (zamba2-7b: the rounding of 81
+    random bf16 layers, carried in the SSD and KV caches from step to
+    step, reads 5.5e-2 by step 7).  With ``measure_peak`` the prefill's
+    peak device bytes are measured."""
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1902,22 +2047,29 @@ def lm_phase(dev, sz: Sizes) -> dict:
                           dev, dtype=M._dt(cfg))
     sync()
     n_params = sum(t.numel() for t in tree_leaves(params))
-    print(f"lm: {cfg.name} {'smoke' if sz.lm_smoke else 'full'} config, "
-          f"{n_params} parameters in {M._dt(cfg)} drawn on {dev} in "
+    print(f"{label}: {cfg.name} {cfg.n_layers} layers, {n_params} "
+          f"parameters in {M._dt(cfg)} drawn on {dev} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    b, s, ngen, ntf = sz.lm_b, sz.lm_s, sz.lm_gen, sz.lm_tf
+    ext = 256 if cfg.n_experts or "mamba" in cfg.pattern else ntf
+    p0 = cfg.frontend_seq
     rng = np.random.default_rng(0)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s + ntf)),
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s + ext)),
                            device=dev)
-    prompt = {"tokens": toks[:, :s]}
+    full = {"tokens": toks, **stub_inputs(cfg, b, dev, 0)}
+    prompt = dict(full, tokens=toks[:, :s])
     prefill = steps.make_prefill_step(cfg)
     decode = steps.make_serve_step(cfg)
+    n_attn = M.causal_attention_layers(cfg)
+    route = fa.kernel_route(M._dt(cfg), cfg.resolved_head_dim) \
+        if n_attn else None
+    want_counts = {r: n_attn if r == route else 0 for r in fa.ROUTES}
+    out = {}
     with torch.inference_mode():
         # ---- the main path, between the launch-count reset and its read
         fa.reset_launches()
         sync()
         t0 = time.perf_counter()
-        last, cache = prefill(params, prompt, s + ngen)
+        last, cache = prefill(params, prompt, p0 + s + ngen)
         sync()
         prefill_s = time.perf_counter() - t0
         prefill_launches = fa.launches
@@ -1937,110 +2089,189 @@ def lm_phase(dev, sz: Sizes) -> dict:
         # ---- end of the main path
         gen_toks = torch.cat(gen_toks, 1)
         del cache
-        print(f"lm: prefill {b} x {s} tokens in {prefill_s:.3f} s "
-              f"({b * s / prefill_s:.1f} tokens/s, first call); "
+        print(f"{label}: prefill {b} x {p0 + s} tokens in {prefill_s:.3f} s "
+              f"({b * (p0 + s) / prefill_s:.1f} tokens/s, first call); "
               f"{ngen} greedy decode steps in {decode_s:.3f} s "
               f"({1e3 * decode_s / ngen:.2f} ms/step, "
               f"{b * ngen / decode_s:.1f} tokens/s); flash launches: "
               f"prefill {prefill_launches} {prefill_counts}, main path "
               f"{launches} {counts}", flush=True)
         if dev.type == "cuda":
-            route = fa.kernel_route(M._dt(cfg), cfg.resolved_head_dim)
-            want_counts = {r: cfg.n_layers if r == route else 0
-                           for r in fa.ROUTES}
-            check(prefill_launches == cfg.n_layers and
-                  launches == cfg.n_layers and prefill_counts == want_counts
-                  and counts == want_counts,
-                  f"prefill launched the flash kernels {prefill_counts} "
-                  f"(main path {counts}), not the {route} kernel once per "
-                  f"layer ({cfg.n_layers}) and no other")
-        check(bool(finite), "a prefill or decode logit is not finite")
+            check(prefill_launches == n_attn and launches == n_attn
+                  and prefill_counts == want_counts and counts == want_counts,
+                  f"{label}: prefill launched the flash kernels "
+                  f"{prefill_counts} (main path {counts}), not the {route} "
+                  f"kernel once per causal self-attention ({n_attn}) and no "
+                  f"other")
+        check(bool(finite), f"{label}: a prefill or decode logit is not "
+              f"finite")
         check(bool(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all()),
-              "a generated token is outside the vocab")
+              f"{label}: a generated token is outside the vocab")
 
         # ---- checks and timings outside the counted window
-        sync()
-        t0 = time.perf_counter()
-        plain_last, _ = M.prefill(params, cfg, prompt, kernel=False)
-        sync()
-        plain_s = time.perf_counter() - t0
-        check_plain(cfg, last, plain_last, f"plain path {plain_s:.3f} s")
-        del plain_last
-        # teacher-forced decode against the forward over prompt + ntf
-        sync()
-        t0 = time.perf_counter()
-        last2, cache = prefill(params, prompt, s + ntf)
-        sync()
-        prefill2_s = time.perf_counter() - t0
-        x = M.embed_tokens(params, cfg, toks)
-        hid, _ = M.backbone(params, cfg, x,
-                            torch.arange(s + ntf, device=dev))
-        want = M.logits_fn(params, cfg, hid[:, s - 1:]).float()
-        del x, hid
-        errs = [rel_err(last2.float(), want[:, 0])]
-        for t in range(ntf):
-            lg, cache = decode(params, cache, toks[:, s + t:s + t + 1])
-            errs.append(rel_err(lg.float(), want[:, t + 1]))
-        del want
+        with observed() as seen_k:
+            sync()
+            t0 = time.perf_counter()
+            k_last, _ = prefill(params, prompt)
+            sync()
+            prefill2_s = time.perf_counter() - t0
+        calls = collections.Counter(seen_k["flash"])
+        check(calls == plan_flash_calls(cfg),
+              f"{label}: flash calls (window, head dim) {dict(calls)} "
+              f"against the plan's {dict(plan_flash_calls(cfg))}")
+        with observed(replay=seen_k["experts"]):
+            sync()
+            t0 = time.perf_counter()
+            plain_last, _ = M.prefill(params, plain_cfg(cfg, p0 + s),
+                                      prompt, kernel=False)
+            sync()
+            plain_s = time.perf_counter() - t0
+        if cfg.n_experts:
+            print(f"{label}: tokens dropped at capacity factor "
+                  f"{cfg.capacity_factor}, by MoE layer: "
+                  f"{[round(x, 6) for x in seen_k['dropped']]}", flush=True)
+            out["dropped"] = seen_k["dropped"]
+        check_plain(cfg, k_last, plain_last, f"{label}, plain path "
+                    f"{plain_s:.3f} s")
+        out["plain_rel_err"] = logits_err(cfg, k_last, plain_last)
+        del k_last, plain_last, seen_k
+        if measure_peak:
+            out["peak_bytes"], out["peak_counts"], _ = measured_step(
+                dev, prefill, (params, prompt), 0)
+        print(f"{label}: second prefill {prefill2_s:.3f} s "
+              f"({b * (p0 + s) / prefill2_s:.1f} tokens/s)", flush=True)
+        bf16 = M._dt(cfg) == torch.bfloat16
+        errs, cache = teacher_forced(
+            params, cfg, label, full, s, ext, ntf,
+            (LM_DECODE_TOL if hold_tf else None) if bf16
+            else LM_PLAIN_TOL[torch.float32])
         prof_decode = ({} if dev.type != "cuda" else profile_device(
             dev, lambda: decode(params, cache, toks[:, -1:])))
         del cache
-        print(f"lm: second prefill {prefill2_s:.3f} s "
-              f"({b * s / prefill2_s:.1f} tokens/s); teacher-forced decode "
-              f"vs the forward over {s + ntf} tokens, relative max error "
-              f"by step (prefill first): {[f'{e:.3g}' for e in errs]} "
-              f"(limit {LM_DECODE_TOL})", flush=True)
-        check(max(errs) <= LM_DECODE_TOL,
-              f"teacher-forced decode rel err {max(errs)} beyond "
-              f"{LM_DECODE_TOL}")
-        out = dict(launches=launches, counts=counts, prefill_s=prefill_s,
-                   prefill2_s=prefill2_s, decode_ms=1e3 * decode_s / ngen)
+        out.update(launches=launches, counts=counts, prefill_s=prefill_s,
+                   prefill2_s=prefill2_s, decode_ms=1e3 * decode_s / ngen,
+                   tokens=b * (p0 + s), tf_errs=errs,
+                   flash_calls={f"{w}/{d}": n for (w, d), n in calls.items()},
+                   flash_shapes=[(b, p0 + s, SH.padded_heads(cfg.n_heads),
+                                  cfg.n_kv_heads, d, w, n)
+                                 for (w, d), n in sorted(calls.items())])
         if dev.type == "cuda":
             _print_profile("prefill", profile_device(
-                dev, lambda: prefill(params, prompt)))
-            _print_profile("decode step", prof_decode)
-            print(f"lm: max memory allocated "
-                  f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+                dev, lambda: prefill(params, prompt)), label)
+            _print_profile("decode step", prof_decode, label)
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+                dev)
+            print(f"{label}: max memory allocated "
+                  f"{out['max_memory_allocated'] / 2**30:.2f} GiB",
                   flush=True)
     del params
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    if not f32_twin:
+        return out
     if M._dt(cfg) == torch.float32:           # the main path was f32 already
         out["counts_f32"] = counts
-    else:
-        # the same comparison with the model drawn in f32, where neither
-        # path rounds to bf16
-        cfg32 = dataclasses.replace(cfg, dtype="float32")
-        params = M.init_model(torch.Generator(device=dev).manual_seed(0),
-                              cfg32, dev, dtype=torch.float32)
+        return out
+    # the same comparison with the model drawn in f32, where neither path
+    # rounds to bf16
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = M.init_model(torch.Generator(device=dev).manual_seed(0),
+                          cfg32, dev, dtype=torch.float32)
+    prompt32 = {k: v.float() if v.is_floating_point() else v
+                for k, v in prompt.items()}
+    with torch.inference_mode():
+        # ---- the f32 model's prefill, between a reset and a read
+        fa.reset_launches()
+        with observed() as seen_k:
+            got, _ = steps.make_prefill_step(cfg32)(params, prompt32)
+        sync()
+        out["counts_f32"] = fa.launch_counts()
+        # ---- end of the f32 model's prefill
+        with observed(replay=seen_k["experts"]):
+            want, _ = M.prefill(params, plain_cfg(cfg32, p0 + s), prompt32,
+                                kernel=False)
+    print(f"{label}: f32 model prefill flash launches {out['counts_f32']}",
+          flush=True)
+    if dev.type == "cuda":
+        route = fa.kernel_route(torch.float32, cfg.resolved_head_dim)
+        check(out["counts_f32"] == {r: n_attn if r == route else 0
+                                    for r in fa.ROUTES},
+              f"{label}: f32 prefill launched the flash kernels "
+              f"{out['counts_f32']}, not the {route} kernel once per causal "
+              f"self-attention")
+    check_plain(cfg32, got, want, f"{label}, f32 model")
+    out["plain_rel_err_f32"] = logits_err(cfg, got, want)
+    del got, want
+    if not hold_tf:
+        full32 = {k: v.float() if v.is_floating_point() else v
+                  for k, v in full.items()}
         with torch.inference_mode():
-            # ---- the f32 model's prefill, between a reset and a read
-            fa.reset_launches()
-            got, _ = steps.make_prefill_step(cfg32)(params, prompt)
-            sync()
-            out["counts_f32"] = fa.launch_counts()
-            # ---- end of the f32 model's prefill
-            want, _ = M.prefill(params, cfg32, prompt, kernel=False)
-        print(f"lm: f32 model prefill flash launches {out['counts_f32']}",
-              flush=True)
-        if dev.type == "cuda":
-            route = fa.kernel_route(torch.float32, cfg.resolved_head_dim)
-            check(out["counts_f32"] == {r: cfg.n_layers if r == route else 0
-                                        for r in fa.ROUTES},
-                  f"f32 prefill launched the flash kernels "
-                  f"{out['counts_f32']}, not the {route} kernel once per "
-                  f"layer")
-        check_plain(cfg32, got, want, "f32 model")
-        del params, got, want
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
+            out["tf_errs_f32"], _ = teacher_forced(
+                params, cfg32, f"{label} f32 model", full32, s, ext, ntf,
+                LM_PLAIN_TOL[torch.float32])
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     return out
 
 
+def teacher_forced(params, cfg, label: str, full: dict, s: int, ext: int,
+                   ntf: int, limit):
+    """``ntf`` teacher-forced decode steps after a prefill of the first
+    ``s`` tokens of ``full`` against the forward over all of them (``s +
+    ext``), relative max error of each step's logits (the prefill's
+    first).  An MoE runs with its capacity factor raised to its expert
+    count, under which nothing drops and decode computes the forward's
+    function, and the prefill and each step replay the forward's routing
+    of their positions.  Held at ``limit`` (printed only when None).
+    Returns (errors, the decode cache)."""
+    dev = full["tokens"].device
+    toks = full["tokens"]
+    p0 = cfg.frontend_seq
+    tcfg = dataclasses.replace(cfg, capacity_factor=float(
+        cfg.n_experts)) if cfg.n_experts else cfg
+    with observed() as seen:
+        x, enc = M._inputs(params, tcfg, full)
+        hid, _, _ = M.backbone(params, tcfg, x,
+                               torch.arange(x.shape[1], device=dev), enc)
+        want = M.logits_fn(params, tcfg,
+                           hid[:, p0 + s - 1:p0 + s + ntf]).float()
+    del x, hid, enc
+    experts = seen["experts"]
+    with observed(replay=[e[:, :p0 + s] for e in experts]):
+        last, cache = M.prefill(params, tcfg, dict(full, tokens=toks[:, :s]),
+                                p0 + s + ext)
+    errs = [logits_err(cfg, last, want[:, 0])]
+    for t in range(ntf):
+        with observed(replay=[e[:, p0 + s + t] for e in experts]):
+            lg, cache = M.decode_step(params, tcfg, cache,
+                                      toks[:, s + t:s + t + 1])
+        errs.append(logits_err(cfg, lg, want[:, t + 1]))
+    print(f"{label}: teacher-forced decode vs the forward over "
+          f"{p0 + s + ext} tokens"
+          f"{' (capacity factor = experts)' if cfg.n_experts else ''}, "
+          f"relative max error by step (prefill first): "
+          f"{[f'{e:.3g}' for e in errs]} "
+          f"({f'limit {limit}' if limit else 'printed, not held'})",
+          flush=True)
+    if limit:
+        check(max(errs) <= limit, f"{label}: teacher-forced decode rel "
+              f"err {max(errs)} beyond {limit}")
+    return errs, cache
+
+
+def logits_err(cfg, got, want) -> float:
+    """Relative max error of logits over the vocab (the padding columns
+    hold -1e30 and would swamp the denominator)."""
+    v = cfg.vocab_size
+    return rel_err(got[..., :v].float(), want[..., :v].float())
+
+
 def check_plain(cfg, got, want, what) -> None:
-    """The prefill's last logits with the kernel against the plain path."""
+    """The prefill's last logits with the kernel against the plain
+    path."""
     dt = M._dt(cfg)
-    err = rel_err(got.float(), want.float())
+    err = logits_err(cfg, got, want)
     print(f"lm: prefill last logits ({str(dt)[6:]}), flash kernel vs the "
           f"plain path (chunked attention; {what}): relative max error "
           f"{err:.4g} (limit {LM_PLAIN_TOL[dt]})", flush=True)
@@ -3582,7 +3813,7 @@ def lm_train(dev, sz: Sizes, tag: str) -> dict:
     fa.reset_launches()
     # adamw(3e-3), as the reference's loss-falls test (tests/
     # test_system.py:22): the default schedule's warm-up barely moves
-    # the loss in 20 steps
+    # the loss in so few steps
     res = launch_train.train_lm(lm_args(sz, dev, mb), optimizer=adamw(3e-3))
     run_s = time.perf_counter() - t0
     # training attends through the reference model's chunked attention:
@@ -3685,20 +3916,21 @@ def microbatch_check(dev, cfg, sz: Sizes, tag: str) -> dict:
 
 
 @contextlib.contextmanager
-def dryrun_started():
-    """13b's ``python -m repro_torch.launch.dryrun`` calls at the
-    production sizes (gnn-papers100m at its full n), one process each,
-    all started at once: they trace on the host's cores while 13a trains
-    on the card.  Yields (records directory, [(argv, process)]); on exit
-    kills any still running and removes the records."""
+def dryrun_started(calls=DRYRUN_CALLS):
+    """``python -m repro_torch.launch.dryrun`` calls at the production
+    sizes (13b's by default: gnn-papers100m at its full n), one process
+    each, all started at once: they trace on the host's cores while the
+    card trains or serves.  Yields (records directory, [(argv,
+    process)]); on exit kills any still running and removes the
+    records."""
     os.makedirs(DRYRUN_OUT, exist_ok=True)
     out_dir = tempfile.mkdtemp(dir=DRYRUN_OUT)
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
         [os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"),
          os.environ.get("PYTHONPATH", "")]))
     procs = []
     try:
-        for argv in DRYRUN_CALLS:
+        for argv in calls:
             procs.append((argv, subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
                  "--single-pod", "--out", out_dir], stdout=subprocess.PIPE,
@@ -3786,19 +4018,20 @@ def meta_of(tree):
                          lambda t: torch.empty_like(t, device="meta"), tree)
 
 
-def prediction_line(label, pred, peak, ms, tag) -> dict:
-    """Print and hold one 13c comparison (the ratio on the card only: the
-    CPU rehearsal measures no device memory)."""
+def prediction_line(label, pred, peak, ms, tag, phase: str = "13c") -> dict:
+    """Print and hold one comparison of the dry-run with the card (the
+    ratio on the card only: the CPU rehearsal measures no device
+    memory)."""
     ratio = pred["device_bytes_total"] / peak if peak else None
     r = pred["roofline"]
     share = r["bound_s"] * 1e3 / ms if ms else None
-    print(f"13c {label}: dry-run device_bytes_total "
+    print(f"{phase} {label}: dry-run device_bytes_total "
           f"{pred['device_bytes_total']} B, measured peak {peak} B, ratio "
           f"{ratio} (limits {PEAK_RATIO}); step {ms} ms (CUDA events) "
           f"against bound_s {r['bound_s'] * 1e3:.4f} ms ({r['dominant']}), "
           f"share {share} ({tag})", flush=True)
     check(peak is None or PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1],
-          f"13c {label}: predicted {pred['device_bytes_total']} B against "
+          f"{phase} {label}: predicted {pred['device_bytes_total']} B against "
           f"{peak} B measured")
     return {"predicted_bytes": pred["device_bytes_total"],
             "measured_peak_bytes": peak, "ratio": ratio, "step_ms": ms,
@@ -4019,6 +4252,302 @@ def lm_dryrun_phase(dev, sz: Sizes, graph) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the MoE, SSM, hybrid, audio and VLM families
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("zamba2-7b", "llama4-scout-17b-a16e", "mamba2-130m",
+                "whisper-medium", "internvl2-76b",
+                "llama4-maverick-400b-a17b")
+# the plain version of a flash call runs by KV head where its [B, H, S, S]
+# f32 scores would pass this (llama4's 48 x 16384^2: 51.5 GB)
+PLAIN_SCORES_BYTES = 8 * 2 ** 30
+
+
+def family_cfg(arch: str, sz: Sizes, layers: int = 0):
+    """The arch's full config (its smoke config when ``fam_smoke``), its
+    depth cut to the pattern's first ``layers`` layers when given."""
+    cfg = get_config(arch, smoke=sz.fam_smoke)
+    if layers and not sz.fam_smoke:
+        cfg = dataclasses.replace(
+            cfg, n_layers=layers, layer_pattern=cfg.layer_pattern[:layers]
+            if cfg.layer_pattern else None)
+    return cfg
+
+
+def family_serving(dev, sz: Sizes) -> dict:
+    """14a-e's serving cases, each model dropped before the next."""
+    fam = dict(ngen=sz.fam_gen, ntf=sz.fam_tf)
+    out = {}
+    cfg = family_cfg("zamba2-7b", sz)
+    if not sz.fam_smoke:
+        check(cfg.n_layers == 81 and cfg.d_model == 3584
+              and cfg.resolved_head_dim == 112 and cfg.n_kv_heads == 32
+              and cfg.pattern.count("mamba") == 70
+              and cfg.pattern.count("shared_attn") == 11
+              and cfg.ssm_state == 64, f"unexpected zamba2-7b config {cfg}")
+    out["14a zamba2"] = serve_case(dev, cfg, "14a zamba2-7b", b=sz.zb_b,
+                                   s=sz.zb_s, f32_twin=True, hold_tf=False,
+                                   measure_peak=True, **fam)
+    cfg = family_cfg("llama4-scout-17b-a16e", sz, sz.l4_layers)
+    if not sz.fam_smoke:
+        check(cfg.pattern == ("local",) * 3 + ("attn",)
+              and cfg.d_model == 5120 and cfg.n_experts == 16
+              and cfg.d_ff == 8192 and cfg.sliding_window == 8192
+              and cfg.family == "moe", f"unexpected llama4 config {cfg}")
+    out["14b llama4"] = serve_case(dev, cfg, "14b llama4-scout", b=1,
+                                   s=sz.l4_s, f32_twin=True, **fam)
+    cfg = family_cfg("mamba2-130m", sz)
+    out["14c mamba2"] = serve_case(dev, cfg, "14c mamba2-130m", b=sz.zb_b,
+                                   s=sz.zb_s, **fam)
+    cfg = family_cfg("whisper-medium", sz)
+    if not sz.fam_smoke:
+        check(cfg.n_layers == 24 and cfg.n_enc_layers == 24
+              and cfg.enc_seq == 1500 and cfg.d_model == 1024,
+              f"unexpected whisper-medium config {cfg}")
+    out["14d whisper"] = serve_case(dev, cfg, "14d whisper-medium", b=2,
+                                    s=sz.wh_s, **fam)
+    cfg = family_cfg("internvl2-76b", sz, sz.vl_layers)
+    if not sz.fam_smoke:
+        check(cfg.n_layers == 8 and cfg.d_model == 8192
+              and cfg.frontend_seq == 1024 and cfg.d_ff == 28672,
+              f"unexpected internvl2-76b config {cfg}")
+    out["14e internvl2"] = serve_case(dev, cfg, "14e internvl2-76b", b=2,
+                                      s=sz.vl_text, **fam)
+    return out
+
+
+def family_train(dev, sz: Sizes, tag: str) -> dict:
+    """14c's training: ``train_lm`` on mamba2-130m at full width and
+    depth, ``adamw(3e-3)``; losses finite and falling, no kernel
+    launched."""
+    args = argparse.Namespace(
+        arch="mamba2-130m", smoke=sz.fam_smoke, steps=sz.m2_steps,
+        batch=sz.m2_b, seq=sz.m2_s, microbatches=1, model_par=1, seed=0,
+        log_every=5, ckpt_every=0, ckpt_dir="", keep_last=0, device=str(dev))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    fa.reset_launches()
+    res = launch_train.train_lm(args, optimizer=adamw(3e-3))
+    launches = {**ops.launch_counts(), **fa.launch_counts()}
+    check_launch(dev, not any(launches.values()),
+                 f"14c training launched kernels: {launches}")
+    losses = res["losses"]
+    check(all(math.isfinite(x) for x in losses), f"14c losses {losses}")
+    check(np.mean(losses[-3:]) < losses[0],
+          f"14c: the loss did not fall: {losses}")
+    out = {"losses": losses, "launches": launches}
+    if res["step_ms"]:
+        ms = float(np.median(res["step_ms"][1:]))
+        out.update(step_ms=ms, tokens_per_s=sz.m2_b * sz.m2_s / ms * 1e3,
+                   peak_bytes=torch.cuda.max_memory_allocated(dev))
+        print(f"14c train_lm mamba2-130m b={sz.m2_b} s={sz.m2_s}: {ms:.2f} "
+              f"ms/step (median of steps 2-{sz.m2_steps}, CUDA events), "
+              f"{out['tokens_per_s']:.0f} tokens/s, max_memory_allocated "
+              f"{out['peak_bytes']} B, loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f} ({tag})", flush=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_dryrun_calls(sz: Sizes) -> tuple:
+    """14f's dry-run CLI calls: one process an arch, at ``fam_shapes``
+    (every input shape when empty; the CPU rehearsal traces the decode
+    shapes only, which take a second each)."""
+    shapes = [a for sh in sz.fam_shapes for a in ("--shape", sh)]
+    return tuple(["--arch", a, *shapes] for a in FAMILY_ARCHS)
+
+
+def family_dryrun(tag: str, out_dir: str, procs, sz: Sizes) -> dict:
+    """14f: wait for the dry-run processes; every combination of the six
+    archs and the input shapes recorded, ``ok`` where ``shape_applicable``
+    admits it (with ``fits_hbm``) and skipped elsewhere."""
+    for argv, proc in procs:
+        _, err = proc.communicate(timeout=900)
+        check(proc.returncode == 0, f"14f dryrun {argv}: {err[-2000:]}")
+    recs = {}
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name)) as f:
+            rec = json.load(f)
+        key = f"{rec['arch']}__{rec['shape']}"
+        ok, _ = shape_applicable(get_config(rec["arch"]),
+                                 INPUT_SHAPES[rec["shape"]])
+        check(rec["status"] == ("ok" if ok else "skipped"),
+              f"14f {name}: {rec['status']} {rec.get('error')} "
+              f"{rec.get('traceback')}")
+        if not ok:
+            recs[key] = {"status": "skipped"}
+            continue
+        check(isinstance(rec["fits_hbm"], bool), f"14f {name}: fits_hbm")
+        r = rec["roofline"]
+        print(f"14f dryrun {key} {rec['mesh']}: device_bytes_total "
+              f"{rec['device_bytes_total']} B, fits_hbm {rec['fits_hbm']}, "
+              f"params {rec['params_total']} (active "
+              f"{rec['params_active']}), dominant {r['dominant']}, bound_s "
+              f"{r['bound_s']:.6g}, kernel calls {rec['kernel_calls']} (at "
+              f"the H100's published peaks; run beside {tag}; traced on the "
+              f"host in {rec['compile_seconds']:.1f} s)", flush=True)
+        recs[key] = {k: rec[k] for k in (
+            "status", "device_bytes_total", "fits_hbm", "params_total",
+            "params_active", "per_device_flops", "roofline", "kernel_calls",
+            "compile_seconds")}
+    want = {f"{a}__{sh}" for a in FAMILY_ARCHS
+            for sh in sz.fam_shapes or INPUT_SHAPES}
+    check(set(recs) == want, f"14f records {sorted(recs)}")
+    return recs
+
+
+def family_peak(dev, sz: Sizes, tag: str, zamba: dict) -> dict:
+    """14f: 14a's prefill traced at the card's shapes against its
+    measured peak; the traced flash calls against the launches."""
+    cfg = family_cfg("zamba2-7b", sz)
+    shape = InputShape("prefill", "prefill", sz.zb_s, sz.zb_b)
+    pred = DR.dryrun_lm("zamba2-7b", shape, cfg=cfg)
+    out = prediction_line(f"zamba2-7b prefill b={sz.zb_b} s={sz.zb_s}",
+                          pred, zamba["peak_bytes"], None, tag, "14f")
+    traced = {r: pred["kernel_calls"].get(f"flash_{r}", 0)
+              for r in fa.ROUTES}
+    launched = {r: zamba["peak_counts"][r] for r in fa.ROUTES}
+    check_launch(dev, traced == launched,
+                 f"14f: traced flash calls {traced} against launched "
+                 f"{launched}")
+    return dict(out, traced=traced, launched=launched)
+
+
+def family_flash(dev, sz: Sizes, rows: list) -> dict:
+    """The flash kernel at each prefill shape of phase 14, bf16: against
+    the plain version (FA_TOL; by KV head where its scores would pass
+    PLAIN_SCORES_BYTES), timed beside it, ``scaled_dot_product_attention``
+    and the bound.  At head dim 112: the row check against the plain
+    version in f32 (BF16_ROW_TOL), faults planted in the output that must
+    break it (the second half's rows off by 2 %, the output's last 16
+    real columns zeroed), and the f32 kernel on the same inputs in f32."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    kern = lambda q, k, v, w: fa.flash_attention(  # noqa: E731
+        q, k, v, window=w, use_kernel=True)
+    plain = lambda q, k, v, w: fa.flash_attention(  # noqa: E731
+        q, k, v, window=w, use_kernel=False)
+    out = {}
+    for label, b, s, hq, hkv, d, w, n in rows:
+        name = f"flash bf16 B={b} S={s} Hq={hq} Hkv={hkv} D={d} window={w}"
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev).to(
+            torch.bfloat16) for h in (hq, hkv, hkv))
+        route = fa.kernel_route(q.dtype, d)
+        counts = fa.launch_counts()
+        got = kern(q, k, v, w)
+        check_launch(dev, fa.launch_counts()[route] == counts[route] + 1,
+                     f"{name}: not one launch of the {route} kernel")
+        g = hq // hkv
+        parts = (1 if b * hq * s * s * 4 <= PLAIN_SCORES_BYTES else hkv)
+        slices = [tuple(x[:, :, i * h_:(i + 1) * h_].contiguous()
+                        for x, h_ in ((q, hq // parts), (k, hkv // parts),
+                                      (v, hkv // parts)))
+                  for i in range(parts)]
+        want = torch.cat([plain(*sl, w) for sl in slices], 2)
+        err = compare(f"{name} ({label})", q.dtype, got, want,
+                      FA_TOL[q.dtype])
+        del want
+        row = {}
+        if d % 64:
+            q32, k32, v32 = (x.float() for x in (q, k, v))
+            ref32 = plain(q32, k32, v32, w)
+            r = row_rel_err(got, ref32)
+            check(dev.type != "cuda" or r <= BF16_ROW_TOL,
+                  f"{name}: row error {r} beyond {BF16_ROW_TOL}")
+            late = got.clone()
+            late[:, s // 2:] = (late[:, s // 2:].float() * 1.02).to(
+                got.dtype)
+            cols = got.clone()
+            cols[..., d - 16:] = 0
+            faults = {"late rows x1.02": row_rel_err(late, ref32),
+                      f"columns {d - 16}-{d - 1} zeroed":
+                          row_rel_err(cols, ref32)}
+            for fault, x in faults.items():
+                check(x > BF16_ROW_TOL, f"{name}: the row check passes the "
+                      f"planted fault '{fault}' ({x} <= {BF16_ROW_TOL})")
+            del late, cols
+            counts = fa.launch_counts()
+            got32 = kern(q32, k32, v32, w)
+            check_launch(dev, fa.launch_counts()["simt"]
+                         == counts["simt"] + 1,
+                         f"{name}: f32 not one launch of the f32 kernel")
+            err32 = compare(f"{name} in f32", torch.float32, got32, ref32,
+                            FA_TOL[torch.float32])
+            simt_ms = time_ms(lambda: kern(q32, k32, v32, w), dev,
+                              sz.fa_iters)
+            p32_ms = time_ms(lambda: plain(q32, k32, v32, w), dev, 1, 1)
+            lib32 = library_ms(_sdpa(q32, k32, v32, w), dev, sz.fa_iters)
+            b32 = flash_bound(b, s, hq, hkv, d, w, torch.float32)[0]
+            row = {"row_rel_err": r, "row_check_limit": BF16_ROW_TOL,
+                   "planted_faults": faults, "f32_max_abs_err": err32,
+                   "f32_kernel_ms": simt_ms, "f32_plain_ms": p32_ms,
+                   "f32_library_ms": lib32, "f32_bound_ms": b32}
+            print(f"{name}: row error {r:.6g} (limit {BF16_ROW_TOL}); "
+                  f"planted faults {faults}; the f32 kernel on the inputs in "
+                  f"f32: max_err {err32:.3g}, {simt_ms:.4f} ms, plain "
+                  f"{p32_ms:.4f} ms, library {fmt(lib32)} ms, bound "
+                  f"{b32:.4f} ms (f32 rate)", flush=True)
+            del q32, k32, v32, ref32, got32
+        del got
+        k_ms = time_ms(lambda: kern(q, k, v, w), dev, sz.fa_iters)
+        p_ms = sum(time_ms(lambda: plain(*sl, w), dev, 1, 1)
+                   for sl in slices)
+        del slices
+        if w:
+            ke, ve = (x.repeat_interleave(g, dim=2) for x in (k, v))
+            lib = library_ms(_sdpa(q, ke, ve, w), dev, sz.fa_iters)
+            del ke, ve
+        else:
+            lib = library_ms(_sdpa(q, k, v, w), dev, sz.fa_iters)
+        b_ms, b_by, nbytes, flops = flash_bound(b, s, hq, hkv, d, w,
+                                                q.dtype)
+        out[name] = dict(
+            path=label, route=route, launches_per_prefill=n,
+            max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+            plain_parts=parts, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib, **row)
+        print(f"{name} ({label}, {n} a prefill): {route} kernel "
+              f"max_err={err:.3g} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}"
+              f"{f' (by {parts} KV heads)' if parts > 1 else ''} "
+              f"library_ms={fmt(lib)} (scaled_dot_product_attention"
+              f"{', band mask' if w else ''}) bound_ms={b_ms:.4f} (bound by "
+              f"{b_by}: {nbytes} B, {flops} flops) = "
+              f"{flops / k_ms / 1e9:.1f} TFLOP/s achieved", flush=True)
+        del q, k, v
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def family_phase(dev, sz: Sizes) -> dict:
+    """Phase 14 (14a-f), the dry-run processes tracing on the host while
+    the card serves and trains."""
+    tag = card_tag()
+    secs, out = {}, {}
+    if dev.type == "cuda":              # the allocator's statistics exist
+        torch.zeros(1, device=dev)      # once it has allocated
+
+    def timed(key, fn, *args):
+        t0 = time.perf_counter()
+        out[key] = fn(*args)
+        secs[key] = time.perf_counter() - t0
+    with dryrun_started(family_dryrun_calls(sz)) as (out_dir, procs):
+        timed("14a-e serving", family_serving, dev, sz)
+        timed("14c training", family_train, dev, sz, tag)
+        rows = [(key, *shape) for key, res in out["14a-e serving"].items()
+                for shape in res["flash_shapes"]]
+        timed("14 flash shapes", family_flash, dev, sz, rows)
+        timed("14f peak", family_peak, dev, sz, tag,
+              out["14a-e serving"]["14a zamba2"])
+        timed("14f dryrun cli (wait)", family_dryrun, tag, out_dir, procs,
+              sz)
+    out["seconds"] = secs
+    return out
+
+
 def run(dev: torch.device, sz: Sizes) -> dict:
     # full f32 products everywhere (TF32 off), bf16 GEMMs reduce in f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4048,7 +4577,8 @@ def run(dev: torch.device, sz: Sizes) -> dict:
     shrd = timed("12 sharded", sharded_phase, dev, sz, graph)
     p13 = timed("13 lm train + dry-run", lm_dryrun_phase, dev, sz, graph)
     del graph
-    for ph in (figs, srcs, shrd, p13):
+    p14 = timed("14 families", family_phase, dev, sz)
+    for ph in (figs, srcs, shrd, p13, p14):
         secs.update({k: round(v, 2) for k, v in ph["seconds"].items()})
     print(f"phase seconds: {json.dumps(secs)}", flush=True)
     fig_runs = figs["10c figures"]
@@ -4066,6 +4596,16 @@ def run(dev: torch.device, sz: Sizes) -> dict:
                                    for k, v in figs["10a cli"].items()},
                 "sweep_full_width": {k: v["launches"][kernel]
                                      for k, v in figs["10b sweep"].items()}}
+    def on_families(route):
+        """``route``'s launches on each serving path of phase 14 (and the
+        f32 twins' prefills)."""
+        out = {}
+        for key, res in p14["14a-e serving"].items():
+            name = key.split()[1]
+            out[f"{name}_serve"] = res["counts"][route]
+            if "counts_f32" in res:
+                out[f"{name}_prefill_f32_model"] = res["counts_f32"][route]
+        return out
     d = max(sz.agg_d)
     b, s, hq, hkv, hd = sz.fa_shape
     w1 = sz.fa_windows[1]
@@ -4201,11 +4741,13 @@ def run(dev: torch.device, sz: Sizes) -> dict:
          "launches": lm["counts"]["wgmma"],
          "launches_by_path": {
              "lm_serve_bf16": lm["counts"]["wgmma"],
-             "lm_prefill_f32_model": lm["counts_f32"]["wgmma"]},
+             "lm_prefill_f32_model": lm["counts_f32"]["wgmma"],
+             **on_families("wgmma")},
          **_own(flash[(torch.bfloat16, 0)]),
          "shape": f"bf16, B={b} S={s} Hq={hq} Hkv={hkv} D={hd}, window 0",
          f"window_{w1}": _own(flash[(torch.bfloat16, w1)]),
-         "row_check": flash["wgmma_rows"]},
+         "row_check": flash["wgmma_rows"],
+         "family_shapes": p14["14 flash shapes"]},
         {"name": "flash_attention", "route": "cuda",
          "source": FA_CSRC + "flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn/flash_attn.py:78",
@@ -4213,8 +4755,9 @@ def run(dev: torch.device, sz: Sizes) -> dict:
          "launches_by_path": {
              "lm_serve_bf16": lm["counts"]["simt"],
              "lm_prefill_f32_model": lm["counts_f32"]["simt"],
+             **on_families("simt"),
              "note": "serves f32 and D = 16 or 32 only; launches are the "
-                     "f32 model's prefill, the bf16 main path runs none"},
+                     "f32 models' prefills, the bf16 main paths run none"},
          **_simt_on_bf16(flash[(torch.bfloat16, 0)]),
          "shape": f"bf16, B={b} S={s} Hq={hq} Hkv={hkv} D={hd}, window 0 "
                   f"(the same inputs as flash_attention_wgmma)",

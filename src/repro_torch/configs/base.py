@@ -1,8 +1,8 @@
 """Configurations of the port: ``GNNConfig`` and ``ModelConfig`` with the
 reference's fields (``repro.configs.base``), so the reference's config
-modules copy unchanged, and the registry of the ported architectures:
-the GNN and the dense decoder family.  The other LM families raise
-``NotImplementedError`` naming the slice that ports them."""
+modules copy unchanged, and the registry of every architecture the
+reference has: the GNN and the dense, MoE, SSM, hybrid, audio and VLM
+decoders."""
 from __future__ import annotations
 
 import dataclasses
@@ -231,18 +231,14 @@ def shape_applicable(cfg, shape: InputShape) -> Tuple[bool, str]:
 # ---------------------------------------------------------------------------
 
 _ARCH_MODULES = ["gnn_papers100m", "gemma3_12b", "gemma_7b", "granite_3_2b",
-                 "stablelm_1_6b"]
+                 "stablelm_1_6b", "internvl2_76b", "llama4_maverick_400b_a17b",
+                 "llama4_scout_17b_a16e", "mamba2_130m", "whisper_medium",
+                 "zamba2_7b"]
 
-#: the reference's LM configurations (the dense ones are ported)
+#: the reference's LM configurations
 LM_ARCHS = ("gemma3-12b", "gemma-7b", "granite-3-2b", "internvl2-76b",
             "llama4-maverick-400b-a17b", "llama4-scout-17b-a16e",
             "mamba2-130m", "stablelm-1.6b", "whisper-medium", "zamba2-7b")
-
-#: LM architectures of the reference not ported yet, with the family that
-#: a later slice ports (ROADMAP.md Queue 1)
-_LATER = {"llama4-maverick-400b-a17b": "moe", "llama4-scout-17b-a16e": "moe",
-          "mamba2-130m": "ssm", "zamba2-7b": "hybrid",
-          "whisper-medium": "audio", "internvl2-76b": "vlm"}
 
 
 def _modules() -> Dict[str, object]:
@@ -260,15 +256,7 @@ def list_archs() -> Tuple[str, ...]:
 def get_config(name: str, smoke: bool = False
                ) -> Union[GNNConfig, ModelConfig]:
     """``full_config()`` (or ``smoke_config()``) of the named
-    configuration, validated.  Accepts ``-`` or ``_`` spellings.  An LM
-    architecture of a family not ported yet raises
-    ``NotImplementedError``."""
-    later = _LATER.get(name.replace("_", "-"))
-    if later is not None:
-        raise NotImplementedError(
-            f"arch {name!r} is of the {later} family, which a later LM "
-            f"slice ports (ROADMAP.md Queue 1); the port serves the dense "
-            f"family")
+    configuration, validated.  Accepts ``-`` or ``_`` spellings."""
     mods = _modules()
     for k, mod in mods.items():
         if k == name.replace("_", "-") or k.replace("-", "_") == name:

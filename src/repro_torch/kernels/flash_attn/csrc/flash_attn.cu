@@ -84,7 +84,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <int D>
 struct Shape {
   static constexpr int kStride = D + 4;                // Q/K/V row, floats
-  static constexpr int kVec = D >= 64 ? 4 : D / 16;     // output columns a load
+  // output columns a load: 4 where D is a multiple of 64, so that a
+  // thread's columns (ch * 16 + tx) * kVec .. + kVec - 1 of each chunk
+  // tile D; one at D = 112 (seven chunks of 16 columns)
+  static constexpr int kVec = D >= 64 ? (D % 64 == 0 ? 4 : 1) : D / 16;
   static constexpr int kChunks = D / (16 * kVec);       // loads a thread a row
   static constexpr int kCols = kChunks * kVec;          // = D / 16
   static constexpr size_t kSmem =
@@ -349,6 +352,9 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int b,
       return launch<T, 32>(q, k, v, o, b, s, hq, hkv, window, scale, stream);
     case 64:
       return launch<T, 64>(q, k, v, o, b, s, hq, hkv, window, scale, stream);
+    case 112:
+      return launch<T, 112>(q, k, v, o, b, s, hq, hkv, window, scale,
+                            stream);
     case 128:
       return launch<T, 128>(q, k, v, o, b, s, hq, hkv, window, scale,
                             stream);

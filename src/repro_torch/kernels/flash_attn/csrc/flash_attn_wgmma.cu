@@ -6,7 +6,7 @@
 //
 // q, o [B, S, Hq, D] and k, v [B, S, Hkv, D], bf16, contiguous and 16-byte
 // aligned, read and written in place (no transposes, no repeat of the KV
-// heads: query head h reads KV head h / (Hq / Hkv)).  D is 64, 128 or
+// heads: query head h reads KV head h / (Hq / Hkv)).  D is 64, 112, 128 or
 // 256; S is any length.  The mask keeps t <= s and, with window > 0,
 // t > s - window.  Products accumulate in f32, the softmax runs in f32,
 // and the output is rounded to bf16 once, at the store.
@@ -87,11 +87,18 @@ constexpr int kBadArgs = 1000;    // returned for arguments refused
 constexpr int kNoEncoder = 3000;  // no CUDA-driver cuTensorMapEncodeTiled
 constexpr int kEncodeFailed = 2000;  // + the CUresult
 
+// D = 112 (zamba2-7b's head dim) runs in the D = 128 layout: the tensor
+// maps have an inner extent of 112, so TMA fills columns 112-127 of every
+// Q, K and V tile with zeros.  Q K^T then skips its last 16-column step
+// (zeros times zeros), the last 16 columns of P V come out zero, and the
+// store writes the 112 real columns only: the output's rows are Hq * 112
+// apart, and a 128-column store would write over the next head.
 template <int D>
 struct Cfg {
-  static constexpr int kPanels = D / 64;
+  static constexpr int kDP = (D + 63) / 64 * 64;  // the tiles' width
+  static constexpr int kPanels = kDP / 64;
   // one 64-row tile: a warpgroup's Q, or one K or V stage
-  static constexpr uint32_t kTile = 64 * D * 2;
+  static constexpr uint32_t kTile = 64 * kDP * 2;
   static constexpr uint32_t kQ = 0;
   static constexpr uint32_t kK = kQ + 2 * kTile;
   static constexpr uint32_t kV = kK + kStages * kTile;
@@ -182,9 +189,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row_a = r0 + 16 * warp + g, row_b = row_a + 8;
     const uint32_t q_wg = sq + wg * C::kTile;
 
-    float acc[D / 2];
+    float acc[C::kDP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < C::kDP / 2; ++i) acc[i] = 0.f;
     float m_a = -INFINITY, m_b = -INFINITY;  // running max, log2 units
     float l_a = 0.f, l_b = 0.f;              // this thread's part of the sum
 
@@ -202,7 +209,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(full_k(st), ph);
       if (need) {
         // S = Q K^T over D in steps of 16: a 32-byte step inside a
-        // 128-byte panel row, the next panel every 4 steps
+        // 128-byte panel row, the next panel every 4 steps (D = 112: the
+        // zero-filled columns 112-127 take no step)
         float s[32];
         const uint32_t k_st = sk + st * C::kTile;
         wgmma_fence();
@@ -267,7 +275,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         l_a = l_a * alpha_a + sum_a;
         l_b = l_b * alpha_b + sum_b;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < C::kDP / 8; ++j) {
           acc[4 * j] *= alpha_a;
           acc[4 * j + 1] *= alpha_a;
           acc[4 * j + 2] *= alpha_b;
@@ -284,8 +292,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int ks = 0; ks < kBK / 16; ++ks) {
           const uint32_t a[4] = {pf[4 * ks], pf[4 * ks + 1], pf[4 * ks + 2],
                                  pf[4 * ks + 3]};
-          wgmma_rs<D>(acc, a, desc_sw128(v_st + ks * 16 * 128, kPanelBytes,
-                                         1024));
+          wgmma_rs<C::kDP>(acc, a, desc_sw128(v_st + ks * 16 * 128,
+                                              kPanelBytes, 1024));
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -297,7 +305,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (lane == 0) mbar_arrive(empty(st));
     }
 
-    // o = acc / l, rounded to bf16 once; rows past S are not stored
+    // o = acc / l, rounded to bf16 once; rows past S and the padded
+    // columns (D = 112) are not stored
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
       l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
@@ -352,7 +361,8 @@ EncodeTiled encoder() {
 }
 
 // [B, S, H, D] bf16 as a 4-D map (D, H, S, B), boxes of 64 columns x 1
-// head x 64 rows x 1 batch, 128-byte swizzled
+// head x 64 rows x 1 batch, 128-byte swizzled; columns past D (D = 112's
+// second box) and rows past S are filled with zeros
 int make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int b,
              int s, int h, int d) {
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)s,
@@ -389,7 +399,7 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
 
 }  // namespace
 
-// bf16 only; d is 64, 128 or 256.  Returns 0, a cudaError_t of the
+// bf16 only; d is 64, 112, 128 or 256.  Returns 0, a cudaError_t of the
 // launch, 1000 for arguments it refuses (the wrapper checks them first),
 // 2000 + a CUresult if a tensor map cannot be encoded, or 3000 if the
 // CUDA driver's cuTensorMapEncodeTiled cannot be found.
@@ -399,7 +409,7 @@ extern "C" int flash_attn_wgmma_forward(const void* q, const void* k,
                                         float scale, void* stream) {
   if (b <= 0 || s <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 ||
       window < 0 || b > 65535 || (s + kBQ - 1) / kBQ > 65535 ||
-      (d != 64 && d != 128 && d != 256)) {
+      (d != 64 && d != 112 && d != 128 && d != 256)) {
     return kBadArgs;
   }
   const EncodeTiled encode = encoder();
@@ -414,6 +424,8 @@ extern "C" int flash_attn_wgmma_forward(const void* q, const void* k,
   switch (d) {
     case 64:
       return launch<64>(qm, km, vm, o, b, s, hq, hkv, window, scale_log2, st);
+    case 112:
+      return launch<112>(qm, km, vm, o, b, s, hq, hkv, window, scale_log2, st);
     case 128:
       return launch<128>(qm, km, vm, o, b, s, hq, hkv, window, scale_log2, st);
     default:

@@ -16,8 +16,9 @@ Two kernels compute the function; ``kernel_route(dtype, head_dim)``
 picks one, by those two alone:
 
 * ``"wgmma"`` (``csrc/flash_attn_wgmma.cu``) for bf16 at head dims 64,
-  128 and 256: both products on the tensor cores, K/V tiles by TMA in a
-  ring of shared memory;
+  112, 128 and 256: both products on the tensor cores, K/V tiles by TMA
+  in a ring of shared memory (112, zamba2-7b's head dim, in the 128
+  layout with TMA's zero fill past column 112);
 * ``"simt"`` (``csrc/flash_attn.cu``) for f32, and for bf16 at head
   dims 16 and 32: f32 FMAs on the CUDA cores.
 
@@ -49,15 +50,15 @@ _count_lock = threading.Lock()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernels are compiled for
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 #: head dims of the tensor-core kernel (bf16 only)
-WGMMA_HEAD_DIMS = (64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 112, 128, 256)
 ROUTES = tuple(_counts)
 
 
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernel that serves inputs of ``dtype`` and ``head_dim``:
-    ``"wgmma"`` for bf16 at head dims 64, 128 and 256, ``"simt"`` for
+    ``"wgmma"`` for bf16 at head dims 64, 112, 128 and 256, ``"simt"`` for
     the rest of what the kernels take.  Raises ``ValueError`` for a
     dtype or head dim that neither kernel takes."""
     if dtype not in _DTYPE_CODE:

@@ -1,12 +1,14 @@
 """Serving entry point, the torch counterpart of ``repro.launch.serve``:
 the GNN family (layer-wise embed -> EmbeddingStore -> GNNServer) and the
-dense decoders (prefill + decode steps):
+decoders of every LM family (prefill + decode steps):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
         --smoke --device cpu --temperature 0
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --batch 2 --prompt-len 4096 --temperature 0
 
 The smoke path builds a small synthetic graph, runs the layer-wise
 embedding pass, CHECKS it per layer against the plain full-graph forward,
@@ -26,7 +28,8 @@ The decoder path serves randomly initialised weights drawn from
 prompt of ``--batch`` x ``--prompt-len`` tokens through ``prefill`` (the
 flash-attention kernel in every layer on the card), then ``--gen``
 decode steps, greedy at ``--temperature 0`` and sampled with a seeded
-``torch.Generator`` above it.  It prints the reference's JSON keys.
+``torch.Generator`` above it; the VLM's patches and whisper's frames are
+zeros of the reference's shapes.  It prints the reference's JSON keys.
 Runs on ``cuda`` unless ``--device`` says otherwise.
 """
 from __future__ import annotations
@@ -220,9 +223,25 @@ def serve_gnn(args, cfg) -> int:
     return 0 if ok else 1
 
 
+def stub_inputs(cfg, batch: int, device) -> dict:
+    """The stub frontends' inputs (reference ``launch/serve.py:246-250``):
+    zero patch embeddings [B, frontend_seq, d] for the VLM, zero frame
+    embeddings [B, enc_seq, d] for whisper, in the compute dtype."""
+    from repro_torch.models.model import _dt
+    out = {}
+    if cfg.frontend_seq:
+        out["patches"] = torch.zeros(batch, cfg.frontend_seq, cfg.d_model,
+                                     dtype=_dt(cfg), device=device)
+    if cfg.n_enc_layers:
+        out["frames"] = torch.zeros(batch, cfg.enc_seq, cfg.d_model,
+                                    dtype=_dt(cfg), device=device)
+    return out
+
+
 def serve_decoder(args, cfg) -> int:
-    """Prefill + decode of a dense decoder (reference
-    ``launch/serve.py:230-283``)."""
+    """Prefill + decode of any decoder family (reference
+    ``launch/serve.py:230-283``); the VLM and whisper take zeros for
+    their stub frontends' embeddings."""
     from repro_torch.models import model as M
     from repro_torch.models import steps
 
@@ -233,6 +252,7 @@ def serve_decoder(args, cfg) -> int:
     b, s = args.batch, args.prompt_len
     batch = {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (b, s)), device=dev)}
+    batch.update(stub_inputs(cfg, b, dev))
     prefill = steps.make_prefill_step(cfg)
     decode = steps.make_serve_step(cfg)
 

@@ -3,16 +3,19 @@
 GNN family: runs the paper's two paradigms (full-graph GD and (b, β)
 mini-batch SGD) through one ``Trainer`` on a synthetic preset and prints
 the final loss and test accuracy of each as JSON (``train_gnn``).
-LM family (the dense archs): the Markov-chain token pipeline into the
-AdamW ``train_step`` (``models/steps.py``, every layer checkpointed when
-the config's ``remat`` is set), optional checkpoints, and the
-reference's JSON line ``{"arch", "first_loss", "final_loss", "steps"}``
+LM families (every arch but the GNN; the VLM's patches and whisper's
+frames are zeros of the reference's shapes): the Markov-chain token
+pipeline into the AdamW ``train_step`` (``models/steps.py``, every layer
+checkpointed when the config's ``remat`` is set), optional checkpoints,
+and the reference's JSON line ``{"arch", "first_loss", "final_loss", "steps"}``
 (``train_lm``).
 
     # on the card (default --device cuda)
     PYTHONPATH=src python -m repro_torch.launch.train --arch gnn-papers100m
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
         --batch 8 --seq 4096 --microbatches 4 --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \\
+        --batch 8 --seq 2048 --steps 10
     # on the CPU, reduced configs
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch gnn-papers100m --smoke --device cpu --steps 20
@@ -45,7 +48,7 @@ from repro_torch.device import resolve_device
 
 
 def train_lm(args, optimizer=None) -> dict:
-    """Train a dense LM arch on synthetic tokens (reference
+    """Train an LM arch of any family on synthetic tokens (reference
     ``train_lm``): random weights from ``--seed`` (torch's generator, not
     the reference's draws), ``--steps`` steps of ``--batch`` x ``--seq``
     tokens, ``--microbatches`` micro-batches a step, the default AdamW
@@ -54,6 +57,7 @@ def train_lm(args, optimizer=None) -> dict:
     returns that line's keys plus ``losses`` and, on the card, each
     step's device time ``step_ms`` (CUDA events)."""
     from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.launch.serve import stub_inputs
     from repro_torch.models import model as M
     from repro_torch.models import steps as S
 
@@ -73,6 +77,7 @@ def train_lm(args, optimizer=None) -> dict:
     t0 = time.perf_counter()
     for it in range(args.steps):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in next(gen).items()}
+        batch.update(stub_inputs(cfg, args.batch, dev))
         if dev.type == "cuda":
             pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             pair[0].record()

@@ -1,1 +1,2 @@
-"""The LM decoder (dense family): layers, model, serving steps."""
+"""The LM decoder families: layers, MoE and SSM blocks, model, serving
+and training steps."""

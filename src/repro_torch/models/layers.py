@@ -1,8 +1,8 @@
-"""Core transformer layers of the dense decoder (reference
-``repro/models/layers.py``): RMSNorm, RoPE, GQA attention (the flash op
-for prefill, the reference's chunked online-softmax path as the plain
-alternative, direct attention over the cache for decode), GeGLU/SwiGLU
-MLP.
+"""Core transformer layers (reference ``repro/models/layers.py``):
+RMSNorm, RoPE, GQA attention (the flash op for prefill, the reference's
+chunked online-softmax path as the plain alternative, direct attention
+over the cache for decode and over the encoder frames for whisper's
+cross-attention), GeGLU/SwiGLU MLP.
 
 Plain functions on tensors; parameters are dicts of tensors in the
 reference's layout (``wq [d, Hq, hd]``, ``wo [Hq, hd, d]``, ``w_gate
@@ -192,6 +192,20 @@ def attention_block(params, x, cfg: ModelConfig, layer_type: str, positions,
         o = chunked_causal_attention(q, _expand_kv(k, hq), _expand_kv(v, hq),
                                      q_chunk=cfg.q_chunk, window=window)
     return out_proj(params, o, x.dtype), (k, v)
+
+
+def cross_attention_block(params, x, enc_out, cfg: ModelConfig):
+    """Whisper's decoder cross-attention (reference ``layers.py:232-241``):
+    full, non-causal attention over the encoder frames, whose length is
+    small (1500), so the scores are materialised (``direct_attention``;
+    the reference computes it outside its flash kernel too)."""
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", enc_out, params["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, params["wv"].to(dt))
+    hq = q.shape[2]
+    o = direct_attention(q, _expand_kv(k, hq), _expand_kv(v, hq), None, dt)
+    return out_proj(params, o, dt)
 
 
 def decode_attention(params, x, cfg: ModelConfig, k_cache, v_cache,

@@ -1,13 +1,18 @@
-"""The dense decoder assembled from a layer-pattern plan (reference
-``repro/models/model.py``, its dense subset): its training forward
-(``forward_train``, the loss chunked over the sequence) and its serving
-path, ``prefill`` over a prompt, then one ``decode_step`` per token.
+"""The decoder families assembled from a layer-pattern plan (reference
+``repro/models/model.py``): dense, MoE (llama4's iRoPE: NoPE on the
+global layers), SSM (mamba2), hybrid (zamba2's mamba stack with one
+weight-shared attention block), audio (whisper's encoder and decoder
+cross-attention) and VLM (patch embeddings through a projector,
+prepended to the text).  Its training forward (``forward_train``, the
+loss chunked over the sequence) and its serving path, ``prefill`` over a
+prompt, then one ``decode_step`` per token.
 
-A config's ``pattern`` (gemma3's 5 x local + 1 x global ...) is grouped
-into runs of consecutive identical block types; each run's layer
-parameters are stacked on a leading dim, as in the reference, so its
-arrays load unchanged.  Where the reference scans over that dim, the
-port loops over it.
+A config's ``pattern`` (gemma3's 5 x local + 1 x global, zamba2's 6 x
+mamba + shared_attn ...) is grouped into runs of consecutive identical
+block types; each run's layer parameters are stacked on a leading dim,
+as in the reference, so its arrays load unchanged.  Where the reference
+scans over that dim, the port loops over it.  A ``shared_attn`` run
+holds no parameters: every application reads ``params["shared_attn"]``.
 
 Ring caches: ``decode_step`` writes position ``pos`` to slot
 ``pos % cap`` and ``prefill`` puts each kept position p in slot
@@ -18,9 +23,13 @@ layer's window its second decode step on overwrites a key still inside
 the window.  Where the prompt is a multiple of the capacity the two
 layouts are the same.  ``decode_step`` updates the cache tensors in
 place (the reference returns new arrays) and returns the same cache.
+Mamba layers cache their SSD state (f32) and last ``ssm_conv - 1`` conv
+inputs; whisper's decoder caches the cross-attention's K/V of the
+encoder output, computed once at prefill.
 
-MoE, mamba, the encoder with cross-attention and the VLM frontend are
-later slices and raise ``NotImplementedError``.
+Prefill runs every causal self-attention through the flash kernel
+(``layers.attention_block(kernel=True)``); the encoder, the
+cross-attention and decode attend directly, as the reference does.
 """
 from __future__ import annotations
 
@@ -36,28 +45,13 @@ from repro_torch import sharding as sh
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.optim.optimizers import dict_keys
 
 
 F32 = torch.float32
 LOSS_CHUNK = 512          # vocab-logit seq chunks (never materialise [B,S,V])
-
-
-def _unported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: a later LM slice (ROADMAP.md Queue 1) "
-        f"ports it; the port serves the dense family")
-
-
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.n_experts:
-        _unported("MoE (n_experts > 0)")
-    if "mamba" in cfg.pattern:
-        _unported("mamba (SSM) layers")
-    if cfg.n_enc_layers:
-        _unported("the encoder and cross-attention (audio)")
-    if cfg.frontend_seq:
-        _unported("the VLM patch frontend")
 
 
 # ---------------------------------------------------------------------------
@@ -95,12 +89,25 @@ def _dt(cfg: ModelConfig):
 # init and the weight carry-across
 # ---------------------------------------------------------------------------
 
-def _init_attn_layer(gen, cfg: ModelConfig, device, dtype):
+def _init_attn_layer(gen, cfg: ModelConfig, device, dtype, *,
+                     moe: bool = False, cross: bool = False):
     d = cfg.d_model
-    return {"norm1": torch.zeros(d, device=device, dtype=dtype),
-            "norm2": torch.zeros(d, device=device, dtype=dtype),
-            "attn": L.init_attention(gen, cfg, device=device, dtype=dtype),
-            "mlp": L.init_mlp(gen, cfg, device=device, dtype=dtype)}
+    kw = dict(device=device, dtype=dtype)
+    p = {"norm1": torch.zeros(d, **kw), "norm2": torch.zeros(d, **kw),
+         "attn": L.init_attention(gen, cfg, **kw)}
+    if cross:
+        p["normx"] = torch.zeros(d, **kw)
+        p["cross"] = L.init_attention(gen, cfg, **kw)
+    if moe:
+        p["moe"] = MOE.init_moe(gen, cfg, **kw)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg, **kw)
+    return p
+
+
+def _init_mamba_layer(gen, cfg: ModelConfig, device, dtype):
+    return {"norm1": torch.zeros(cfg.d_model, device=device, dtype=dtype),
+            "mamba": SSM.init_mamba(gen, cfg, device=device, dtype=dtype)}
 
 
 def _stack(count: int, init_fn):
@@ -117,16 +124,17 @@ def _stack(count: int, init_fn):
 def init_model(gen: torch.Generator, cfg: ModelConfig, device="cuda",
                dtype=torch.float32) -> Dict[str, Any]:
     """The parameter tree, drawn on ``device`` from ``gen`` (a generator of
-    that device), one tensor at a time.  The reference keeps f32 master
-    weights and casts at use; ``dtype=torch.bfloat16`` stores them in the
-    compute dtype instead (what full-width serving does: the casts at use
-    are then no-ops).  ``torch.Generator`` cannot replay ``jax.random``:
-    parity runs load the reference's weights with ``params_from_numpy``."""
-    _check_dense(cfg)
+    that device), one tensor at a time, in the reference's layout.  The
+    reference keeps f32 master weights and casts at use;
+    ``dtype=torch.bfloat16`` stores them in the compute dtype instead
+    (what full-width serving does: the casts at use are then no-ops).
+    ``torch.Generator`` cannot replay ``jax.random``: parity runs load
+    the reference's weights with ``params_from_numpy``."""
     dev = resolve_device(device)
-    plan = build_plan(cfg)
     d = cfg.d_model
     vp = _vp(cfg)
+    is_moe = cfg.n_experts > 0
+    cross = cfg.n_enc_layers > 0
     params: Dict[str, Any] = {
         "embed": L.dense_init(gen, vp, (d,), d ** -0.5, device=dev,
                               dtype=dtype),
@@ -136,16 +144,37 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, device="cuda",
         params["lm_head"] = L.dense_init(gen, d, (vp,), d ** -0.5,
                                          device=dev, dtype=dtype)
     run_ps = []
-    for run in plan:
+    for run in build_plan(cfg):
         if run.shared:
             if "shared_attn" not in params:
-                params["shared_attn"] = _init_attn_layer(gen, cfg, dev, dtype)
+                params["shared_attn"] = _init_attn_layer(gen, cfg, dev,
+                                                         dtype)
             run_ps.append({})
+        elif run.type == "mamba":
+            run_ps.append(_stack(run.count, lambda: _init_mamba_layer(
+                gen, cfg, dev, dtype)))
         else:
             run_ps.append(_stack(run.count, lambda: _init_attn_layer(
-                gen, cfg, dev, dtype)))
+                gen, cfg, dev, dtype, moe=is_moe, cross=cross)))
     params["runs"] = tuple(run_ps)
+    if cross:                           # whisper's encoder
+        params["enc"] = {
+            "runs": (_stack(cfg.n_enc_layers, lambda: _init_attn_layer(
+                gen, cfg, dev, dtype)),),
+            "pos_embed": L.dense_init(gen, cfg.enc_seq, (d,), 0.02,
+                                      device=dev, dtype=dtype),
+            "final_norm": torch.zeros(d, device=dev, dtype=dtype)}
+    if cfg.frontend_seq:                # the VLM projector
+        params["proj"] = L.dense_init(gen, d, (d,), d ** -0.5, device=dev,
+                                      dtype=dtype)
     return params
+
+
+def causal_attention_layers(cfg: ModelConfig) -> int:
+    """The causal self-attention applications of one forward: every layer
+    of the pattern but the mamba ones (each application of a shared block
+    counts).  A prefill launches the flash kernel this many times."""
+    return sum(t != "mamba" for t in cfg.pattern)
 
 
 def params_from_numpy(params, device="cuda", dtype=torch.float32):
@@ -180,19 +209,21 @@ def _map_with_names(fn, tree):
 
 def param_specs(cfg: ModelConfig, params) -> Any:
     """The reference's logical shardings from parameter names and shapes
-    (``model.py:142-205``, its dense rules), as tuples of the logical
-    axis names of ``sharding`` (``MODEL``, ``FSDP``) or None, one per
-    dim, in the tree of ``params`` (tensors, fake tensors, or anything
-    with ``.shape``).  On one card nothing places a tensor by them; the
-    dry-run records them."""
-    _check_dense(cfg)
+    (``model.py:142-210``), as tuples of the logical axis names of
+    ``sharding`` (``MODEL``, ``FSDP``) or None, one per dim, in the tree
+    of ``params`` (tensors, fake tensors, or anything with ``.shape``).
+    On one card nothing places a tensor by them; the dry-run records
+    them."""
+    ssm_h = SSM.ssm_dims(cfg)[1] if "mamba" in cfg.pattern else 1
+    ssm_ax = sh.MODEL if ssm_h % sh.MODEL_PAR == 0 else None
 
     def fs(dim: int):
         return sh.FSDP if dim % sh.MODEL_PAR == 0 else None
 
     def rule(names, leaf):
         name = names[-1] if names else ""
-        stacked = "runs" in names and "final_norm" not in names
+        stacked = "runs" in names and "pos_embed" not in names \
+            and "final_norm" not in names
         shape = tuple(leaf.shape)
         shp = shape[1:] if stacked else shape
         if name == "embed":
@@ -205,11 +236,25 @@ def param_specs(cfg: ModelConfig, params) -> Any:
         elif name == "wo":
             ax = sh.MODEL if sh.shard_heads(shp[0]) else None
             base = (ax, None, fs(shp[2]))
-        elif name == "w_down":          # dense mlp [f, d]
-            base = (sh.MODEL, fs(shp[1]))
-        elif name in ("w_gate", "w_up"):  # dense mlp [d, f]
-            base = (fs(shp[0]), sh.MODEL)
-        else:                           # norms
+        elif name in ("w_gate", "w_up", "w_down"):
+            if len(shp) == 3:           # moe expert weights [E, a, b]
+                e_ax = sh.MODEL if shp[0] % sh.MODEL_PAR == 0 else None
+                base = (e_ax, fs(shp[1]), None)
+            elif name == "w_down":      # dense mlp [f, d]
+                base = (sh.MODEL, fs(shp[1]))
+            else:                       # dense mlp [d, f]
+                base = (fs(shp[0]), sh.MODEL)
+        elif name in ("w_z", "w_x", "w_bc", "w_dt"):
+            base = (fs(shp[0]), ssm_ax)
+        elif name in ("conv_x", "conv_bc"):
+            base = (None, ssm_ax)
+        elif name in ("dt_bias", "A_log", "D", "norm"):
+            base = (ssm_ax,)            # (norm: the mamba gated-norm scale)
+        elif name == "w_out":           # mamba out proj [d_in, d]
+            base = (ssm_ax, fs(shp[1]))
+        elif name == "proj":            # vlm projector [d, d]
+            base = (fs(shp[0]), None)
+        else:                           # norms, router, pos_embed
             base = (None,) * len(shp)
         if stacked:
             base = (None,) + base
@@ -221,56 +266,98 @@ def param_specs(cfg: ModelConfig, params) -> Any:
 
 
 # ---------------------------------------------------------------------------
-# blocks (prefill)
+# blocks (train / prefill)
 # ---------------------------------------------------------------------------
 
+def _zero(x):
+    return torch.zeros((), dtype=F32, device=x.device)
+
+
 def _attn_mlp_block(lp, x, cfg: ModelConfig, ltype: str, positions,
-                    kernel: bool):
+                    enc_out, nope_global: bool, kernel: bool):
+    """One attention layer: self-attention (NoPE on the global layers
+    when ``nope_global``), whisper's cross-attention where the layer has
+    one, then the MLP or the MoE.  Returns (x, (k, v), aux)."""
     h, kv = L.attention_block(
         lp["attn"], L.rms_norm(x, lp["norm1"], cfg.norm_eps), cfg, ltype,
-        positions, kernel=kernel)
+        positions, nope=nope_global and ltype == "attn", kernel=kernel)
     x = x + h
+    if "cross" in lp:
+        x = x + L.cross_attention_block(
+            lp["cross"], L.rms_norm(x, lp["normx"], cfg.norm_eps), enc_out,
+            cfg)
     y = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
-    return x + L.mlp_block(lp["mlp"], y, cfg), kv
-
-
-def _remat_block(lp, x, cfg: ModelConfig, ltype: str, positions,
-                 kernel: bool):
-    """``_attn_mlp_block``'s output under ``torch.utils.checkpoint``: only
-    the layer's input is kept, the rest is recomputed in the backward
-    (the reference's ``jax.checkpoint`` of each scanned layer,
-    ``model.py:250,258``)."""
-    def body(x, lp):
-        return _attn_mlp_block(lp, x, cfg, ltype, positions, kernel)[0]
-    return checkpoint(body, x, lp, use_reentrant=False)
+    if "moe" in lp:
+        h, aux = MOE.moe_block(lp["moe"], y, cfg)
+    else:
+        h, aux = L.mlp_block(lp["mlp"], y, cfg), _zero(x)
+    return x + h, kv, aux
 
 
 def _run_forward(run: Run, rp, shared_p, x, cfg: ModelConfig, positions,
-                 collect_kv: bool, kernel: bool, remat: bool = False):
+                 enc_out, collect_kv: bool, kernel: bool,
+                 remat: bool = False):
     """One run in prefill (or, with ``remat``, training) mode.  Returns
-    (x, (k, v) stacked over the run's layers, or None).  Every dense
-    layer uses RoPE (the reference drops it only on the global layers of
-    the MoE family).  ``remat`` checkpoints each layer and collects no
-    cache."""
-    if remat:
-        layers = ([shared_p] if run.shared else
-                  [_layer(rp, i) for i in range(run.count)])
-        ltype = "attn" if run.shared else run.type
-        for lp in layers:
-            x = _remat_block(lp, x, cfg, ltype, positions, kernel)
-        return x, None
+    (x, the run's cache entries stacked over its layers or None, aux):
+    (k, v) of an attention run, (state, conv_x, conv_bc) of a mamba run.
+    llama4's iRoPE drops RoPE on the global layers of the MoE family.
+    ``remat`` checkpoints each layer (``torch.utils.checkpoint``: only
+    the layer's input is kept, the reference's ``jax.checkpoint`` of each
+    scanned layer) and collects no cache."""
+    nope_global = cfg.family == "moe"
     if run.shared:
-        x, (k, v) = _attn_mlp_block(shared_p, x, cfg, "attn", positions,
-                                    kernel)
-        return x, ((k[None], v[None]) if collect_kv else None)
-    ks, vs = [], []
-    for i in range(run.count):
-        x, (k, v) = _attn_mlp_block(_layer(rp, i), x, cfg, run.type,
-                                    positions, kernel)
-        if collect_kv:
-            ks.append(k)
-            vs.append(v)
-    return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+        layers, ltype, nope_global = [shared_p], "attn", False
+    else:
+        layers, ltype = [_layer(rp, i) for i in range(run.count)], run.type
+
+    def body(x, lp):
+        if ltype == "mamba":
+            h, st = SSM.mamba_block(
+                lp["mamba"], L.rms_norm(x, lp["norm1"], cfg.norm_eps), cfg)
+            return x + h, st, _zero(x)
+        return _attn_mlp_block(lp, x, cfg, ltype, positions, enc_out,
+                               nope_global, kernel)
+
+    aux = _zero(x)
+    outs = []
+    for lp in layers:
+        if remat:
+            x, a = checkpoint(lambda x, lp: body(x, lp)[::2], x, lp,
+                              use_reentrant=False)
+        else:
+            x, c, a = body(x, lp)
+            if collect_kv:
+                outs.append(c)
+        aux = aux + a
+    if not outs:
+        return x, None, aux
+    return x, tuple(torch.stack(t) for t in zip(*outs)), aux
+
+
+def _encode(params, cfg: ModelConfig, frames, remat: bool = False):
+    """Whisper's encoder over stub frame embeddings [B, enc_seq, d]:
+    bidirectional attention, computed directly (the reference's
+    ``_encode``, outside its flash kernel)."""
+    enc = params["enc"]
+    x = frames + enc["pos_embed"][None].to(frames.dtype)
+    ep = enc["runs"][0]
+
+    def body(x, lp):
+        h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
+        dt = x.dtype
+        q, k, v = (torch.einsum("bsd,dhk->bshk", h, lp["attn"][w].to(dt))
+                   for w in ("wq", "wk", "wv"))
+        hq = q.shape[2]
+        o = L.direct_attention(q, L._expand_kv(k, hq), L._expand_kv(v, hq),
+                               None, dt)
+        x = x + L.out_proj(lp["attn"], o, dt)
+        y = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
+        return x + L.mlp_block(lp["mlp"], y, cfg)
+    for i in range(ep["norm1"].shape[0]):
+        lp = _layer(ep, i)
+        x = (checkpoint(body, x, lp, use_reentrant=False) if remat
+             else body(x, lp))
+    return L.rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -345,39 +432,63 @@ def chunked_lm_loss(params, cfg: ModelConfig, hidden, labels):
 # forward
 # ---------------------------------------------------------------------------
 
-def backbone(params, cfg: ModelConfig, x, positions,
+def backbone(params, cfg: ModelConfig, x, positions, enc_out=None,
              collect_kv: bool = False, *, kernel: bool = True,
              remat: bool = False):
-    """Every run, then the final norm.  Returns (hidden, per-run (k, v)
-    stacks or None).  The reference also returns the MoE aux loss; the
-    dense family has none.  ``kernel`` picks the attention of every
-    layer (``layers.attention_block``); ``remat`` checkpoints every layer
+    """Every run, then the final norm.  Returns (hidden, per-run cache
+    entries or None, the MoE aux loss summed over the layers, f32).
+    ``kernel`` picks the causal self-attention of every layer
+    (``layers.attention_block``); ``remat`` checkpoints every layer
     (training)."""
-    _check_dense(cfg)
+    aux_total = _zero(x)
     kvs = []
     for i, run in enumerate(build_plan(cfg)):
-        x, kv = _run_forward(run, params["runs"][i],
-                             params.get("shared_attn"), x, cfg, positions,
-                             collect_kv, kernel, remat)
+        x, kv, aux = _run_forward(run, params["runs"][i],
+                                  params.get("shared_attn"), x, cfg,
+                                  positions, enc_out, collect_kv, kernel,
+                                  remat)
         kvs.append(kv)
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), kvs
+        aux_total = aux_total + aux
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), kvs, aux_total
+
+
+def _inputs(params, cfg: ModelConfig, batch, remat: bool = False):
+    """The backbone's input and the encoder's output of a batch: the
+    token embeddings, after the projected patch embeddings (VLM, batch
+    ``patches`` [B, P, d]); whisper's encoder over ``frames`` [B, enc, d]
+    (None for the other families)."""
+    dt = _dt(cfg)
+    x = embed_tokens(params, cfg, batch["tokens"])
+    if cfg.frontend_seq:
+        patches = batch["patches"].to(dt) @ params["proj"].to(dt)
+        x = torch.cat([patches, x], dim=1)
+    enc_out = None
+    if cfg.n_enc_layers:
+        enc_out = _encode(params, cfg, batch["frames"].to(dt), remat)
+    return x, enc_out
 
 
 def forward_train(params, cfg: ModelConfig, batch):
-    """The training forward (reference ``model.py:366-389``): embed, the
-    backbone through the reference model's own chunked attention (the
-    flash kernel has no backward and the reference never trains through
-    it), each layer checkpointed when ``cfg.remat``, the final norm and
+    """The training forward (reference ``model.py:366-389``): embed (the
+    patches first, VLM), the encoder (audio), the backbone through the
+    reference model's own chunked attention (the flash kernel has no
+    backward and the reference never trains through it), each layer
+    checkpointed when ``cfg.remat``, the final norm and
     ``chunked_lm_loss``.  batch: tokens [B, S], labels [B, S] (-1
-    ignored).  Returns ``(total, {"loss", "aux", "acc"})`` with ``total =
-    loss + 0.01 * aux``; the dense family's aux is 0."""
-    _check_dense(cfg)
-    x = embed_tokens(params, cfg, batch["tokens"])
+    ignored), and ``patches`` [B, P, d] (VLM; their positions carry no
+    label) or ``frames`` [B, enc_seq, d] (audio).  Returns ``(total,
+    {"loss", "aux", "acc"})`` with ``total = loss + 0.01 * aux``, aux the
+    MoE load-balance loss (0 without experts)."""
+    labels = batch["labels"]
+    x, enc_out = _inputs(params, cfg, batch, remat=cfg.remat)
+    if cfg.frontend_seq:
+        pad = torch.full((labels.shape[0], cfg.frontend_seq), -1,
+                         dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
-    h, _ = backbone(params, cfg, x, positions, kernel=False,
-                    remat=cfg.remat)
-    loss, acc = chunked_lm_loss(params, cfg, h, batch["labels"])
-    aux = torch.zeros((), dtype=F32, device=h.device)
+    h, _, aux = backbone(params, cfg, x, positions, enc_out, kernel=False,
+                         remat=cfg.remat)
+    loss, acc = chunked_lm_loss(params, cfg, h, labels)
     total = loss + 0.01 * aux
     return total, {"loss": loss, "aux": aux, "acc": acc}
 
@@ -390,21 +501,52 @@ def cache_capacity(cfg: ModelConfig, run: Run, seq_len: int) -> int:
     return seq_len
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cuda"):
-    """Empty ring caches sized for ``seq_len`` context."""
-    _check_dense(cfg)
+def _cross_kv(params, enc_out):
+    """Whisper's cross-attention K and V of the encoder output, for every
+    decoder layer: [L, B, enc, Hkv, D] each."""
+    dt = enc_out.dtype
+    cross = params["runs"][0]["cross"]
+    return tuple(torch.einsum("bsd,ldhk->lbshk", enc_out, cross[w].to(dt))
+                 for w in ("wk", "wv"))
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cuda",
+               enc_out=None, params=None):
+    """Empty caches sized for ``seq_len`` context: ring K/V of the
+    attention runs, SSD state and conv inputs of the mamba runs, and for
+    whisper the cross-attention's K/V (of ``enc_out`` when it and
+    ``params`` are given, else zeros)."""
     dev = resolve_device(device)
     dt = _dt(cfg)
     hd = cfg.resolved_head_dim
     run_caches = []
     for run in build_plan(cfg):
+        if run.type == "mamba":
+            d_in, h, p, n = SSM.ssm_dims(cfg)
+            k1 = cfg.ssm_conv - 1
+            run_caches.append({
+                "state": torch.zeros(run.count, batch, h, p, n, device=dev,
+                                     dtype=F32),
+                "conv_x": torch.zeros(run.count, batch, k1, d_in,
+                                      device=dev, dtype=dt),
+                "conv_bc": torch.zeros(run.count, batch, k1, 2 * n,
+                                       device=dev, dtype=dt)})
+            continue
         cap = cache_capacity(cfg, run, seq_len)
         shape = (run.count, batch, cap, cfg.n_kv_heads, hd)
-        run_caches.append({
-            "k": torch.zeros(shape, device=dev, dtype=dt),
-            "v": torch.zeros(shape, device=dev, dtype=dt),
-            "slot_pos": torch.full((run.count, cap), -1, device=dev,
-                                   dtype=torch.int32)})
+        c = {"k": torch.zeros(shape, device=dev, dtype=dt),
+             "v": torch.zeros(shape, device=dev, dtype=dt),
+             "slot_pos": torch.full((run.count, cap), -1, device=dev,
+                                    dtype=torch.int32)}
+        if cfg.n_enc_layers:
+            if params is not None and enc_out is not None:
+                c["ck"], c["cv"] = _cross_kv(params, enc_out)
+            else:
+                c["ck"] = torch.zeros(run.count, batch, cfg.enc_seq,
+                                      cfg.n_kv_heads, hd, device=dev,
+                                      dtype=dt)
+                c["cv"] = torch.zeros_like(c["ck"])
+        run_caches.append(c)
     return {"pos": 0, "runs": tuple(run_caches)}
 
 
@@ -423,32 +565,44 @@ def cache_specs(cfg: ModelConfig, cache, batch_shardable: bool = True) -> Any:
         name = names[-1] if names else ""
         shape = tuple(getattr(leaf, "shape", ()))
         nd = len(shape)
-        if name in ("k", "v"):
+        if name in ("k", "v", "ck", "cv"):
             s_ok = shape[2] % s_div == 0
             return (None, b_ax, s_ax if s_ok else None) + (None,) * (nd - 3)
+        if name == "state":
+            return (None, b_ax) + (None,) * (nd - 2)
+        if name in ("conv_x", "conv_bc"):
+            return (None, b_ax, None, None)
         return (None,) * nd
     return _map_with_names(spec_for, cache)
 
 
 def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
             *, kernel: bool = True):
-    """Run the prompt ``batch["tokens"]`` [B, S]; returns (last_logits
+    """Run the prompt ``batch["tokens"]`` [B, S] (with ``patches`` or
+    ``frames`` as ``forward_train`` takes them); returns (last_logits
     [B, Vp], cache).
 
     ``max_len`` sizes the global-attention caches (prompt + decode
-    budget); it defaults to the prompt length, and continued decoding then
-    rolls the ring (the oldest tokens drop).  Local-window caches always
-    ring over the window.  ``kernel`` as in ``backbone``."""
-    x = embed_tokens(params, cfg, batch["tokens"])
+    budget); it defaults to the prompt length (with the patches), and
+    continued decoding then rolls the ring (the oldest tokens drop).
+    Local-window caches always ring over the window.  ``kernel`` as in
+    ``backbone``."""
+    x, enc_out = _inputs(params, cfg, batch)
     s = x.shape[1]
     cache_len = max(max_len or s, s)
     positions = torch.arange(s, device=x.device)
-    h, kvs = backbone(params, cfg, x, positions, collect_kv=True,
-                      kernel=kernel)
+    h, kvs, _ = backbone(params, cfg, x, positions, enc_out, collect_kv=True,
+                         kernel=kernel)
     last = logits_fn(params, cfg, h[:, -1:, :])[:, 0]
-    cache = init_cache(cfg, x.shape[0], cache_len, x.device)
-    for run, rc, (k, v) in zip(build_plan(cfg), cache["runs"], kvs):
-        cap = cache_capacity(cfg, run, cache_len)     # k, v: [L,B,S,Hkv,D]
+    del h
+    cache = init_cache(cfg, x.shape[0], cache_len, x.device, enc_out=enc_out,
+                       params=params)
+    for run, rc, kv in zip(build_plan(cfg), cache["runs"], kvs):
+        if run.type == "mamba":
+            rc["state"], rc["conv_x"], rc["conv_bc"] = kv
+            continue
+        k, v = kv                                     # [L,B,S,Hkv,D]
+        cap = cache_capacity(cfg, run, cache_len)
         if cap <= s:
             # the ring holds the newest `cap` positions, position p in
             # slot p % cap as decode writes it: the kept tail rolled by
@@ -473,38 +627,62 @@ def decode_step(params, cfg: ModelConfig, cache, token):
     """One decode step.  token: [B, 1] integer ids.  Returns (logits
     [B, Vp], cache) — the same cache, its tensors updated in place and
     ``pos`` advanced."""
-    _check_dense(cfg)
     pos = int(cache["pos"])
     x = embed_tokens(params, cfg, token)
+    nope_global = cfg.family == "moe"
     for run, rc, rp in zip(build_plan(cfg), cache["runs"], params["runs"]):
-        if run.shared:
-            lc = {k: rc[k][0] for k in ("k", "v", "slot_pos")}
-            x = _decode_attn_layer_inner(params["shared_attn"], x, cfg, lc,
-                                         pos, run)
+        if run.type == "mamba":
+            for i in range(run.count):
+                lp = _layer(rp, i)
+                h, (st, cx, cbc) = SSM.mamba_block(
+                    lp["mamba"], L.rms_norm(x, lp["norm1"], cfg.norm_eps),
+                    cfg, state=rc["state"][i], conv_x_state=rc["conv_x"][i],
+                    conv_bc_state=rc["conv_bc"][i], decode=True)
+                x = x + h
+                rc["state"][i] = st
+                rc["conv_x"][i] = cx
+                rc["conv_bc"][i] = cbc
             continue
-        for i in range(run.count):
-            lc = {k: rc[k][i] for k in ("k", "v", "slot_pos")}
-            x = _decode_attn_layer_inner(_layer(rp, i), x, cfg, lc, pos,
-                                         run)
+        layers = ([params["shared_attn"]] if run.shared else
+                  [_layer(rp, i) for i in range(run.count)])
+        for i, lp in enumerate(layers):
+            lc = {k: v[i] for k, v in rc.items()}
+            x = _decode_attn_layer_inner(lp, x, cfg, lc, pos, run,
+                                         nope_global)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = logits_fn(params, cfg, x)[:, 0]
     return logits, {"pos": pos + 1, "runs": cache["runs"]}
 
 
 def _decode_attn_layer_inner(lp, x, cfg: ModelConfig, lc, pos: int,
-                             run: Run):
-    """One layer of a decode step; writes the new key and value to slot
-    ``pos % cap`` of the layer's cache views ``lc`` in place, after the
-    attention has read the cache."""
+                             run: Run, nope_global: bool):
+    """One attention layer of a decode step; writes the new key and value
+    to slot ``pos % cap`` of the layer's cache views ``lc`` in place,
+    after the attention has read the cache."""
     cap = lc["k"].shape[1]      # [B, cap, Hkv, D]
     h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
     o, k_new, v_new = L.decode_attention(
         lp["attn"], h, cfg, lc["k"], lc["v"], lc["slot_pos"], pos,
+        nope=nope_global and run.type == "attn",
         window=cfg.sliding_window if run.type == "local" else 0)
     x = x + o
     slot = pos % cap
     lc["k"][:, slot] = k_new
     lc["v"][:, slot] = v_new
     lc["slot_pos"][slot] = pos
+    if "cross" in lp:
+        h = L.rms_norm(x, lp["normx"], cfg.norm_eps)
+        x = x + _decode_cross(lp["cross"], h, lc["ck"], lc["cv"])
     y = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
+    if "moe" in lp:
+        return x + MOE.moe_block(lp["moe"], y, cfg)[0]
     return x + L.mlp_block(lp["mlp"], y, cfg)
+
+
+def _decode_cross(cp, x, ck, cv):
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, cp["wq"].to(dt))
+    hq = q.shape[2]
+    o = L.direct_attention(q, L._expand_kv(ck.to(dt), hq),
+                           L._expand_kv(cv.to(dt), hq), None, dt)
+    return L.out_proj(cp, o, dt)

@@ -86,7 +86,9 @@ def make_train_step(cfg: ModelConfig, optimizer=None, microbatches: int = 1):
 
 def make_prefill_step(cfg: ModelConfig):
     """``prefill_step(params, batch, max_len=None) -> (last_logits,
-    cache)``, the flash-attention kernel in every layer."""
+    cache)``, the flash-attention kernel in every causal self-attention;
+    ``batch`` holds ``patches`` (VLM) or ``frames`` (audio) beside the
+    tokens where the family takes them."""
     def prefill_step(params, batch, max_len: Optional[int] = None):
         return M.prefill(params, cfg, batch, max_len)
     return prefill_step
@@ -105,19 +107,27 @@ def make_serve_step(cfg: ModelConfig):
 
 def batch_specs(cfg: ModelConfig, shape: InputShape, mesh=None,
                 kind: Optional[str] = None) -> Dict[str, Any]:
-    """The data batch of ``shape``: tokens (and labels, training) int32
-    [B, S], or the decode token int32 [B, 1]."""
-    M._check_dense(cfg)
+    """The data batch of ``shape`` (reference ``steps.py:84-110``): tokens
+    (and labels, training) int32 [B, S - frontend_seq], with the VLM's
+    ``patches`` [B, frontend_seq, d] and whisper's ``frames`` [B,
+    enc_seq, d] in the compute dtype; or the decode token int32 [B, 1]."""
     kind = kind or shape.kind
     b, s = shape.global_batch, shape.seq_len
-    i32 = torch.int32
-    if kind in ("train", "prefill"):
-        out = {"tokens": torch.empty((b, s), dtype=i32, device=TRACE_DEVICE)}
-        if kind == "train":
-            out["labels"] = torch.empty((b, s), dtype=i32,
-                                        device=TRACE_DEVICE)
-        return out
-    return {"token": torch.empty((b, 1), dtype=i32, device=TRACE_DEVICE)}
+    i32, dt = torch.int32, M._dt(cfg)
+
+    def empty(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device=TRACE_DEVICE)
+    if kind not in ("train", "prefill"):
+        return {"token": empty((b, 1), i32)}
+    s_text = s - (cfg.frontend_seq or 0)
+    out = {"tokens": empty((b, s_text), i32)}
+    if kind == "train":
+        out["labels"] = empty((b, s_text), i32)
+    if cfg.frontend_seq:
+        out["patches"] = empty((b, cfg.frontend_seq, cfg.d_model), dt)
+    if cfg.n_enc_layers:
+        out["frames"] = empty((b, cfg.enc_seq, cfg.d_model), dt)
+    return out
 
 
 def cache_shape_specs(cfg: ModelConfig, shape: InputShape, mesh=None):

@@ -27,10 +27,12 @@ The CUDA flash-attention kernels against their plain version (2e-5 f32,
 kernel also row by row against the plain version in f32, at most 2^-7 of
 each row, ``ref.row_rel_err``): every input goes
 to the kernel ``kernel_route`` names (the tensor-core kernel for bf16 at
-head dims 64-256, the f32 kernel for the rest), with cases that wrap the
+head dims 64-256, 112 among them, the f32 kernel for the rest), with
+cases at zamba2-7b's head dim 112 and cases that wrap the
 tensor-core kernel's ring and cross its masks, two calls bit-equal, the
-argument checks, and a small-config prefill that launches the routed
-kernel once per layer."""
+argument checks, a small-config prefill that launches the routed
+kernel once per layer, and zamba2-7b's smoke config with the kernel
+against without it."""
 import dataclasses
 
 import numpy as np
@@ -723,6 +725,75 @@ def test_prefill_launches_wgmma_kernel_once_per_layer(cuda):
     err = float((got.float() - want.float()).abs().max()
                 / want.float().abs().max())
     assert err <= 2e-2, err
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2),
+                                       (torch.float32, 2e-5)])
+@pytest.mark.parametrize("b,s,hq,hkv,window", [
+    (2, 256, 4, 4, 0), (1, 333, 8, 2, 100), (2, 1, 4, 2, 0),
+    (1, 1100, 4, 1, 1000), (2, 129, 32, 32, 64)])
+def test_flash_kernels_at_head_dim_112(cuda, b, s, hq, hkv, window, dtype,
+                                       tol):
+    """zamba2-7b's head dim on both kernels (bf16 on the tensor-core
+    kernel in its 128-column layout, f32 on the f32 kernel) against the
+    plain version; the tensor-core kernel also row by row against the
+    plain version in f32.  Every head's 112 columns are compared, so a
+    store past them into the next head would show."""
+    from repro_torch.kernels.flash_attn import ops as fa
+    q, k, v = _qkv(s + hq + window, b, s, hq, hkv, 112, dtype, cuda)
+    route = fa.kernel_route(dtype, 112)
+    counts = fa.launch_counts()
+    out = fa.flash_attention(q, k, v, window=window, use_kernel=True)
+    assert fa.launch_counts() == dict(counts, **{route: counts[route] + 1})
+    want = fa.flash_attention(q, k, v, window=window, use_kernel=False)
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                               rtol=tol)
+    if route == "wgmma":
+        _assert_rows_within_bf16_rounding(out, q, k, v, window)
+
+
+@pytest.mark.parametrize("dtype,head_dim", [("float32", 0),
+                                            ("bfloat16", 112)])
+def test_zamba2_smoke_prefill_with_the_kernel_against_without(cuda, dtype,
+                                                              head_dim):
+    """zamba2-7b's smoke config (mamba, shared attention, mamba), in f32
+    at its head dim 32 and in bf16 at the full config's 112: the prefill
+    launches the routed kernel once (the shared block's one application)
+    and matches the plain path, 1e-4 in f32, relative max error 2e-2 in
+    bf16; a teacher-forced decode step matches the forward."""
+    import dataclasses as dc
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attn import ops as fa
+    from repro_torch.models import model as M
+    cfg = dc.replace(get_config("zamba2-7b", smoke=True), dtype=dtype,
+                     head_dim=head_dim)
+    params = M.init_model(torch.Generator(device=cuda).manual_seed(0), cfg,
+                          cuda, dtype=M._dt(cfg))
+    toks = torch.randint(0, cfg.vocab_size, (2, 257), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(0))
+    route = fa.kernel_route(M._dt(cfg), cfg.resolved_head_dim)
+    with torch.inference_mode():
+        counts = fa.launch_counts()
+        got, cache = M.prefill(params, cfg, {"tokens": toks[:, :256]},
+                               max_len=257, kernel=True)
+        assert fa.launch_counts() == dict(counts, **{route: counts[route]
+                                                     + 1})
+        want, _ = M.prefill(params, cfg, {"tokens": toks[:, :256]},
+                            kernel=False)
+        step, _ = M.decode_step(params, cfg, cache, toks[:, 256:])
+        x = M.embed_tokens(params, cfg, toks[:, :256])
+        hid, _, _ = M.backbone(params, cfg, x,
+                               torch.arange(256, device=cuda))
+    v = cfg.vocab_size
+
+    def rel(a, b_):
+        a, b_ = a[..., :v].float(), b_[..., :v].float()
+        return float((a - b_).abs().max() / b_.abs().max())
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert rel(got, want) <= tol
+    assert rel(got, M.logits_fn(params, cfg, hid[:, -1])) <= tol
+    assert torch.isfinite(step).all()
 
 
 # ---------------------------------------------------------------------------

@@ -182,8 +182,10 @@ def test_papers100m_config_equal(smoke):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert t_base.get_config("gnn_papers100m") == t_base.get_config(
         "gnn-papers100m")
-    assert t_base.list_archs() == ("gnn-papers100m", "gemma3-12b",
-                                   "gemma-7b", "granite-3-2b",
-                                   "stablelm-1.6b")
+    assert t_base.list_archs() == (
+        "gnn-papers100m", "gemma3-12b", "gemma-7b", "granite-3-2b",
+        "stablelm-1.6b", "internvl2-76b", "llama4-maverick-400b-a17b",
+        "llama4-scout-17b-a16e", "mamba2-130m", "whisper-medium",
+        "zamba2-7b")
     with pytest.raises(KeyError):
         t_base.get_config("llama")

@@ -3,7 +3,8 @@ layer's named: the experiment CLI, theory, wasserstein and the eleven
 ``repro_torch.bench`` modules; the sharded paradigms' named: the NODES
 mesh, the feature-sharded table and its host caches; LM training and
 the dry-run's named: the steps, the launchers, the meshes, the
-roofline and the kernels' cost model) and
+roofline and the kernels' cost model; the LM families' named: the MoE
+and SSM blocks and the six configs) and
 ``chip_smoke.py`` import without
 pulling in ``jax``, the reference package ``repro`` or the reference's
 ``benchmarks`` (checked in a fresh interpreter, so nothing this test
@@ -39,7 +40,11 @@ dryrun = ["repro_torch.models.steps", "repro_torch.launch.train",
           "repro_torch.launch.dryrun", "repro_torch.launch.gnn_steps",
           "repro_torch.launch.mesh", "repro_torch.launch.roofline",
           "repro_torch.kernels.cost"]
-missing = sorted(set(figures + sharded + dryrun) - set(names))
+families = ["repro_torch.models.moe", "repro_torch.models.ssm"] + [
+    "repro_torch.configs." + m for m in (
+        "llama4_scout_17b_a16e", "llama4_maverick_400b_a17b", "mamba2_130m",
+        "zamba2_7b", "whisper_medium", "internvl2_76b")]
+missing = sorted(set(figures + sharded + dryrun + families) - set(names))
 assert not missing, missing
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro", "benchmarks") or m.startswith(

@@ -69,13 +69,20 @@ def test_dense_configs_equal_reference(arch, smoke):
 
 @pytest.mark.parametrize("arch", sorted(set(LM_ARCHS) - {
     "gemma3-12b", "gemma-7b", "granite-3-2b", "stablelm-1.6b"}))
-def test_non_dense_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="later LM slice"):
-        get_config(arch)
-    cfg = ref_get_config(arch, smoke=True)
-    port_cfg = ModelConfig(**dataclasses.asdict(cfg))
-    with pytest.raises(NotImplementedError, match="later LM slice"):
-        M.init_model(torch.Generator().manual_seed(0), port_cfg, CPU)
+@pytest.mark.parametrize("smoke", [False, True])
+def test_family_configs_equal_reference_and_init(arch, smoke):
+    """The MoE, SSM, hybrid, audio and VLM configs equal the reference's,
+    full and smoke; the smoke ones draw a tree of the reference's leaf
+    count (the names and shapes: tests/test_torch_lm_families.py)."""
+    got = get_config(arch, smoke=smoke)
+    assert isinstance(got, ModelConfig)
+    assert dataclasses.asdict(got) == dataclasses.asdict(
+        ref_get_config(arch, smoke=smoke))
+    if smoke:
+        params = M.init_model(torch.Generator().manual_seed(0), got, CPU)
+        ref = jax.eval_shape(lambda k: RM.init_model(k, ref_get_config(
+            arch, smoke=True)), jax.random.key(0))
+        assert len(jax.tree.leaves(params)) == len(jax.tree.leaves(ref))
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +294,7 @@ def test_decode_matches_forward(arch, rng):
     toks = torch.tensor(rng.integers(1, cfg.vocab_size, (b, s + extra)))
     with torch.inference_mode():
         x = M.embed_tokens(params, cfg, toks)
-        hid, _ = M.backbone(params, cfg, x, torch.arange(s + extra))
+        hid, _, _ = M.backbone(params, cfg, x, torch.arange(s + extra))
         ref_logits = M.logits_fn(params, cfg, hid)
         last, cache = M.prefill(params, cfg, {"tokens": toks[:, :s]},
                                 max_len=s + extra)
@@ -363,7 +370,7 @@ def test_ring_placement_mirrors_reference_at_ragged_prompt(rng, s):
         _, cache = M.prefill(port, cfg, {"tokens": torch.tensor(
             toks[:, :s])}, s + extra)
         x = M.embed_tokens(port, cfg, torch.tensor(toks))
-        hid, _ = M.backbone(port, cfg, x, torch.arange(s + extra))
+        hid, _, _ = M.backbone(port, cfg, x, torch.arange(s + extra))
         fwd = M.logits_fn(port, cfg, hid)
     for t in range(extra):
         nxt = toks[:, s + t:s + t + 1]

@@ -318,7 +318,10 @@ def test_chip_smoke_rehearsal_on_cpu():
         assert k["bound_by"] in ("bytes", "operations")
         assert k["launches"] == 0          # CPU: the plain version
     assert result["kernels"][5]["launches_by_path"] == {
-        "lm_serve_bf16": 0, "lm_prefill_f32_model": 0}
+        "lm_serve_bf16": 0, "lm_prefill_f32_model": 0, "zamba2_serve": 0,
+        "zamba2_prefill_f32_model": 0, "llama4_serve": 0,
+        "llama4_prefill_f32_model": 0, "mamba2_serve": 0,
+        "whisper_serve": 0, "internvl2_serve": 0}
     rows = result["kernels"][5]["row_check"]
     assert rows["cases"] > 0 and rows["limit"] == 2.0 ** -7
     # the aggregation backward by shape, the reverse-index kernel's row

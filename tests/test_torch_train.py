@@ -269,13 +269,24 @@ def test_launch_train_smoke_prints_both_paradigms():
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--arch", "mamba2-130m"], NotImplementedError, "later LM slice"),
     (["--arch", "granite-3-2b", "--smoke", "--device", "cpu",
       "--model-par", "2"], NotImplementedError, "Queue 1 item 5"),
 ])
 def test_launch_train_refuses_what_is_not_ported(argv, exc, match):
     with pytest.raises(exc, match=match):
         launch_train.main(argv)
+
+
+def test_launch_train_trains_mamba2_smoke_on_cpu():
+    """mamba2-130m, once refused as a later slice, trains on the CPU."""
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        assert launch_train.main(["--arch", "mamba2-130m", "--smoke",
+                                  "--device", "cpu", "--steps", "2",
+                                  "--seq", "64", "--batch", "2"]) == 0
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert out["arch"] == "mamba2-130m" and out["steps"] == 2
+    assert np.isfinite(out["final_loss"])
 
 
 def test_launch_train_defaults_to_the_card():

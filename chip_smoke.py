@@ -283,6 +283,30 @@ or of the reference package ``repro``.
    kernel at each new prefill shape (time, bound, plain version,
    ``scaled_dot_product_attention``), with a row check at head dim 112
    in f32 and planted faults that must break it.
+15. The static audits (``repro_torch.analysis``): (a) every CUDA kernel
+   case's shared memory and threads by formula against the H100's
+   limits, the formulas' launch constants against the ``.cu`` sources,
+   then every kernel symbol of both built libraries as ``cuobjdump
+   -res-usage`` reads it (registers x threads within the register file,
+   the measured static shared memory equal to the formula's, spills)
+   and the dynamic shared memory each flash launch asks for (the
+   library's ``kSmem`` query at every head dim) equal to the formula's,
+   each symbol joined to its formula row, printed as ``15a resources``
+   lines; the index tables of the audit graph; the thread audit of the
+   thread-crossing modules; the four fixtures, each of which must make
+   the gate fire (the ``constant`` one uploads a host table inside a
+   step on the card).  (b) the dispatch-trace audit of the whole variant
+   cube (every paradigm, plain and kernel, featshard, gcn), the shared
+   eval and the inference chunk on the card at n = 192: no float64, no
+   cast round trip, no host table fed to the card inside a step, no
+   process-group collective, two fresh binds with one op sequence and
+   one set of kernel launches, and kernel launches exactly on the
+   kernel variants; each record counts the host syncs by op and as the
+   sync debug mode reports them.  (c) the same trace audit of one step of each
+   paradigm's kernel variant at gnn-papers100m's widths on the shared
+   graph.  Any gating finding left after ``allowlist.toml`` fails the
+   run.  (The planned sanitizer pass is not here: ``compute-sanitizer``
+   refuses this machine's H100.)
 
 Every failed check raises.  The last stdout line is
 ``{"ok": true, "device": {...}}``; the line before it names the card and
@@ -322,6 +346,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch import sharding as SH  # noqa: E402
+from repro_torch.analysis import findings as AF  # noqa: E402
+from repro_torch.analysis import fixtures as AFX  # noqa: E402
+from repro_torch.analysis import kernel_audit as KA  # noqa: E402
+from repro_torch.analysis import thread_audit as TA  # noqa: E402
+from repro_torch.analysis import trace_audit as TR  # noqa: E402
 from repro_torch.bench import run as brun  # noqa: E402
 from repro_torch.bench.common import Env  # noqa: E402
 from repro_torch.checkpoint import latest_step  # noqa: E402
@@ -4548,6 +4577,132 @@ def family_phase(dev, sz: Sizes) -> dict:
     return out
 
 
+ALLOWLIST = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src",
+                         "repro_torch", "analysis", "allowlist.toml")
+
+
+def gate_findings(label: str, findings) -> list:
+    """The findings after the allowlist, printed; any gating one fails
+    the run."""
+    entries, bad = AF.load_allowlist(ALLOWLIST)
+    kept, suppressed = AF.apply_allowlist(list(findings) + bad, entries)
+    print(f"{label} findings:\n" + AF.render_report(kept, suppressed),
+          flush=True)
+    gate = AF.gating(kept)
+    check(not gate, f"{label}: {len(gate)} gating finding(s): "
+                    f"{[str(f) for f in gate]}")
+    return kept
+
+
+def resource_lines(rows: list, tag: str) -> None:
+    """The built kernels' resources: one line per flash symbol, one per
+    neighbor-aggregation kernel with its symbols' ranges."""
+    by_kernel = collections.defaultdict(list)
+    for r in rows:
+        by_kernel[r["kernel"]].append(r)
+    for kernel, rs in sorted(by_kernel.items()):
+        if kernel.startswith("flash_attn"):
+            for r in rs:
+                print(f"15a resources {r['symbol']}: REG {r['reg']} x "
+                      f"{r['threads']} threads = {r['regs_per_block']} "
+                      f"regs, SHARED static {r['shared_static']} B + "
+                      f"dynamic {r['shared_dynamic']} B (the launch asks "
+                      f"{r['shared_dynamic_built']} B), LOCAL "
+                      f"{r['local']} B, STACK {r['stack']} B ({tag})",
+                      flush=True)
+            continue
+        regs = [r["reg"] for r in rs]
+        print(f"15a resources {kernel}: {len(rs)} symbols, REG "
+              f"{min(regs)}-{max(regs)} x {rs[0]['threads']} threads, "
+              f"SHARED static {max(r['shared_static'] for r in rs)} B + "
+              f"dynamic {rs[0]['shared_dynamic']} B, LOCAL max "
+              f"{max(r['local'] for r in rs)} B, STACK max "
+              f"{max(r['stack'] for r in rs)} B ({tag})", flush=True)
+
+
+def trace_checks(label: str, findings, records, variants=None) -> None:
+    """A trace audit's records: stable across binds, and kernel launches
+    exactly where the variant runs the kernel path (on the card)."""
+    gate_findings(label, findings)
+    kernel_of = {f"variant:{v.name}": v.kernel
+                 for v in (variants or TR.sweep_variants())}
+    for rec in records:
+        name = rec["variant"]
+        print(f"{label} {name}: {rec['n_ops']} ops, hash {rec['op_hash']}, "
+              f"launches {rec['kernel_launches']}, syncs by op "
+              f"{rec['host_syncs']}, syncs measured "
+              f"{rec['host_syncs_measured']}, mesh "
+              f"{rec['mesh_collectives']}, host "
+              f"constants {rec['host_constants']}", flush=True)
+        if "retrace_stable" in rec:
+            check(rec["retrace_stable"], f"{label} {name}: not stable")
+        if torch.device(rec["device"]).type != "cuda":
+            continue
+        kernel = kernel_of.get(name, "+kernel" in name)
+        launched = sum(n for k, n in rec["kernel_launches"].items()
+                       if k.count(".") == 1 and k.split(".")[1] in (
+                           "tiled", "backward", "backward_csr", "row",
+                           "phase1", "phase2", "wgmma", "simt"))
+        check(bool(launched) == kernel,
+              f"{label} {name}: kernel launches {rec['kernel_launches']} "
+              f"on a {'kernel' if kernel else 'plain'} variant")
+
+
+def audit_phase(dev, sz: Sizes, graph) -> dict:
+    """Phase 15 (15a-c): the static audits on the card."""
+    tag = card_tag()
+    secs, out = {}, {}
+    t0 = time.perf_counter()
+    findings = KA.audit_budgets() + KA.audit_sources()
+    if dev.type == "cuda":
+        # a built symbol without a formula row is a gating finding
+        rfs, rows = KA.audit_built()
+        findings += rfs
+        built = {r["kernel"] for r in rows}
+        check(built == {r["kernel"] for r in KA.default_budget_table()},
+              f"15a: the built libraries hold kernels {sorted(built)}")
+        resource_lines(rows, tag)
+        out["resources"] = rows
+    else:
+        out["resources"] = "not measured on the CPU"
+    findings += KA.audit_index_tables(TR.audit_graph())
+    findings += TA.audit_threads()
+    gate_findings("15a", findings)
+    fixtures = [n for n in AFX.FIXTURES
+                if n != "constant" or dev.type == "cuda"]
+    for name in fixtures:
+        fs = AF.gating(AFX.run_fixture(name, dev))
+        check(fs, f"15a: fixture {name} did not make the gate fire")
+        print(f"15a fixture {name}: {len(fs)} gating finding(s), first: "
+              f"{fs[0].site}: {fs[0].detail}", flush=True)
+    secs["15a kernels + threads"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fs, recs = TR.audit_traces(n=192, device=dev)
+    trace_checks("15b", fs, recs)
+    out["n192"] = recs
+    secs["15b traces n=192"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    variants = [TR.Variant(p, True) for p in X.PARADIGMS]
+    base = dataclasses.replace(papers_cfg(graph, sz),
+                               fanout=tuple(sz.mb_fanout))
+    if dev.type == "cpu":
+        # the CPU rehearsal runs the kernels' plain versions, which take
+        # bf16 inputs back to f32 in torch (the kernels do it in
+        # registers): rehearse the control flow in f32
+        base = dataclasses.replace(base, dtype="float32")
+    full_fs, full = [], []
+    for v in variants:
+        f, r = TR.audit_variant(graph, v, dev, base)
+        full_fs += f
+        full.append(r)
+    trace_checks("15c", full_fs, full, variants)
+    out["full_width"] = full
+    secs["15c traces full width"] = time.perf_counter() - t0
+    E.drop_device_cache(graph)
+    out["seconds"] = secs
+    return out
+
+
 def run(dev: torch.device, sz: Sizes) -> dict:
     # full f32 products everywhere (TF32 off), bf16 GEMMs reduce in f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4576,9 +4731,11 @@ def run(dev: torch.device, sz: Sizes) -> dict:
     srcs = timed("11 sources", sources_phase, dev, sz, graph)
     shrd = timed("12 sharded", sharded_phase, dev, sz, graph)
     p13 = timed("13 lm train + dry-run", lm_dryrun_phase, dev, sz, graph)
-    del graph
+    E.drop_device_cache(graph)          # the families need the memory
     p14 = timed("14 families", family_phase, dev, sz)
-    for ph in (figs, srcs, shrd, p13, p14):
+    p15 = timed("15 audits", audit_phase, dev, sz, graph)
+    del graph
+    for ph in (figs, srcs, shrd, p13, p14, p15):
         secs.update({k: round(v, 2) for k, v in ph["seconds"].items()})
     print(f"phase seconds: {json.dumps(secs)}", flush=True)
     fig_runs = figs["10c figures"]

@@ -53,6 +53,7 @@ reference's ``init_gnn`` as numpy) and otherwise draws
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 import warnings
 from typing import Any, Callable as TCallable, List, Optional, Sequence, \
@@ -578,7 +579,8 @@ class _StagedSource(BatchSource):
     ``stage_each_s`` lists the staging time of each batch, whose first
     uses of a ring slot also allocate its pinned buffers),
     ``wait_s`` (the training loop blocked on the next batch) and, on the
-    card, ``h2d_ms`` (CUDA-event time of the batch copies)."""
+    card, ``h2d_ms`` (CUDA-event time of the batch copies).  Both threads
+    add to it, each addition under ``_timing_lock`` (``_tally``)."""
 
     depth = 2                            # Prefetcher queue bound
 
@@ -593,6 +595,7 @@ class _StagedSource(BatchSource):
         self._resume_rng_state = None    # restored position (resume)
         self.timing = {"sample_s": 0.0, "stage_s": 0.0, "wait_s": 0.0,
                        "h2d_ms": 0.0, "batches": 0, "stage_each_s": []}
+        self._timing_lock = threading.Lock()
         # queue depth + the batch on the card + the one being staged
         # (+ one more when the host read lags a step)
         extra = 1 if _deferred_mode(plan) else 0
@@ -607,8 +610,16 @@ class _StagedSource(BatchSource):
             return stage(*args)
         finally:
             dt = time.perf_counter() - t0
-            self.timing["stage_s"] += dt
-            self.timing["stage_each_s"].append(dt)
+            self._tally(stage_s=dt, stage_each_s=[dt])
+
+    def _tally(self, **amounts) -> None:
+        """Add each amount to its ``timing`` entry (a list entry is
+        extended), under the lock: the Prefetcher's worker (sampling,
+        staging) and the training loop (waits, batches, copies) both
+        add."""
+        with self._timing_lock:
+            for key, amount in amounts.items():
+                self.timing[key] += amount
 
     def _upload(self, slot: int) -> List[torch.Tensor]:
         """The slot's tensors on the device: copied with ``non_blocking``
@@ -640,8 +651,7 @@ class _StagedSource(BatchSource):
             for _ in range(remaining):
                 t0 = time.perf_counter()
                 fb, payload = self._pf.next()
-                self.timing["wait_s"] += time.perf_counter() - t0
-                self.timing["batches"] += 1
+                self._tally(wait_s=time.perf_counter() - t0, batches=1)
                 self._last_rng_state = self._pf.last_rng_state
                 self._consumed += 1
                 yield fb, payload
@@ -653,7 +663,7 @@ class _StagedSource(BatchSource):
             slot, events = self._inflight.pop(0)
             if events is not None:
                 events[1].synchronize()       # the copy, not the launch
-                self.timing["h2d_ms"] += events[0].elapsed_time(events[1])
+                self._tally(h2d_ms=events[0].elapsed_time(events[1]))
             self._ring.release(slot)
 
     def close(self) -> None:
@@ -756,7 +766,7 @@ class SampledSource(_StagedSource):
     def _sample(self, rng, graph, batch_size, fanouts) -> FanoutBatch:
         t0 = time.perf_counter()
         fb = self._draw(rng, graph, batch_size, fanouts)
-        self.timing["sample_s"] += time.perf_counter() - t0
+        self._tally(sample_s=time.perf_counter() - t0)
         return fb
 
     def _extra_cols(self, fb: FanoutBatch, valid_n: int) -> Tuple:
@@ -847,8 +857,7 @@ class SampledSource(_StagedSource):
             t0 = time.perf_counter()
             fb = self._sample(rng, self.graph, self.b_request, self.fanouts)
             payload = self._host_batch(self.graph, fb)
-            self.timing["wait_s"] += time.perf_counter() - t0
-            self.timing["batches"] += 1
+            self._tally(wait_s=time.perf_counter() - t0, batches=1)
             self._last_rng_state = rng.bit_generator.state
             self._consumed += 1
             yield self._to_device(payload), fb.batch_size
@@ -1124,7 +1133,7 @@ class ClusterSource(_StagedSource):
                 break
         else:                        # pathological split: force one in
             chosen[0] = train_cluster
-        self.timing["sample_s"] += time.perf_counter() - t0
+        self._tally(sample_s=time.perf_counter() - t0)
         return chosen
 
     def _assemble(self, graph, chosen):

@@ -20,6 +20,10 @@ def _declare(lib: ctypes.CDLL) -> None:
                    + [ctypes.c_int] * 6                       # b s hq hkv d window
                    + [ctypes.c_float, ctypes.c_void_p])       # scale, stream
     fn.restype = ctypes.c_int
+    for name in ("flash_attn_smem_bytes", "flash_attn_wgmma_smem_bytes"):
+        fn = getattr(lib, name)                           # head dim
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_longlong
 
 
 LIBRARY = Library(os.path.dirname(os.path.abspath(__file__)), "flash_attn",

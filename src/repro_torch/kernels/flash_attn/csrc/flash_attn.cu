@@ -388,3 +388,25 @@ extern "C" int flash_attn_forward(int dtype, const void* q, const void* k,
   }
   return kBadArgs;
 }
+
+// The dynamic shared memory a launch at head dim d asks for
+// (Shape<d>::kSmem), or -1 for a head dim the library is not built for.
+// The kernel audit holds its budget formula to it.
+extern "C" long long flash_attn_smem_bytes(int d) {
+  switch (d) {
+    case 16:
+      return (long long)Shape<16>::kSmem;
+    case 32:
+      return (long long)Shape<32>::kSmem;
+    case 64:
+      return (long long)Shape<64>::kSmem;
+    case 112:
+      return (long long)Shape<112>::kSmem;
+    case 128:
+      return (long long)Shape<128>::kSmem;
+    case 256:
+      return (long long)Shape<256>::kSmem;
+    default:
+      return -1;
+  }
+}

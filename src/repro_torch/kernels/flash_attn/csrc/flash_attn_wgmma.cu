@@ -432,3 +432,21 @@ extern "C" int flash_attn_wgmma_forward(const void* q, const void* k,
       return launch<256>(qm, km, vm, o, b, s, hq, hkv, window, scale_log2, st);
   }
 }
+
+// The dynamic shared memory a launch at head dim d asks for
+// (Cfg<d>::kSmem), or -1 for a head dim the kernel is not built for.
+// The kernel audit holds its budget formula to it.
+extern "C" long long flash_attn_wgmma_smem_bytes(int d) {
+  switch (d) {
+    case 64:
+      return (long long)Cfg<64>::kSmem;
+    case 112:
+      return (long long)Cfg<112>::kSmem;
+    case 128:
+      return (long long)Cfg<128>::kSmem;
+    case 256:
+      return (long long)Cfg<256>::kSmem;
+    default:
+      return -1;
+  }
+}

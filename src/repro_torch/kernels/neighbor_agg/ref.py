@@ -88,8 +88,8 @@ def neighbor_agg_backward_csr_ref(rev, w, g):
     non-finite g row behind one does not spread), and a row with no edge
     is 0.  ``rev`` is an ``ops.ReverseIndex``."""
     d = g.shape[1]
-    e = rev.edges.long()
-    counts = rev.indptr[1:].long() - rev.indptr[:-1].long()
+    e = rev.edges                  # int32 indexes as it is: no cast pass
+    counts = rev.indptr[1:] - rev.indptr[:-1]
     seg = torch.repeat_interleave(
         torch.arange(rev.n, device=g.device), counts)
     we = w.reshape(-1)[e].float()

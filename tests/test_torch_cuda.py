@@ -1075,3 +1075,60 @@ def test_sharded_sources_on_the_card(cuda, layout):
         assert n4["backward_csr"] == 4 * n_fg["backward_csr"], (n4, n_fg)
     lm4, _ = run(E.ShardedSampledSource(batch_size=256, mesh=m4))
     assert np.isfinite(lm4).all()
+
+
+# ---------------------------------------------------------------------------
+# the static audits' card half (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+def test_resource_table_covers_every_built_symbol(cuda):
+    """Every kernel symbol of both built libraries joins a formula row
+    (a symbol without one is a gating finding), every kernel of the
+    budget table is built, and nothing but the allowlisted one-block-per-
+    SM headroom of the flash kernels gates."""
+    from repro_torch.analysis import findings as AF
+    from repro_torch.analysis import kernel_audit as KA
+    fs, rows = KA.audit_built()
+    usage = {}
+    for path in KA.built_libraries().values():
+        usage.update(KA.resource_usage(path))
+    assert len(rows) == len(usage) > 0
+    assert {r["kernel"] for r in rows} == {
+        r["kernel"] for r in KA.default_budget_table()}
+    assert {f.site.split("[")[0] for f in AF.gating(fs)} <= {
+        "kernel:headroom:flash_attn_kernel",
+        "kernel:headroom:flash_attn_wgmma_kernel"}
+    flash = [r for r in rows if r["kernel"] in KA.SMEM_QUERIES]
+    assert flash and all(r["shared_dynamic_built"] == r["shared_dynamic"]
+                         for r in flash), flash
+
+
+def test_trace_measures_the_syncs_of_a_step(cuda):
+    """The sync debug mode counts a step's syncs on the card, also those
+    inside an op (``bincount`` reads its maximum back), and none where a
+    step has none; the op list names the same ops."""
+    from repro_torch.analysis import trace_audit as TR
+    x = torch.arange(64, device=cuda) % 5
+
+    def syncing(t):
+        return torch.bincount(t), torch.nonzero(t), t.sum().item()
+
+    _, tr, _, _ = TR.traced(syncing, x, device=cuda)
+    assert tr.syncs == {"aten.bincount": 1, "aten.nonzero": 1,
+                        "aten._local_scalar_dense": 1}, tr.syncs
+    assert set(tr.measured_syncs) == set(tr.syncs), tr.measured_syncs
+    assert TR.walk_hazards(tr, "syncing", cuda) == []
+    upload = torch.arange(64.0)
+    _, tr, _, _ = TR.traced(lambda t: t.to(cuda) * 2, upload, device=cuda)
+    assert tr.syncs == {"aten._to_copy": 1} == tr.measured_syncs
+    _, tr, _, _ = TR.traced(lambda t: t * 2 + 1, x, device=cuda)
+    assert tr.syncs == {} == tr.measured_syncs
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_constant_fixture_is_flagged_on_the_card(cuda):
+    """A step that uploads a 16 KiB host table on every call."""
+    from repro_torch.analysis import fixtures as AFX
+    fs = AFX.run_fixture("constant", cuda)
+    assert fs and all(f.severity == "error" for f in fs), fs
+    assert "host tensor" in fs[0].detail

@@ -4,7 +4,8 @@ layer's named: the experiment CLI, theory, wasserstein and the eleven
 mesh, the feature-sharded table and its host caches; LM training and
 the dry-run's named: the steps, the launchers, the meshes, the
 roofline and the kernels' cost model; the LM families' named: the MoE
-and SSM blocks and the six configs) and
+and SSM blocks and the six configs; the static audits' named:
+``repro_torch.analysis`` and its checkers, fixtures and command line) and
 ``chip_smoke.py`` import without
 pulling in ``jax``, the reference package ``repro`` or the reference's
 ``benchmarks`` (checked in a fresh interpreter, so nothing this test
@@ -44,7 +45,12 @@ families = ["repro_torch.models.moe", "repro_torch.models.ssm"] + [
     "repro_torch.configs." + m for m in (
         "llama4_scout_17b_a16e", "llama4_maverick_400b_a17b", "mamba2_130m",
         "zamba2_7b", "whisper_medium", "internvl2_76b")]
-missing = sorted(set(figures + sharded + dryrun + families) - set(names))
+analysis = ["repro_torch.analysis"] + [
+    "repro_torch.analysis." + m for m in (
+        "findings", "thread_audit", "kernel_audit", "trace_audit",
+        "fixtures", "__main__")]
+missing = sorted(set(figures + sharded + dryrun + families + analysis)
+                 - set(names))
 assert not missing, missing
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro", "benchmarks") or m.startswith(

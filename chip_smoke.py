@@ -98,36 +98,38 @@ or of the reference package ``repro``.
    version (``flash_attention_ref``).  Every call goes to the kernel
    ``kernel_route`` names, and the per-kernel launch counts must show
    it: bf16 at D = 64, 128 and 256 on the tensor-core kernel
-   (``flash_attn_wgmma.cu``), f32 and D = 16 or 32 on the f32 kernel
-   (``flash_attn.cu``).  Cases: gemma3-12b's prefill shape (B = 2,
-   S = 4096, Hq = 16, Hkv = 8, D = 256; window 0 and 1024; bf16 and
-   f32), D = 64 and 128, the reference test's shapes (B 2, Hq 4, Hkv 2,
-   D 32, S 64-256, window 64), ragged S (1, 63, 65, 127, 129, 333, 777,
-   1000), S = 16,384 at B = 1 (the ring wrapped 256 times), Hq = Hkv
-   and Hq/Hkv = 16, windows of 1, 100 and 1000 and one longer than S.
+   (``flash_attn_wgmma.cu``), f32 and D = 16 or 32 on the three-term
+   TF32 kernel (``flash_attn.cu``, route ``tf32x3``).  Cases:
+   gemma3-12b's prefill shape (B = 2, S = 4096, Hq = 16, Hkv = 8, D =
+   256; window 0 and 1024; bf16 and f32), D = 64 and 128, the reference
+   test's shapes (B 2, Hq 4, Hkv 2, D 32, S 64-256, window 64), ragged S
+   (1, 63, 65, 127, 129, 333, 777, 1000), S = 16,384 at B = 1 (the ring
+   wrapped 256 times), Hq = Hkv and Hq/Hkv = 16, windows of 1, 100 and
+   1000 and one longer than S.
    Tolerance: 2e-5 (f32) and 3e-2 (bf16), atol = rtol.  Every case of
    the tensor-core kernel is also held, row by row, to the plain version
    run in f32 on the same bf16 inputs: ||err|| / ||row|| at most 2^-7,
    two bf16 roundings (``ref.row_rel_err``); at the main shapes, faults
    planted in the output (the second half's rows off by 2 % and 10 %,
    those rows skipping the first 64 keys they keep, the window's edge
-   one key out) must each break that limit.  Two calls of the
-   tensor-core kernel at the main shape must be bit-equal.  The
-   main shapes are timed with CUDA events beside the plain version,
-   one ``scaled_dot_product_attention`` call (``is_causal``, or a
-   boolean band mask for the window) and the bound; in bf16 the f32
-   kernel is timed on the same inputs as well.
+   one key out) must each break that limit.  Two calls of each kernel
+   at the main shapes must be bit-equal.  The main shapes are timed
+   with CUDA events beside the plain version, one
+   ``scaled_dot_product_attention`` call (``is_causal``, or a boolean
+   band mask for the window) and the bound (f32: at the 3xTF32 rate,
+   and at the f32-FMA rate beside it); in bf16 the tf32x3 kernel is
+   timed on the same inputs as well.
 9. LM serving phase at full width: gemma3-12b (48 layers, d_model 3840,
    16/8 heads of 256, d_ff 15360, vocab 262,144, 5 local : 1 global),
    bf16 weights drawn on the card from a seeded generator, through the
    port's ``models.steps``: prefill of 2 x 4096 tokens, then 32 greedy
    decode steps.  The flash kernels' launch counts are reset just
    before and read just after: one launch of the tensor-core kernel per
-   layer of the prefill (48) and none of the f32 kernel.  The
+   layer of the prefill (48) and none of the tf32x3 kernel.  The
    prefill's last logits with the kernel must match the plain path
    (the reference model's chunked attention) to a relative max error of
    5e-2 in bf16 and, with the same model drawn in f32 (whose prefill,
-   counted the same way, must launch the f32 kernel 48 times and the
+   counted the same way, must launch the tf32x3 kernel 48 times and the
    tensor-core kernel never), 1e-3; every logit
    finite and every token within the vocab; 8 teacher-forced decode
    steps must match the forward over the extended sequence to a relative
@@ -263,7 +265,7 @@ or of the reference package ``repro``.
    and depth (81 layers: 70 mamba, 11 applications of one shared
    attention block at head dim 112), batch 2, prompt 4096, 32 greedy
    decode steps: 11 launches of the tensor-core kernel a prefill; the
-   model drawn again in f32, 11 of the f32 kernel, held at 1e-3; the
+   model drawn again in f32, 11 of the tf32x3 kernel, held at 1e-3; the
    prefill's peak device bytes.  (b) llama4-scout-17b-a16e at full width,
    depth cut to one iRoPE period (3 local layers at window 8192, 1
    global NoPE layer; 16 experts), batch 1, prompt 16384: 4 launches
@@ -288,8 +290,9 @@ or of the reference package ``repro``.
    limits, the formulas' launch constants against the ``.cu`` sources,
    then every kernel symbol of both built libraries as ``cuobjdump
    -res-usage`` reads it (registers x threads within the register file,
-   the measured static shared memory equal to the formula's, spills)
-   and the dynamic shared memory each flash launch asks for (the
+   the measured static shared memory equal to the formula's, spills:
+   none allowed in a flash kernel) and the dynamic shared memory each
+   flash launch asks for (the
    library's ``kSmem`` query at every head dim) equal to the formula's,
    each symbol joined to its formula row, printed as ``15a resources``
    lines; the index tables of the audit graph; the thread audit of the
@@ -1733,13 +1736,13 @@ def flash_phase(dev, sz: Sizes) -> dict:
     plain = lambda q, k, v, w: fa.flash_attention(  # noqa: E731
         q, k, v, window=w, use_kernel=False)
 
-    def simt(q, k, v, w):
-        """The f32-FMA kernel on inputs the router sends elsewhere, to
-        time the two kernels on the same inputs (the plain version on the
-        CPU, as the wrapper would take)."""
+    def tf32x3(q, k, v, w):
+        """The three-term TF32 kernel on inputs the router sends
+        elsewhere, to time the two kernels on the same inputs (the plain
+        version on the CPU, as the wrapper would take)."""
         if dev.type != "cuda":
             return kern(q, k, v, w)
-        return fa._launch(q, k, v, w, "simt")
+        return fa._launch(q, k, v, w, "tf32x3")
 
     def qkv(b, s, hq, hkv, d, dtype):
         return [torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
@@ -1828,21 +1831,23 @@ def flash_phase(dev, sz: Sizes) -> dict:
                 print(f"{name}: row error {row_err:.6g} (limit "
                       f"{BF16_ROW_TOL}); planted faults: "
                       f"{json.dumps(planted)}", flush=True)
-            simt_err = None
+            # each kernel twice on the same inputs: the same bits
+            check(torch.equal(out, kern(q, k, v, w)),
+                  f"{name}: two calls of the kernel differ")
+            tf32x3_err = None
             if route == "wgmma":
-                check(torch.equal(out, kern(q, k, v, w)),
-                      f"{name}: two calls of the kernel differ")
-                simt_err = compare(f"{name} (f32 kernel)", dtype,
-                                   simt(q, k, v, w), plain(q, k, v, w),
-                                   FA_TOL[dtype])
+                tf32x3_err = compare(f"{name} (tf32x3 kernel)", dtype,
+                                     tf32x3(q, k, v, w), plain(q, k, v, w),
+                                     FA_TOL[dtype])
             del out
             b_ms, b_by, nbytes, flops = flash_bound(b, s, hq, hkv, d, w,
                                                     dtype)
             # in bf16 the two kernels in turns on the same inputs
             k_ms = time_ms(lambda: kern(q, k, v, w), dev, sz.fa_iters)
-            simt_ms = None
+            tf32x3_ms = None
             if route == "wgmma":
-                simt_ms = time_ms(lambda: simt(q, k, v, w), dev, sz.fa_iters)
+                tf32x3_ms = time_ms(lambda: tf32x3(q, k, v, w), dev,
+                                    sz.fa_iters)
                 k_ms = (k_ms + time_ms(lambda: kern(q, k, v, w), dev,
                                        sz.fa_iters)) / 2
             p_ms = time_ms(lambda: plain(q, k, v, w), dev,
@@ -1850,18 +1855,26 @@ def flash_phase(dev, sz: Sizes) -> dict:
             lib = library_ms(_sdpa(q, k, v, w), dev, sz.fa_iters)
             measured[(dtype, w)] = dict(
                 max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib, simt_ms=simt_ms,
-                simt_max_abs_err=simt_err)
+                bound_by=b_by, library_ms=lib, tf32x3_ms=tf32x3_ms,
+                tf32x3_max_abs_err=tf32x3_err)
+            rate = "989 TFLOP/s (bf16)"
+            same = ""
             if route == "wgmma":
                 measured[(dtype, w)].update(row_rel_err=row_err,
                                             planted_faults=planted)
+                same = (f" tf32x3 kernel on the same inputs: ms="
+                        f"{tf32x3_ms:.4f} max_err={tf32x3_err:.3g}")
+            else:
+                measured[(dtype, w)]["bound_fma_ms"] = fma_ms = flash_bound(
+                    b, s, hq, hkv, d, w, dtype, rate=F32_FLOPS_PER_S)[0]
+                rate = (f"495/3 TFLOP/s (3xTF32; at the f32-FMA rate of 67 "
+                        f"TFLOP/s the bound is {fma_ms:.4f} ms)")
             print(f"{name}: {route} kernel max_err={err:.3g} "
-                  f"kernel_ms={k_ms:.4f} f32 kernel on the same inputs: "
-                  f"ms={fmt(simt_ms)} max_err={simt_err} plain_ms={p_ms:.4f} "
+                  f"kernel_ms={k_ms:.4f} (two calls bit-equal){same} "
+                  f"plain_ms={p_ms:.4f} "
                   f"library_ms={fmt(lib)} (scaled_dot_product_attention) "
                   f"bound_ms={b_ms:.4f} (bound by {b_by}: {nbytes} B = q + "
-                  f"k + v + o at 3.35 TB/s; {flops} flops at "
-                  f"{'989' if dtype == torch.bfloat16 else '67'} TFLOP/s) "
+                  f"k + v + o at 3.35 TB/s; {flops} flops at {rate}) "
                   f"= {flops / k_ms / 1e9:.1f} TFLOP/s achieved", flush=True)
             del q, k, v
     # other head dims, the reference test's shapes, ragged S, windows
@@ -2057,12 +2070,12 @@ def serve_case(dev, cfg, label: str, *, b: int, s: int, ngen: int,
     tables of one prefill and one decode step.  The run compared with the
     kernel's replays its MoE routing (``observed(replay=)``).  With
     ``f32_twin`` the model is drawn again in f32, its prefill counted the
-    same way (the f32 kernel) and held to the plain path at 1e-3; without
-    ``hold_tf`` the bf16 teacher-forced reading is printed, not held, and
-    the f32 twin's is held at 1e-3 instead (zamba2-7b: the rounding of 81
-    random bf16 layers, carried in the SSD and KV caches from step to
-    step, reads 5.5e-2 by step 7).  With ``measure_peak`` the prefill's
-    peak device bytes are measured."""
+    same way (the tf32x3 kernel) and held to the plain path at 1e-3;
+    without ``hold_tf`` the bf16 teacher-forced reading is printed, not
+    held, and the f32 twin's is held at 1e-3 instead (zamba2-7b: the
+    rounding of 81 random bf16 layers, carried in the SSD and KV caches
+    from step to step, reads 5.5e-2 by step 7).  With ``measure_peak``
+    the prefill's peak device bytes are measured."""
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2211,15 +2224,18 @@ def serve_case(dev, cfg, label: str, *, b: int, s: int, ngen: int,
     with torch.inference_mode():
         # ---- the f32 model's prefill, between a reset and a read
         fa.reset_launches()
+        t0 = time.perf_counter()
         with observed() as seen_k:
             got, _ = steps.make_prefill_step(cfg32)(params, prompt32)
         sync()
+        out["prefill_s_f32"] = time.perf_counter() - t0
         out["counts_f32"] = fa.launch_counts()
         # ---- end of the f32 model's prefill
         with observed(replay=seen_k["experts"]):
             want, _ = M.prefill(params, plain_cfg(cfg32, p0 + s), prompt32,
                                 kernel=False)
-    print(f"{label}: f32 model prefill flash launches {out['counts_f32']}",
+    print(f"{label}: f32 model prefill flash launches {out['counts_f32']}, "
+          f"{out['prefill_s_f32']:.4f} s (first call, host clock)",
           flush=True)
     if dev.type == "cuda":
         route = fa.kernel_route(torch.float32, cfg.resolved_head_dim)
@@ -4453,7 +4469,8 @@ def family_flash(dev, sz: Sizes, rows: list) -> dict:
     and the bound.  At head dim 112: the row check against the plain
     version in f32 (BF16_ROW_TOL), faults planted in the output that must
     break it (the second half's rows off by 2 %, the output's last 16
-    real columns zeroed), and the f32 kernel on the same inputs in f32."""
+    real columns zeroed), and the tf32x3 kernel on the same inputs in f32
+    (two calls bit-equal; bounds at the 3xTF32 and the f32-FMA rates)."""
     gen = torch.Generator(device=dev).manual_seed(14)
     kern = lambda q, k, v, w: fa.flash_attention(  # noqa: E731
         q, k, v, window=w, use_kernel=True)
@@ -4500,25 +4517,31 @@ def family_flash(dev, sz: Sizes, rows: list) -> dict:
             del late, cols
             counts = fa.launch_counts()
             got32 = kern(q32, k32, v32, w)
-            check_launch(dev, fa.launch_counts()["simt"]
-                         == counts["simt"] + 1,
-                         f"{name}: f32 not one launch of the f32 kernel")
+            check_launch(dev, fa.launch_counts()["tf32x3"]
+                         == counts["tf32x3"] + 1,
+                         f"{name}: f32 not one launch of the tf32x3 kernel")
             err32 = compare(f"{name} in f32", torch.float32, got32, ref32,
                             FA_TOL[torch.float32])
-            simt_ms = time_ms(lambda: kern(q32, k32, v32, w), dev,
-                              sz.fa_iters)
+            check(torch.equal(got32, kern(q32, k32, v32, w)),
+                  f"{name} in f32: two calls of the kernel differ")
+            f32_ms = time_ms(lambda: kern(q32, k32, v32, w), dev,
+                             sz.fa_iters)
             p32_ms = time_ms(lambda: plain(q32, k32, v32, w), dev, 1, 1)
             lib32 = library_ms(_sdpa(q32, k32, v32, w), dev, sz.fa_iters)
             b32 = flash_bound(b, s, hq, hkv, d, w, torch.float32)[0]
+            fma32 = flash_bound(b, s, hq, hkv, d, w, torch.float32,
+                                rate=F32_FLOPS_PER_S)[0]
             row = {"row_rel_err": r, "row_check_limit": BF16_ROW_TOL,
                    "planted_faults": faults, "f32_max_abs_err": err32,
-                   "f32_kernel_ms": simt_ms, "f32_plain_ms": p32_ms,
-                   "f32_library_ms": lib32, "f32_bound_ms": b32}
+                   "f32_kernel_ms": f32_ms, "f32_plain_ms": p32_ms,
+                   "f32_library_ms": lib32, "f32_bound_ms": b32,
+                   "f32_bound_fma_ms": fma32}
             print(f"{name}: row error {r:.6g} (limit {BF16_ROW_TOL}); "
-                  f"planted faults {faults}; the f32 kernel on the inputs in "
-                  f"f32: max_err {err32:.3g}, {simt_ms:.4f} ms, plain "
-                  f"{p32_ms:.4f} ms, library {fmt(lib32)} ms, bound "
-                  f"{b32:.4f} ms (f32 rate)", flush=True)
+                  f"planted faults {faults}; the tf32x3 kernel on the inputs "
+                  f"in f32: max_err {err32:.3g} (two calls bit-equal), "
+                  f"{f32_ms:.4f} ms, plain {p32_ms:.4f} ms, library "
+                  f"{fmt(lib32)} ms, bound {b32:.4f} ms (3xTF32 rate, 495/3 "
+                  f"TFLOP/s; {fma32:.4f} ms at the f32-FMA rate)", flush=True)
             del q32, k32, v32, ref32, got32
         del got
         k_ms = time_ms(lambda: kern(q, k, v, w), dev, sz.fa_iters)
@@ -4642,7 +4665,7 @@ def trace_checks(label: str, findings, records, variants=None) -> None:
         launched = sum(n for k, n in rec["kernel_launches"].items()
                        if k.count(".") == 1 and k.split(".")[1] in (
                            "tiled", "backward", "backward_csr", "row",
-                           "phase1", "phase2", "wgmma", "simt"))
+                           "phase1", "phase2", "wgmma", "tf32x3"))
         check(bool(launched) == kernel,
               f"{label} {name}: kernel launches {rec['kernel_launches']} "
               f"on a {'kernel' if kernel else 'plain'} variant")
@@ -4662,6 +4685,10 @@ def audit_phase(dev, sz: Sizes, graph) -> dict:
         check(built == {r["kernel"] for r in KA.default_budget_table()},
               f"15a: the built libraries hold kernels {sorted(built)}")
         resource_lines(rows, tag)
+        # the flash kernels keep their accumulators in registers
+        spills = {r["symbol"]: r["local"] for r in rows
+                  if r["kernel"] in KA.SMEM_QUERIES and r["local"]}
+        check(not spills, f"15a: flash kernels spill (LOCAL bytes): {spills}")
         out["resources"] = rows
     else:
         out["resources"] = "not measured on the CPU"
@@ -4908,19 +4935,25 @@ def run(dev: torch.device, sz: Sizes) -> dict:
         {"name": "flash_attention", "route": "cuda",
          "source": FA_CSRC + "flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn/flash_attn.py:78",
-         "launches": lm["counts_f32"]["simt"],
+         "launches": lm["counts_f32"]["tf32x3"],
          "launches_by_path": {
-             "lm_serve_bf16": lm["counts"]["simt"],
-             "lm_prefill_f32_model": lm["counts_f32"]["simt"],
-             **on_families("simt"),
+             "lm_serve_bf16": lm["counts"]["tf32x3"],
+             "lm_prefill_f32_model": lm["counts_f32"]["tf32x3"],
+             **on_families("tf32x3"),
              "note": "serves f32 and D = 16 or 32 only; launches are the "
                      "f32 models' prefills, the bf16 main paths run none"},
-         **_simt_on_bf16(flash[(torch.bfloat16, 0)]),
-         "shape": f"bf16, B={b} S={s} Hq={hq} Hkv={hkv} D={hd}, window 0 "
-                  f"(the same inputs as flash_attention_wgmma)",
-         f"window_{w1}": _simt_on_bf16(flash[(torch.bfloat16, w1)]),
-         "f32_window_0": _own(flash[(torch.float32, 0)]),
-         f"f32_window_{w1}": _own(flash[(torch.float32, w1)])},
+         **_own(flash[(torch.float32, 0)]),
+         "shape": f"f32, B={b} S={s} Hq={hq} Hkv={hkv} D={hd}, window 0 "
+                  f"(the f32 model's prefill)",
+         f"window_{w1}": _own(flash[(torch.float32, w1)]),
+         "bf16_same_inputs_as_wgmma": _tf32x3_on_bf16(
+             flash[(torch.bfloat16, 0)]),
+         f"bf16_window_{w1}_same_inputs_as_wgmma": _tf32x3_on_bf16(
+             flash[(torch.bfloat16, w1)]),
+         "family_shapes_f32": {
+             k: {f: v for f, v in r.items() if f.startswith("f32_")}
+             for k, r in p14["14 flash shapes"].items()
+             if "f32_kernel_ms" in r}},
         {"name": "neighbor_agg_tiled_slab", "route": "cuda",
          "source": sources["slab"],
          "replaces": REF_AGG + "neighbor_agg.py:192",
@@ -4947,7 +4980,7 @@ PHASE13 = {
     "neighbor_agg_row": ("row", ("row",)),
     "neighbor_agg_tiled_slab": ("tiled_slab", ("tiled_d128",)),
     "flash_attention_wgmma": ("wgmma", ("flash_wgmma_bfloat16",)),
-    "flash_attention": ("simt", ("flash_simt_float32",)),
+    "flash_attention": ("tf32x3", ("flash_tf32x3_float32",)),
 }
 
 
@@ -4969,16 +5002,16 @@ def add_phase13(kernels: list, p13: dict) -> None:
 
 def _own(m: dict) -> dict:
     """A measured main shape's numbers for the kernel that served it."""
-    return {k: v for k, v in m.items() if not k.startswith("simt_")}
+    return {k: v for k, v in m.items() if not k.startswith("tf32x3_")}
 
 
-def _simt_on_bf16(m: dict) -> dict:
-    """The f32 kernel's numbers on the bf16 inputs of a measured main
+def _tf32x3_on_bf16(m: dict) -> dict:
+    """The tf32x3 kernel's numbers on the bf16 inputs of a measured main
     shape: its own time and error; the plain, bound and library times are
     those of the same inputs."""
     own = {k: v for k, v in _own(m).items()
            if k not in ("row_rel_err", "planted_faults")}
-    return dict(own, ms=m["simt_ms"], max_abs_err=m["simt_max_abs_err"])
+    return dict(own, ms=m["tf32x3_ms"], max_abs_err=m["tf32x3_max_abs_err"])
 
 
 def main() -> int:

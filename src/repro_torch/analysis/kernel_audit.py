@@ -10,7 +10,7 @@ and threads, so the checks are:
 1. **Budget by formula** (``default_budget_table``, CPU): one row per
    kernel and case, with the threads per block, the static and the
    dynamic shared memory its launch code asks for (``flash_attn.cu``'s
-   ``Shape<D>::kSmem``, ``flash_attn_wgmma.cu``'s ``Cfg<D>::kSmem``; 0
+   ``Smem<float, D>::kBytes``, ``flash_attn_wgmma.cu``'s ``Cfg<D>::kSmem``; 0
    for the five neighbor-aggregation kernels), held to the H100's limits
    (``H100``).  Over a limit is an error; over ``WARN_FRACTION`` of it a
    warning, as in the reference.  The formulas read the launch constants
@@ -82,12 +82,12 @@ SOURCE_CONSTANTS = {
         "kRowsPerBlock": 8},
     "kernels/neighbor_agg/csrc/neighbor_agg_row.cu": {"kCols": 128},
     "kernels/flash_attn/csrc/flash_attn.cu": {
-        "kBQ": 64, "kBK": 64, "kThreads": 256},
+        "kBQ": 128, "kBK": 32, "kWideD": 256, "kBlocksPerSM": 2},
     "kernels/flash_attn/csrc/flash_attn_wgmma.cu": {
         "kBQ": 128, "kBK": 64, "kStages": 2, "kThreads": 384},
 }
 #: kernels declared ``__launch_bounds__(kThreads, 1)``: one block per SM
-ONE_BLOCK_PER_SM = ("flash_attn_kernel", "flash_attn_wgmma_kernel")
+ONE_BLOCK_PER_SM = ("flash_attn_wgmma_kernel",)
 #: the head dims each flash kernel is compiled for
 FLASH_HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 WGMMA_HEAD_DIMS = (64, 112, 128, 256)
@@ -105,16 +105,33 @@ def _c(path: str, name: str) -> int:
 # Budgets by formula (mirroring each kernel's launch code)
 # ---------------------------------------------------------------------------
 
-def flash_simt_smem(d: int) -> Dict[str, int]:
-    """Dynamic shared memory of ``flash_attn.cu``'s ``flash_attn_kernel<T,
-    D>`` (``Shape<D>::kSmem``): f32 Q, K and V tiles with rows padded by 4
-    floats, and the transposed P tile (rows kBQ + 4 floats apart)."""
+def flash_tf32x3_tile(d: int) -> Dict[str, int]:
+    """The launch shape of ``flash_attn.cu``'s ``flash_attn_kernel<T, D>``
+    (``Tile<D>``): kBQ query rows a block and kBK keys a tile; a warp owns
+    16 rows from head dim kWideD up and 32 (two m16 tiles) below it; the
+    blocks its ``__launch_bounds__`` keeps resident on an SM (kBlocksPerSM
+    below kWideD, one from it)."""
     src = "kernels/flash_attn/csrc/flash_attn.cu"
-    bq, bk = _c(src, "kBQ"), _c(src, "kBK")
-    stride, p_stride = d + 4, bq + 4
-    return {f"Q/K/V tiles [{bq}+2x{bk}, {stride}] f32":
-            4 * (bq + 2 * bk) * stride,
-            f"P^T tile [{bk}, {p_stride}] f32": 4 * bk * p_stride}
+    wide = d >= _c(src, "kWideD")
+    rows = _c(src, "kBQ")
+    warps = rows // (16 if wide else 32)
+    return {"rows": rows, "keys": _c(src, "kBK"), "threads": 32 * warps,
+            "blocks": 1 if wide else _c(src, "kBlocksPerSM")}
+
+
+def flash_tf32x3_smem(d: int) -> Dict[str, int]:
+    """Dynamic shared memory of an f32 launch of ``flash_attn.cu``'s
+    ``flash_attn_kernel<T, D>`` (``Smem<float, D>::kBytes``; bf16 tiles
+    take half): the Q tile and one K and one V tile, rows padded by 16
+    bytes (4 floats)."""
+    tile = flash_tf32x3_tile(d)
+    stride = d + 4
+    return {f"Q tile [{tile['rows']}, {stride}] f32":
+            4 * tile["rows"] * stride,
+            f"K tile [{tile['keys']}, {stride}] f32":
+            4 * tile["keys"] * stride,
+            f"V tile [{tile['keys']}, {stride}] f32":
+            4 * tile["keys"] * stride}
 
 
 def flash_wgmma_smem(d: int) -> Dict[str, int]:
@@ -133,14 +150,18 @@ def flash_wgmma_smem(d: int) -> Dict[str, int]:
 
 
 def budget_row(kernel: str, case: str, source: str, threads: int,
-               dyn: Dict[str, int], head_dim: Optional[int] = None) -> Dict:
+               dyn: Dict[str, int], head_dim: Optional[int] = None,
+               blocks: Optional[int] = None) -> Dict:
     """One kernel case against the H100's limits.  ``dyn``: the dynamic
     shared memory's parts (no kernel of the port declares a static
     ``__shared__`` array: ``static_smem`` is 0, which the built symbols'
-    SHARED column is held to)."""
+    SHARED column is held to).  ``blocks``: the blocks the launch bounds
+    keep resident on an SM, whose shared memory and registers must fit it
+    together (1 for the kernels of ``ONE_BLOCK_PER_SM``)."""
     smem = sum(dyn.values())
     uses = smem > 0
-    blocks = 1 if kernel in ONE_BLOCK_PER_SM else None
+    if kernel in ONE_BLOCK_PER_SM:
+        blocks = 1
     return {"kernel": kernel, "case": case, "source": source,
             "head_dim": head_dim, "threads": threads,
             "static_smem": 0, "dyn_smem": smem,
@@ -179,10 +200,11 @@ def default_budget_table() -> List[Dict]:
     ]
     fa = "kernels/flash_attn/csrc/"
     for d in FLASH_HEAD_DIMS:
+        tile = flash_tf32x3_tile(d)
         rows.append(budget_row(
             "flash_attn_kernel", f"f32 tiles D={d}", fa + "flash_attn.cu",
-            _c(fa + "flash_attn.cu", "kThreads"), flash_simt_smem(d),
-            head_dim=d))
+            tile["threads"], flash_tf32x3_smem(d), head_dim=d,
+            blocks=tile["blocks"]))
     for d in WGMMA_HEAD_DIMS:
         rows.append(budget_row(
             "flash_attn_wgmma_kernel", f"bf16 D={d}",

@@ -20,11 +20,17 @@ from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 # --- NVIDIA H100 SXM (data sheet, dense) -----------------------------------
 BF16_FLOPS_PER_S = 989e12     # bf16 / fp16 tensor cores
 F32_FLOPS_PER_S = 67e12       # f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12     # TF32 tensor cores
+#: f32 products on the tensor cores in three-term TF32 (three TF32
+#: products for each f32 one): the f32 flash kernel's rate
+TF32X3_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 HBM_BYTES_PER_S = 3.35e12     # device memory rate
 
-#: the flop key of f32 work on the CUDA cores (the hand-written kernels'
-#: FMAs): never TF32
+#: the flop key of f32 work on the CUDA cores (the neighbor-aggregation
+#: kernels' FMAs): never TF32
 F32_FMA = "float32_fma"
+#: the flop key of f32 products in three-term TF32 (the f32 flash kernel)
+TF32X3 = "float32_tf32x3"
 
 
 def note_kernel(name: str, nbytes: int, flops: int, key: str) -> None:
@@ -140,11 +146,16 @@ def bound_bwd_csr(rev, d: int, el: int) -> tuple:
     return least_ms(nbytes, flops, F32_FLOPS_PER_S) + (nbytes,)
 
 
-def flash_bound(b, s, hq, hkv, d, window, dtype) -> tuple:
+def flash_bound(b, s, hq, hkv, d, window, dtype,
+                rate: Optional[float] = None) -> tuple:
     """The least time for one flash-attention call (``flash_cost``) over
-    the peak rate of the inputs' type (bf16 tensor cores, or f32).
+    ``rate``, by default the peak rate of the inputs' type: the bf16
+    tensor cores, or for f32 the tensor cores in three-term TF32 (f32
+    accuracy; ``F32_FLOPS_PER_S`` gives the CUDA cores' bound instead).
     Returns (ms, "bytes" | "operations", bytes, flops)."""
     el = torch.empty((), dtype=dtype).element_size()
     nbytes, flops = flash_cost(b, s, hq, hkv, d, window, el)
-    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    if rate is None:
+        rate = (BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                else TF32X3_FLOPS_PER_S)
     return least_ms(nbytes, flops, rate) + (nbytes, flops)

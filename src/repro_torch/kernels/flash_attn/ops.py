@@ -19,8 +19,10 @@ picks one, by those two alone:
   112, 128 and 256: both products on the tensor cores, K/V tiles by TMA
   in a ring of shared memory (112, zamba2-7b's head dim, in the 128
   layout with TMA's zero fill past column 112);
-* ``"simt"`` (``csrc/flash_attn.cu``) for f32, and for bf16 at head
-  dims 16 and 32: f32 FMAs on the CUDA cores.
+* ``"tf32x3"`` (``csrc/flash_attn.cu``) for f32, and for bf16 at head
+  dims 16 and 32: both products on the tensor cores by ``mma.sync`` in
+  three-term TF32 (each f32 operand split into a TF32 big and small part,
+  three products summed in f32), which keeps f32 accuracy.
 
 The reference's ``q_block``/``k_block``/``interpret`` are the TPU
 kernel's tiling and have no meaning here; the CUDA kernels tile by
@@ -45,7 +47,7 @@ from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 
 #: launches of the flash-attention kernels, both routes together
 launches = 0
-_counts = {"wgmma": 0, "simt": 0}
+_counts = {"wgmma": 0, "tf32x3": 0}
 _count_lock = threading.Lock()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -58,8 +60,8 @@ ROUTES = tuple(_counts)
 
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernel that serves inputs of ``dtype`` and ``head_dim``:
-    ``"wgmma"`` for bf16 at head dims 64, 112, 128 and 256, ``"simt"`` for
-    the rest of what the kernels take.  Raises ``ValueError`` for a
+    ``"wgmma"`` for bf16 at head dims 64, 112, 128 and 256, ``"tf32x3"``
+    for the rest of what the kernels take.  Raises ``ValueError`` for a
     dtype or head dim that neither kernel takes."""
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"flash_attention kernel: dtype must be float32 or "
@@ -69,7 +71,7 @@ def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
                          f"{HEAD_DIMS}, got {head_dim}")
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
-    return "simt"
+    return "tf32x3"
 
 
 def launch_counts() -> dict:
@@ -151,7 +153,7 @@ def _plain(q, k, v, window):
 
 def _launch(q, k, v, window, route):
     """Launch the kernel ``route`` names on CUDA tensors the checks have
-    passed (``chip_smoke.py`` also calls it with ``"simt"`` on bf16
+    passed (``chip_smoke.py`` also calls it with ``"tf32x3"`` on bf16
     inputs, to time the two kernels on the same inputs)."""
     from repro_torch.kernels.flash_attn.build import load_library
     b, s, hq, d = q.shape
@@ -162,7 +164,7 @@ def _launch(q, k, v, window, route):
     if is_shape_only(q):
         cost.note_kernel("flash_" + route, *cost.flash_cost(
             b, s, hq, hkv, d, window, q.element_size()),
-            "bfloat16" if route == "wgmma" else cost.F32_FMA)
+            "bfloat16" if route == "wgmma" else cost.TF32X3)
         return out
     lib = load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream

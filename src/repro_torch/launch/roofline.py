@@ -44,12 +44,12 @@ from torch.utils._pytree import tree_flatten_with_path, tree_leaves
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels.cost import (BF16_FLOPS_PER_S, F32_FLOPS_PER_S,
-                                      HBM_BYTES_PER_S)
+                                      HBM_BYTES_PER_S, TF32_FLOPS_PER_S,
+                                      TF32X3, TF32X3_FLOPS_PER_S)
 from repro_torch.optim.optimizers import dict_keys
 
-# --- NVIDIA H100 SXM (data sheet, dense; the kernels' rates in
+# --- NVIDIA H100 SXM (data sheet, dense; the compute rates in
 # kernels.cost) --------------------------------------------------------------
-TF32_FLOPS_PER_S = 495e12     # f32 matmuls with TF32 allowed
 NVLINK_BYTES_PER_S = 450e9    # to the other cards of a host, each way
 HBM_BYTES = 80e9              # device memory
 
@@ -64,10 +64,13 @@ def dtype_key(dtype: torch.dtype) -> str:
 def peak_flops(key: str) -> float:
     """The peak rate of FLOPs of one key of ``flops_by_dtype``: bf16 and
     fp16 at the tensor-core rate, f32 matmuls at the f32 rate (TF32's
-    when ``torch.backends.cuda.matmul.allow_tf32`` is set), the kernels'
+    when ``torch.backends.cuda.matmul.allow_tf32`` is set), the f32 flash
+    kernel's three-term TF32 products at a third of TF32's, the kernels'
     f32 FMAs and anything else at the f32 rate."""
     if key in ("bfloat16", "float16"):
         return BF16_FLOPS_PER_S
+    if key == TF32X3:
+        return TF32X3_FLOPS_PER_S
     if key == "float32" and torch.backends.cuda.matmul.allow_tf32:
         return TF32_FLOPS_PER_S
     return F32_FLOPS_PER_S

@@ -275,11 +275,11 @@ def test_allowlist_stays_small_with_reasons():
 
 def test_flash_budget_formulas_at_d256():
     assert sum(KA.flash_wgmma_smem(256).values()) == 197_696
-    assert sum(KA.flash_simt_smem(256).values()) == 217_088
+    assert sum(KA.flash_tf32x3_smem(256).values()) == 199_680
     rows = {(r["kernel"], r["head_dim"]): r
             for r in KA.default_budget_table()}
     assert rows[("flash_attn_wgmma_kernel", 256)]["smem_bytes"] == 197_696
-    assert rows[("flash_attn_kernel", 256)]["smem_bytes"] == 217_088
+    assert rows[("flash_attn_kernel", 256)]["smem_bytes"] == 199_680
     # D = 112 runs in the 128-column layout
     assert rows[("flash_attn_wgmma_kernel", 112)]["smem_bytes"] == \
         rows[("flash_attn_wgmma_kernel", 128)]["smem_bytes"]
@@ -350,9 +350,9 @@ def test_res_usage_parser_and_join():
         "neighbor_agg_kernel", ("bf16", "f32", 8, 0))
     fs, rows = KA.audit_resources(usage)
     by = {r["symbol"]: r for r in rows}
-    simt = by["flash_attn_kernel<f32,112>"]
-    assert simt["regs_per_block"] == 168 * 256       # 166 -> 168 a thread
-    assert simt["shared_dynamic"] == 106_496
+    f32 = by["flash_attn_kernel<f32,112>"]
+    assert f32["regs_per_block"] == 168 * 128        # 166 -> 168 a thread
+    assert f32["shared_dynamic"] == 89_088
     assert by["neighbor_agg_kernel<bf16,f32,8,0>"]["threads"] == 256
     sev = {(f.severity, f.site.split(":")[1]) for f in fs}
     # a symbol of no formula row is an error; spills are info

@@ -27,7 +27,7 @@ The CUDA flash-attention kernels against their plain version (2e-5 f32,
 kernel also row by row against the plain version in f32, at most 2^-7 of
 each row, ``ref.row_rel_err``): every input goes
 to the kernel ``kernel_route`` names (the tensor-core kernel for bf16 at
-head dims 64-256, 112 among them, the f32 kernel for the rest), with
+head dims 64-256, 112 among them, the tf32x3 kernel for the rest), with
 cases at zamba2-7b's head dim 112 and cases that wrap the
 tensor-core kernel's ring and cross its masks, two calls bit-equal, the
 argument checks, a small-config prefill that launches the routed
@@ -566,12 +566,12 @@ def _qkv(seed, b, s, hq, hkv, d, dtype, device):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 128, 256, 16, 112])
 @pytest.mark.parametrize("s,window", [(256, 0), (256, 64), (1100, 1000),
                                       (200, 0), (77, 64), (1, 0)])
 def test_flash_kernel_matches_plain_version(cuda, s, window, d, dtype, tol):
     """Ragged S (200, 77, 1, 1100), windows that are and are not a
-    multiple of the 64-key tile, GQA 4/2."""
+    multiple of the 64-key tile, GQA 4/2, every head dim."""
     from repro_torch.kernels.flash_attn import ops as fa
     q, k, v = _qkv(s + d + window, 2, s, 4, 2, d, dtype, cuda)
     before, counts = fa.launches, fa.launch_counts()
@@ -636,8 +636,41 @@ def test_flash_wgmma_kernel_is_deterministic(cuda, window):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("b,s,hq,hkv,d,window", [
+    # 16 query heads on one KV head, at the wide and a narrow tile
+    (1, 700, 16, 1, 256, 0), (2, 333, 16, 1, 112, 100),
+    (1, 1000, 16, 1, 64, 0),
+    # ragged S around the 128-row and 32-key tiles of D = 256, MHA
+    (2, 127, 4, 4, 256, 0), (1, 129, 8, 8, 256, 31), (1, 2050, 2, 1, 256, 1),
+    # a window longer than S; one of a single key
+    (1, 300, 4, 2, 128, 5000), (1, 500, 4, 2, 16, 1),
+])
+def test_flash_tf32x3_kernel_cases(cuda, b, s, hq, hkv, d, window):
+    """f32 on the three-term TF32 kernel against the plain version at the
+    f32 tolerance (2e-5): GQA 16, ragged S, windows of 1, 31, 100 and
+    longer than S."""
+    from repro_torch.kernels.flash_attn import ops as fa
+    q, k, v = _qkv(s + hq + d + window, b, s, hq, hkv, d, torch.float32,
+                   cuda)
+    counts = fa.launch_counts()
+    out = fa.flash_attention(q, k, v, window=window, use_kernel=True)
+    assert fa.launch_counts() == dict(counts, tf32x3=counts["tf32x3"] + 1)
+    want = fa.flash_attention(q, k, v, window=window, use_kernel=False)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("window", [0, 1000])
+def test_flash_tf32x3_kernel_is_deterministic(cuda, window):
+    from repro_torch.kernels.flash_attn import ops as fa
+    q, k, v = _qkv(8, 2, 2048, 8, 4, 256, torch.float32, cuda)
+    a = fa.flash_attention(q, k, v, window=window, use_kernel=True)
+    b = fa.flash_attention(q, k, v, window=window, use_kernel=True)
+    assert torch.equal(a, b)
+
+
 def test_flash_kernels_agree_on_bf16(cuda):
-    """The two kernels on the same bf16 inputs (the f32 kernel launched
+    """The two kernels on the same bf16 inputs (the tf32x3 kernel launched
     directly, as chip_smoke.py times it), each against the plain
     version."""
     from repro_torch.kernels.flash_attn import ops as fa
@@ -735,7 +768,7 @@ def test_prefill_launches_wgmma_kernel_once_per_layer(cuda):
 def test_flash_kernels_at_head_dim_112(cuda, b, s, hq, hkv, window, dtype,
                                        tol):
     """zamba2-7b's head dim on both kernels (bf16 on the tensor-core
-    kernel in its 128-column layout, f32 on the f32 kernel) against the
+    kernel in its 128-column layout, f32 on the tf32x3 kernel) against the
     plain version; the tensor-core kernel also row by row against the
     plain version in f32.  Every head's 112 columns are compared, so a
     store past them into the next head would show."""

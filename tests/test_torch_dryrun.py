@@ -17,7 +17,7 @@ virtual devices, the port traces one card):
   counter's peak on a real CPU run (kernels off: a real tensor never
   reaches a stand-in);
 * a trace of the kernel path holds no [B, K, D] gather;
-* two rows of the kernel table (``PERF.md`` section 6) from their shapes;
+* rows of the kernel table (``PERF.md`` section 6) from their shapes;
 * the CLI in a subprocess (a GNN and an LM decode combination),
   ``--multi-pod`` refused."""
 import dataclasses
@@ -182,20 +182,30 @@ def test_roofline_terms():
         torch.backends.cuda.matmul.allow_tf32 = True
         assert R.peak_flops("float32") == 495e12
         assert R.peak_flops(F32) == 67e12
+        assert R.peak_flops(C.TF32X3) == pytest.approx(495e12 / 3)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def test_kernel_table_bounds_from_shapes():
-    """Two rows of PERF.md's kernel table from their shapes: the
-    full-graph D = 128 forward (bf16, B = N = 524,288, K = 32, every row
-    referenced) 0.1102 ms, bytes; the D = 256 window-0 flash (bf16, B 2,
-    S 4096, Hq 16, Hkv 8) 0.2780 ms, operations."""
+    """Rows of PERF.md's kernel table from their shapes: the full-graph
+    D = 128 forward (bf16, B = N = 524,288, K = 32, every row referenced)
+    0.1102 ms, bytes; the D = 256 window-0 flash (B 2, S 4096, Hq 16, Hkv
+    8) 0.2780 ms in bf16, and in f32 1.6663 ms at the 3xTF32 rate and
+    4.1037 ms at the f32-FMA rate, operations; zamba2-7b's f32 flash (Hq =
+    Hkv = 32, D 112) 1.4580 ms."""
     n = 524_288
     ms, by = C.least_ms(*C.agg_cost(n, n, 32, 128, 2), C.F32_FLOPS_PER_S)
     assert (round(ms, 4), by) == (0.1102, "bytes")
     ms, by, _, _ = C.flash_bound(2, 4096, 16, 8, 256, 0, torch.bfloat16)
     assert (round(ms, 4), by) == (0.2780, "operations")
+    ms, by, _, _ = C.flash_bound(2, 4096, 16, 8, 256, 0, torch.float32)
+    assert (round(ms, 4), by) == (1.6663, "operations")
+    ms = C.flash_bound(2, 4096, 16, 8, 256, 0, torch.float32,
+                       rate=C.F32_FLOPS_PER_S)[0]
+    assert round(ms, 4) == 4.1037
+    ms = C.flash_bound(2, 4096, 32, 32, 112, 0, torch.float32)[0]
+    assert round(ms, 4) == 1.4580
     # bound() counts the distinct rows from the ids, agg_cost takes them
     rng = np.random.default_rng(0)
     feats = torch.zeros((500, 64), dtype=torch.bfloat16)

@@ -31,7 +31,7 @@ def _close(a, b, tol):
 
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
-                                         (torch.float32, "simt")])
+                                         (torch.float32, "tf32x3")])
 def test_head_dim_112_routes_to_a_kernel(dtype, route):
     assert 112 in ops.HEAD_DIMS
     assert ops.kernel_route(dtype, 112) == route

@@ -12,8 +12,9 @@ from repro_torch.kernels.flash_attn import ops
 from repro_torch.kernels.flash_attn.ops import flash_attention, kernel_route
 from repro_torch.kernels.flash_attn.ref import BF16_ROW_TOL, row_rel_err
 
-ROUTE = {(torch.float32, d): "simt" for d in ops.HEAD_DIMS}
-ROUTE.update({(torch.bfloat16, 16): "simt", (torch.bfloat16, 32): "simt",
+ROUTE = {(torch.float32, d): "tf32x3" for d in ops.HEAD_DIMS}
+ROUTE.update({(torch.bfloat16, 16): "tf32x3",
+              (torch.bfloat16, 32): "tf32x3",
               (torch.bfloat16, 64): "wgmma", (torch.bfloat16, 128): "wgmma",
               (torch.bfloat16, 256): "wgmma"})
 
@@ -54,6 +55,8 @@ def test_counters_do_not_move_on_cpu_tensors(d):
                                      (torch.float32, 256),
                                      (torch.bfloat16, 16)])
 def test_simt_routes_do_not_move_counters_on_cpu(dtype, d):
+    """The ``"tf32x3"`` route (``csrc/flash_attn.cu``, once an f32-FMA
+    kernel named ``"simt"``, hence the test's name)."""
     q, k, v = _qkv(2, 33, 4, 4, d, dtype)
     counts = ops.launch_counts()
     flash_attention(q, k, v, use_kernel=True)
@@ -62,7 +65,7 @@ def test_simt_routes_do_not_move_counters_on_cpu(dtype, d):
 
 def test_reset_sets_every_counter_to_zero():
     ops._count("wgmma")
-    ops._count("simt")
+    ops._count("tf32x3")
     assert ops.launches >= 2 and min(ops.launch_counts().values()) >= 1
     ops.reset_launches()
     assert ops.launches == 0

@@ -264,7 +264,7 @@ def test_dryrun_records_on_the_smoke_configs(arch):
         calls = rec["kernel_calls"]
         if kind == "prefill":
             n = M.causal_attention_layers(cfg)
-            assert calls == ({"flash_simt": n} if n else {}), calls
+            assert calls == ({"flash_tf32x3": n} if n else {}), calls
         else:
             assert not calls, calls
         assert rec["device_bytes_total"] > 0 and isinstance(

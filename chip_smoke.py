@@ -26,15 +26,27 @@ or of the reference package ``repro``.
    sweep of tables from 8 to 256 MiB times both routes (the plan's L2
    budget).
 3. Row-kernel phase: ``kernel="row"`` forward and its gradients against
-   the plain versions at the same shapes and ragged ones.
+   the plain versions at the same shapes and ragged ones; the forward
+   bit-equal to the tiled forward's direct route on the same inputs,
+   timed beside it, its plain version, ``embedding_bag`` and the bound.
 4. Backward-kernel phase: every cotangent (dfeats, dw, dself, dw_self)
-   against the plain backward (``neighbor_agg_backward_ref``) at the
-   same shapes, ragged ones, K = 0 and all-zero weights (dfeats exactly
-   0), and at the two training-path shapes with only dfeats asked for,
-   as autograd asks there: full-graph layer 2 on the real ELL of the
-   524,288-node graph (bf16, D = 172) and mini-batch layer 2 (identity
-   ids, B = 8,192, K = 15, D = 256, f32, deterministic).  Tolerance:
-   1e-3 (f32; atomics land in no fixed order) and 2e-2 (bf16).
+   of the general mode (f32 vector atomics) against the plain backward
+   (``neighbor_agg_backward_ref``) at the same shapes, ragged ones, K = 0
+   and all-zero weights (dfeats exactly 0), and at the full-graph
+   layer-2 shape with only dfeats asked for, as autograd asks there: the
+   real ELL of the 524,288-node graph (bf16, D = 172), forced (the path
+   takes the reverse-index kernel).  Tolerance: 1e-3 (f32; atomics land
+   in no fixed order) and 2e-2 (bf16).  The identity mode
+   (``neighbor_agg_backward_identity``) at the levels' widths and ragged
+   shapes (odd D, bf16 D = 172's 8-byte rows, K = 0, fused, every
+   cotangent): dfeats and dself bit-equal to its plain version
+   (``neighbor_agg_backward_identity_ref``), every output bit-equal to
+   the general mode on ``arange`` ids, dw and dw_self within 1e-5 / 2e-2
+   of the plain version; then at mini-batch layer 2 (f32, B = 8,192,
+   K = 15, D = 256, dfeats only) bit-equal to both and to itself, timed
+   beside the broadcast ``torch.mul`` (its library call),
+   ``embedding_bag``'s backward, the general mode on the same inputs and
+   the bound.
    The reverse-index backward kernel (``neighbor_agg_bwd_csr.cu``,
    dfeats of the full-graph path) on the same inputs, against its plain
    version (``neighbor_agg_backward_csr_ref``) run in f32, row by row
@@ -67,7 +79,8 @@ or of the reference package ``repro``.
    reset just before and read after each paradigm: the full-graph steps
    must launch the tiled forward and the reverse-index backward once a
    step and the atomic backward never; the mini-batch steps the tiled
-   forward and the atomic backward, and the reverse-index kernel never.
+   forward and the backward kernel's identity mode once a step, and the
+   atomic backward and the reverse-index kernel never.
    The tiled forward's route counts must be the plan's: at the full-graph
    widths (slab at D = 128, direct at D = 172) in every full-graph
    forward, evaluations included, and direct at every mini-batch level.
@@ -80,11 +93,12 @@ or of the reference package ``repro``.
    timed with CUDA events with the reverse index and without it (the
    atomic backward), in turns on the same parameters, then in turns with
    the tiled forward as planned and forced to each route, and traced with
-   ``torch.profiler`` (device time by kernel).  The steady ms/step read
-   from ``History.times`` spans one step fewer than it divides by (with
-   the deferred sync each record is stamped when the next step has
-   ended; 3/4 of a step over 5 steps): it is printed as before, for
-   comparison with earlier runs.
+   ``torch.profiler`` (device time by kernel); one mini-batch step on a
+   staged batch (the identity backward) timed and traced likewise.  The
+   steady ms/step read from ``History.times`` spans one step fewer than
+   it divides by (with the deferred sync each record is stamped when
+   the next step has ended; 3/4 of a step over 5 steps): it is printed
+   as before, for comparison with earlier runs.
 6. Full-width serving phase on the same graph: ``EmbeddingStore``
    build, 256 queries from 4 client threads through ``GNNServer``, two
    incremental ``update_features`` + ``refresh`` rounds, checked against
@@ -148,7 +162,8 @@ or of the reference package ``repro``.
    {(5, 5), (15, 10)}, 10 steps each, evaluation every 5,
    ``inference=True``; each point's launches counted alone: the
    full-graph point the reverse-index backward and no atomic one, the
-   mini-batch points the atomic one, every point the tiled forward;
+   mini-batch points the backward kernel's identity mode and no atomic
+   backward, every point the tiled forward;
    losses finite.  (c) The nine figure benches in quick mode through
    ``repro_torch.bench.run``: each figure's seconds, Trainer runs,
    steps per second, rows and launches; the reference's row count,
@@ -160,13 +175,15 @@ or of the reference package ``repro``.
    accuracy within one node of its split.  Then the kernels at the
    figures' shapes (f32: the forward on table1's papers-like ELL, K =
    d_max, D = 64, and on fig6's mini-batch level b = 128, K = 10,
-   D = 64; the reverse-index backward on that ELL at D = 24; the atomic
-   backward at the mini-batch level) against their plain versions,
-   timed beside them, the bound and ``embedding_bag``: the kernels
-   line's ``figure_shapes``.  Last, a ``torch.profiler`` trace of 100
-   warm steps of a fig2 grid point (b = 128, β = 10) and of fig1's
-   full-graph run gives the device's busy share.  Each phase's seconds and each figure's
-   seconds and steps per second are printed before the result lines.
+   D = 64; the reverse-index backward on that ELL at D = 24; the
+   identity backward at the mini-batch level, bit-equal to its plain
+   version, the broadcast ``torch.mul`` and the general mode timed beside
+   it) against their plain versions, timed beside them, the bound and
+   ``embedding_bag``: the kernels line's ``figure_shapes``.  Last, a
+   ``torch.profiler`` trace of 100 warm steps of a fig2 grid point (b =
+   128, β = 10) and of fig1's full-graph run gives the device's busy
+   share.  Each phase's seconds and each figure's seconds and steps per
+   second are printed before the result lines.
 11. Sources and fault-tolerance phase on the shared graph at
    gnn-papers100m's widths (bf16 full-graph aggregation, kernels on).
    (a) ``ClusterSource`` at b = 8192 (two clusters a batch, 128 BFS
@@ -182,8 +199,8 @@ or of the reference package ``repro``.
    reverse-index backward at D = 172) against their plain versions row
    by row, timed beside the bound and ``embedding_bag``.
    (b) ``ImportanceSampledSource`` (degree scores) at b = 8192, fan-out
-   (15, 10), 20 steps: the same counts (the atomic backward, no
-   reverse-index one), sampling and staging split, a 5-step second run
+   (15, 10), 20 steps: the identity backward once a step, no atomic or
+   reverse-index one, sampling and staging split, a 5-step second run
    bit-equal to the first run's prefix, gradients within 1e-4, the
    ``grad`` bind's seconds (one full-graph forward through the kernel)
    and, on one batch, the weighted batch mean against Σ w_j ℓ_j / b by
@@ -318,6 +335,10 @@ it ``neighbor_agg_tiled`` keeps its top-level numbers on the serving
 chunk at D = 172 (bf16, unfused), with both routes by shape under
 ``by_shape``; the slab kernel (``neighbor_agg_slab.cu``) has an entry of
 its own, ``neighbor_agg_tiled_slab``, at the full-graph shape of layer 1.
+``neighbor_agg_backward`` (the general mode) keeps its top-level numbers
+on the full-graph layer-2 shape; the identity mode, last, has its own
+entry, ``neighbor_agg_backward_identity``, at mini-batch layer 2, with
+the broadcast ``torch.mul`` as its library call.
 """
 from __future__ import annotations
 
@@ -388,12 +409,13 @@ from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.kernels.neighbor_agg.ref import (  # noqa: E402
     CSR_BF16_ROW_TOL, FWD_ROW_TOL, neighbor_agg_backward_csr_ref,
-    neighbor_agg_backward_ref, neighbor_agg_ref)
+    neighbor_agg_backward_identity_ref, neighbor_agg_backward_ref,
+    neighbor_agg_ref)
 # the card's peak rates and the kernels' byte and operation model: the
 # kernel table's bounds and the dry-run's kernel bytes come from one place
 from repro_torch.kernels.cost import (  # noqa: E402,F401
     BF16_FLOPS_PER_S, F32_FLOPS_PER_S, HBM_BYTES_PER_S, bound, bound_bwd,
-    bound_bwd_csr, flash_bound)
+    bound_bwd_csr, bound_bwd_identity, flash_bound)
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # gradients: dfeats sums with f32 atomics in no fixed order (f32); one
@@ -804,7 +826,9 @@ def fmt(ms):
 def row_phase(dev, sz: Sizes) -> dict:
     """The row kernel (``kernel="row"``) against its plain version:
     forward and, through its autograd Function, the gradients (whose
-    backward is the backward kernel)."""
+    backward is the backward kernel's general mode); bit-equal to the
+    tiled forward's direct route on the same inputs (the same f32
+    chain), timed beside it."""
     gen = torch.Generator(device=dev).manual_seed(1)
     row = lambda f, i, w: ops.neighbor_agg(  # noqa: E731
         f, i, w, use_kernel=True, kernel="row")
@@ -826,10 +850,15 @@ def row_phase(dev, sz: Sizes) -> dict:
                                             sz.agg_k, d, dtype, False)
             name = (f"row {str(dtype)[6:]} D={d} B={sz.agg_b} K={sz.agg_k} "
                     f"N={sz.agg_n}")
-            err = compare(name, dtype, row(feats, idx, w),
-                          neighbor_agg_ref(feats, idx, w))
+            out = row(feats, idx, w)
+            err = compare(name, dtype, out, neighbor_agg_ref(feats, idx, w))
+            check(torch.equal(out, tiled((feats, idx, w), "direct")),
+                  f"{name}: the row kernel and the direct route differ")
+            del out
             gerr = grads_err(name, dtype, feats, idx, w)
             k_ms = time_ms(lambda: row(feats, idx, w), dev, sz.iters)
+            d_ms = time_ms(lambda: tiled((feats, idx, w), "direct"), dev,
+                           sz.iters)
             p_ms = time_ms(lambda: neighbor_agg_ref(feats, idx, w), dev,
                            sz.iters)
             lib = library_ms(lambda: torch.nn.functional.embedding_bag(
@@ -837,9 +866,11 @@ def row_phase(dev, sz: Sizes) -> dict:
             b_ms, b_by, nbytes = bound(feats, idx, None)
             measured[(dtype, d)] = dict(
                 max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib)
+                bound_by=b_by, library_ms=lib, direct_route_ms=d_ms,
+                bit_equal_direct_route=True)
             print(f"{name}: max_err={err:.3g} grad_max_err={gerr:.3g} "
-                  f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                  f"kernel_ms={k_ms:.4f} direct_route_ms={d_ms:.4f} "
+                  f"(bit-equal) plain_ms={p_ms:.4f} "
                   f"library_ms={fmt(lib)} (embedding_bag) "
                   f"bound_ms={b_ms:.4f} (bound by {b_by}: {nbytes} B)",
                   flush=True)
@@ -850,9 +881,12 @@ def row_phase(dev, sz: Sizes) -> dict:
             name = f"row ragged {str(dtype)[6:]} N={n} B={b} K={k} D={d}"
             err = compare(name, dtype, row(feats, idx, w),
                           neighbor_agg_ref(feats, idx, w))
+            check(torch.equal(row(feats, idx, w),
+                              tiled((feats, idx, w), "direct")),
+                  f"{name}: the row kernel and the direct route differ")
             gerr = grads_err(name, dtype, feats, idx, w)
-            print(f"{name}: max_err={err:.3g} grad_max_err={gerr:.3g}",
-                  flush=True)
+            print(f"{name}: max_err={err:.3g} grad_max_err={gerr:.3g}, "
+                  f"bit-equal to the direct route", flush=True)
         feats, idx, w, _, _ = make_case(gen, dev, 64, 100, sz.agg_k, 172,
                                         dtype, False, zero=True)
         check(bool((row(feats, idx, w) == 0).all()),
@@ -1224,73 +1258,177 @@ def backward_phase(dev, sz: Sizes, graph) -> dict:
               f"{CSR_ROW_TOL[dtype]}); {sum(empties)} rows with no edge, "
               f"all exactly 0", flush=True)
 
-    # ---- the training-path shapes: autograd asks for dfeats only
+    measured["identity_cases"] = identity_cases(dev, sz, gen)
+
+    # ---- the training-path shapes: autograd asks for dfeats only.  The
+    # full-graph shape runs the general mode (forced: the path itself
+    # takes the reverse-index kernel), the mini-batch one the identity mode
     need = DFEATS
     idx_h, w_h, _ = to_ell(graph, max_deg=32)
     n = graph.n
-    mb_k, mb_b = sz.mb_fanout[0], sz.mb_b
-    paths = {
-        "fullgraph_l2": (
-            "full-graph layer 2 (real ELL, GraphSAGE mask weights)",
-            torch.randn(n, 172, generator=gen, device=dev).to(torch.bfloat16),
-            torch.as_tensor(idx_h, device=dev),
-            torch.as_tensor(w_h > 0, device=dev).to(torch.bfloat16)),
-        "minibatch_l2": (
-            "mini-batch layer 2 (identity ids)",
-            torch.randn(mb_b * mb_k, 256, generator=gen, device=dev),
-            torch.arange(mb_b * mb_k, dtype=torch.int32,
-                         device=dev).reshape(mb_b, mb_k),
-            (torch.rand(mb_b, mb_k, generator=gen, device=dev) > 0.1
-             ).float()),
-    }
+    feats = torch.randn(n, 172, generator=gen, device=dev).to(torch.bfloat16)
+    idx = torch.as_tensor(idx_h, device=dev)
+    w = torch.as_tensor(w_h > 0, device=dev).to(torch.bfloat16)
     del idx_h, w_h
-    for key, (what, feats, idx, w) in paths.items():
-        dtype = feats.dtype
-        b, k = idx.shape
-        name = (f"backward path {what}: {str(dtype)[6:]} N={feats.shape[0]} "
-                f"B={b} K={k} D={feats.shape[1]}, dfeats only")
-        g = torch.randn(b, feats.shape[1], generator=gen,
-                        device=dev).to(dtype)
-        got = ops.neighbor_agg_backward(feats, idx, w, g, need=need)[0]
-        want = neighbor_agg_backward_ref(feats, idx, w, g, need=need)[0]
-        err = compare(name, dtype, got, want, GTOL[dtype])
-        if key == "minibatch_l2" and dev.type == "cuda":
-            again = ops.neighbor_agg_backward(feats, idx, w, g,
-                                              need=need)[0]
-            check(torch.equal(got, again),
-                  "identity-id backward is not deterministic")
-        del got, want
-        k_ms = time_ms(lambda: ops.neighbor_agg_backward(
-            feats, idx, w, g, need=need), dev, sz.path_iters, 1)
-        p_ms = time_ms(lambda: neighbor_agg_backward_ref(
-            feats, idx, w, g, need=need), dev, sz.path_iters, 1)
-        fe = feats.clone().requires_grad_()
-        eb = torch.nn.functional.embedding_bag(idx, fe, mode="sum",
-                                               per_sample_weights=w)
-        lib = library_ms(lambda: torch.autograd.grad(
-            eb, fe, g, retain_graph=True), dev, sz.path_iters)
-        del fe, eb
-        b_ms, b_by, nbytes = bound_bwd(feats, idx, g, None, need)
-        measured[key] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                             shape=name[len("backward path "):])
-        print(f"{name}: max_err={err:.3g} kernel_ms={k_ms:.4f} "
-              f"plain_ms={p_ms:.4f} library_ms={fmt(lib)} (embedding_bag "
-              f"backward) bound_ms={b_ms:.4f} (bound by {b_by}: {nbytes} B "
-              f"= g + idx + w + dfeats)"
-              f"{', deterministic' if key == 'minibatch_l2' else ''}",
-              flush=True)
-        if key == "fullgraph_l2":
-            measured["csr"] = dict(
-                csr_full_graph(dev, sz, gen, name, feats, idx, w, g),
-                library_ms=lib, shape=measured[key]["shape"])
-            measured["fullgraph_fwd"] = fullgraph_forward_times(
-                dev, sz, gen, idx, w)
-    del paths
+    dtype = feats.dtype
+    b, k = idx.shape
+    name = (f"backward path full-graph layer 2 (real ELL, GraphSAGE mask "
+            f"weights), general mode: {str(dtype)[6:]} N={n} B={b} K={k} "
+            f"D={feats.shape[1]}, dfeats only")
+    g = torch.randn(b, feats.shape[1], generator=gen, device=dev).to(dtype)
+    got = ops.neighbor_agg_backward(feats, idx, w, g, need=need)[0]
+    want = neighbor_agg_backward_ref(feats, idx, w, g, need=need)[0]
+    err = compare(name, dtype, got, want, GTOL[dtype])
+    del got, want
+    k_ms = time_ms(lambda: ops.neighbor_agg_backward(
+        feats, idx, w, g, need=need), dev, sz.path_iters, 1)
+    p_ms = time_ms(lambda: neighbor_agg_backward_ref(
+        feats, idx, w, g, need=need), dev, sz.path_iters, 1)
+    fe = feats.clone().requires_grad_()
+    eb = torch.nn.functional.embedding_bag(idx, fe, mode="sum",
+                                           per_sample_weights=w)
+    lib = library_ms(lambda: torch.autograd.grad(
+        eb, fe, g, retain_graph=True), dev, sz.path_iters)
+    del fe, eb
+    b_ms, b_by, nbytes = bound_bwd(feats, idx, g, None, need)
+    measured["fullgraph_l2"] = dict(
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib,
+        shape=name[len("backward path "):])
+    print(f"{name}: max_err={err:.3g} kernel_ms={k_ms:.4f} "
+          f"plain_ms={p_ms:.4f} library_ms={fmt(lib)} (embedding_bag "
+          f"backward) bound_ms={b_ms:.4f} (bound by {b_by}: {nbytes} B "
+          f"= g + idx + w + dfeats)", flush=True)
+    measured["csr"] = dict(
+        csr_full_graph(dev, sz, gen, name, feats, idx, w, g),
+        library_ms=lib, shape=measured["fullgraph_l2"]["shape"])
+    measured["fullgraph_fwd"] = fullgraph_forward_times(dev, sz, gen, idx, w)
+    del feats, idx, w, g
+    measured["minibatch_l2"] = identity_path(dev, sz, gen)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
     return measured
+
+
+def identity_inputs(gen, dev, b, k, d, dtype, fused=False):
+    """A fan-out level's identity-id inputs: the [b·k, d] table, mask
+    weights (a tenth 0), g and, fused, self_rows / w_self."""
+    table = torch.randn(b * k, d, generator=gen, device=dev).to(dtype)
+    w = (torch.rand(b, k, generator=gen, device=dev) > 0.1).to(dtype)
+    g = torch.randn(b, d, generator=gen, device=dev).to(dtype)
+    if not fused:
+        return table, w, g, None, None
+    return (table, w, g, torch.randn(b, d, generator=gen, device=dev).to(
+        dtype), torch.rand(b, generator=gen, device=dev).to(dtype))
+
+
+def arange_ids(w):
+    b, k = w.shape
+    return torch.arange(b * k, dtype=torch.int32,
+                        device=w.device).reshape(b, k)
+
+
+def check_identity(name, dtype, case, need) -> float:
+    """The identity mode on ``case`` against its plain version and the
+    general mode on ``arange`` ids: dfeats and dself bit-equal to both,
+    dw and dw_self (dot products) bit-equal to the general mode and
+    within ``TOL`` of the plain version.  Returns the largest error."""
+    table, w, g, sr, ws = case
+    got = ops.neighbor_agg_backward_identity(table, w, g, sr, ws, need=need)
+    plain = neighbor_agg_backward_identity_ref(table, w, g, sr, ws, need)
+    general = ops.neighbor_agg_backward(table, arange_ids(w), w, g, sr, ws,
+                                        need=need)
+    err = 0.0
+    for j, (c, a, p, q) in enumerate(zip(("dfeats", "dw", "dself",
+                                          "dw_self"), got, plain, general)):
+        check((a is None) == (p is None) == (q is None),
+              f"{name} {c}: outputs missing")
+        if a is None:
+            continue
+        check(torch.equal(a, q), f"{name} {c}: not bit-equal to the "
+              f"general mode")
+        if j in (0, 2):
+            check(torch.equal(a, p), f"{name} {c}: not bit-equal to the "
+                  f"plain version")
+        err = max(err, compare(f"{name} {c}", dtype, a, p))
+    return err
+
+
+def identity_cases(dev, sz: Sizes, gen) -> dict:
+    """The identity mode at the levels' widths and ragged shapes (odd D,
+    bf16 D = 172's 8-byte rows, K = 0, fused), every cotangent."""
+    all4 = (True, True, True, True)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, k, d in ((4096, 10, 128), (4096, 15, 172), (2048, 15, 256),
+                        (777, 7, 37), (300, 33, 300), (50, 0, 20),
+                        (64, 3, 1)):
+            b = min(b, sz.agg_b // 4)
+            for fused in (False, True):
+                name = (f"identity backward {str(dtype)[6:]} B={b} K={k} "
+                        f"D={d} {'fused' if fused else 'unfused'}")
+                errs[name] = check_identity(name, dtype, identity_inputs(
+                    gen, dev, b, k, d, dtype, fused), all4)
+    print(f"identity backward: {len(errs)} cases (every cotangent), dfeats "
+          f"and dself bit-equal to the plain version and every output to "
+          f"the general mode; largest dw / dw_self error "
+          f"{max(errs.values()):.3g}", flush=True)
+    return errs
+
+
+def identity_path(dev, sz: Sizes, gen) -> dict:
+    """Mini-batch layer 2 (f32, B = mb_b, K = fan-out[0], D = 256, mask
+    weights, dfeats only, as autograd asks there) through the identity
+    mode: bit-equal to its plain version, to the general mode forced on
+    the same inputs and to itself; timed beside the plain version, the
+    broadcast ``torch.mul`` (its library call), ``embedding_bag``'s
+    backward, the general (atomic) mode on the same inputs and the
+    bound."""
+    b, k, d = sz.mb_b, sz.mb_fanout[0], 256
+    dtype = torch.float32
+    table, w, g, _, _ = identity_inputs(gen, dev, b, k, d, dtype)
+    ids = arange_ids(w)
+    need = DFEATS
+    name = (f"backward path mini-batch layer 2 (identity ids): f32 "
+            f"B={b} K={k} D={d}, dfeats only")
+    err = check_identity(name, dtype, (table, w, g, None, None), need)
+    got = ops.neighbor_agg_backward_identity(table, w, g, need=need)[0]
+    check(torch.equal(got, ops.neighbor_agg_backward_identity(
+        table, w, g, need=need)[0]), f"{name}: two calls differ")
+    del got
+    # the kernel's time: its dispatch (the launcher on the card), whose
+    # host work stays below the kernel's; the public wrapper's checks
+    # make a loop of it host-bound (wrapper_ms)
+    k_ms = time_ms(lambda: ops._backward_identity(
+        table, w, g, None, None, need), dev, sz.iters)
+    w_ms = time_ms(lambda: ops.neighbor_agg_backward_identity(
+        table, w, g, need=need), dev, sz.iters)
+    p_ms = time_ms(lambda: neighbor_agg_backward_identity_ref(
+        table, w, g, need=need), dev, sz.iters)
+    lib = library_ms(lambda: torch.mul(w[:, :, None], g[:, None, :]), dev,
+                     sz.iters)
+    atomic_ms = time_ms(lambda: ops.neighbor_agg_backward(
+        table, ids, w, g, need=need), dev, sz.iters)
+    fe = table.clone().requires_grad_()
+    eb = torch.nn.functional.embedding_bag(ids, fe, mode="sum",
+                                           per_sample_weights=w)
+    eb_ms = library_ms(lambda: torch.autograd.grad(
+        eb, fe, g, retain_graph=True), dev, sz.iters)
+    del fe, eb
+    b_ms, b_by, nbytes = bound_bwd_identity(w, g, None, need)
+    print(f"{name}: kernel_ms={k_ms:.4f} (launcher) wrapper_ms={w_ms:.4f} "
+          f"plain_ms={p_ms:.4f} library_ms={fmt(lib)} (broadcast torch.mul) "
+          f"embedding_bag_backward_ms={fmt(eb_ms)} general_mode_ms="
+          f"{atomic_ms:.4f} (zero fill + atomics, same inputs) "
+          f"bound_ms={b_ms:.4f} (bound by {b_by}: {nbytes} B = g + w + "
+          f"dfeats); bit-equal to the plain version, the general mode and "
+          f"itself", flush=True)
+    return dict(max_abs_err=err, ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                general_mode_ms_same_inputs=atomic_ms,
+                embedding_bag_backward_ms=eb_ms,
+                shape=name[len("backward path "):])
 
 
 def rel_err(a, b) -> float:
@@ -1351,7 +1489,9 @@ def training_phase(dev, sz: Sizes, graph) -> dict:
           f"({after_f['tiled'] / len(lf):.2f} tiled + "
           f"{after_f['backward_csr'] / len(lf):.2f} reverse-index "
           f"backward + {after_f['backward'] / len(lf):.2f} atomic backward "
-          f"per step, eval included), test_acc={res_f.final_test_acc:.4f}",
+          f"+ {after_f['backward_identity'] / len(lf):.2f} identity "
+          f"backward per step, eval included), "
+          f"test_acc={res_f.final_test_acc:.4f}",
           flush=True)
     tm = src_m.timing
     nb = max(tm["batches"], 1)
@@ -1360,8 +1500,10 @@ def training_phase(dev, sz: Sizes, graph) -> dict:
           f"{lm[-1]:.5f}, {per_step_ms(res_m.history):.2f} ms/step steady, "
           f"run {wall_m:.3f} s, launches {launches_m} "
           f"({launches_m['tiled'] / len(lm):.2f} tiled + "
-          f"{launches_m['backward'] / len(lm):.2f} atomic backward per "
-          f"step, eval included), test_acc={res_m.final_test_acc:.4f}",
+          f"{launches_m['backward_identity'] / len(lm):.2f} identity "
+          f"backward + {launches_m['backward'] / len(lm):.2f} atomic "
+          f"backward per step, eval included), "
+          f"test_acc={res_m.final_test_acc:.4f}",
           flush=True)
     print(f"train: mini-batch per batch: host sampling "
           f"{1e3 * tm['sample_s'] / nb:.2f} ms + staging (gather into "
@@ -1402,9 +1544,11 @@ def training_phase(dev, sz: Sizes, graph) -> dict:
           f"the levels, the rest its full-graph evaluations)", flush=True)
     if dev.type == "cuda":
         check(after_f["tiled"] > 0 and after_f["backward"] == 0
-              and after_f["backward_csr"] == len(lf),
+              and after_f["backward_csr"] == len(lf)
+              and after_f["backward_identity"] == 0,
               f"full-graph steps launched the kernels {after_f}: not the "
-              f"reverse-index backward once a step and the atomic one never")
+              f"reverse-index backward once a step and the atomic one and "
+              f"the identity mode never")
         check(after_f["tiled"] % len(fg_routes) == 0
               and {k: after_f[k] for k in want_f} == want_f,
               f"full-graph steps launched the tiled forward's routes "
@@ -1416,10 +1560,13 @@ def training_phase(dev, sz: Sizes, graph) -> dict:
               f"{launches_m}: not the direct route at every level "
               f"({mb_steps}) and the planned {fg_routes} in its "
               f"evaluations")
-        check(launches_m["tiled"] > 0 and launches_m["backward"] > 0
+        check(launches_m["tiled"] > 0
+              and launches_m["backward_identity"] == len(lm)
+              and launches_m["backward"] == 0
               and launches_m["backward_csr"] == 0,
               f"mini-batch steps launched the kernels {launches_m}: not "
-              f"the atomic backward alone")
+              f"the identity backward once a step and the atomic and "
+              f"reverse-index ones never")
 
     # ---- checks and timings outside the counted window
     out_mb = minibatch_forward_times(dev, sz, (cfg.feat_dim, cfg.hidden))
@@ -1504,6 +1651,16 @@ def training_phase(dev, sz: Sizes, graph) -> dict:
             print(f"train: mini-batch device step (forward + backward + "
                   f"update on a staged batch, CUDA events) {step_ms:.3f} ms",
                   flush=True)
+            # the device's own time for one step (the events above also
+            # count the host's dispatch)
+            prof = (profile_device(dev, lambda: tr_m._step(
+                params, opt_state, batch)) if dev.type == "cuda" else {})
+            if prof:
+                print(f"train: profiled mini-batch step: wall "
+                      f"{prof['wall_ms']:.2f} ms, device time "
+                      f"{prof['device_ms']:.3f} ms, aggregation kernels "
+                      f"{prof['agg_ms']:.3f} ms; largest kernels (name, ms, "
+                      f"calls): {prof['top']}", flush=True)
         src.done(batch)
         src.close()
         del grads, batch
@@ -2478,12 +2635,15 @@ def sweep_phase(dev, sz: Sizes, graph) -> dict:
         check_launch(dev, n["tiled"] > 0,
                      f"sweep {label}: no tiled launch: {n}")
         if label == "fullgraph":
-            check_launch(dev, n["backward_csr"] > 0 and n["backward"] == 0,
+            check_launch(dev, n["backward_csr"] > 0 and n["backward"] == 0
+                         and n["backward_identity"] == 0,
                          f"sweep {label}: wants the reverse-index backward "
-                         f"and no atomic one: {n}")
+                         f"and no atomic or identity one: {n}")
         else:
-            check_launch(dev, n["backward"] > 0,
-                         f"sweep {label}: no atomic backward launch: {n}")
+            check_launch(dev, n["backward_identity"] > 0
+                         and n["backward"] == 0,
+                         f"sweep {label}: wants the identity backward and "
+                         f"no atomic one: {n}")
         out[label] = dict(seconds=secs, launches=n, row=row)
     E.drop_device_cache(graph)
     return out
@@ -2528,7 +2688,8 @@ def figures_phase(dev, sz: Sizes) -> dict:
         print(f"figure {name}: {secs:.2f} s, {len(runs)} runs, {steps} steps "
               f"({steps / secs:.1f} steps/s), {len(rows)} rows, launches "
               f"tiled {n['tiled']} backward {n['backward']} backward_csr "
-              f"{n['backward_csr']} ({n}), device memory after "
+              f"{n['backward_csr']} backward_identity "
+              f"{n['backward_identity']} ({n}), device memory after "
               f"{alloc / 2 ** 20:.1f} MiB (before 10c "
               f"{base / 2 ** 20:.1f})", flush=True)
         check(len(rows) == FIG_ROWS[name],
@@ -2597,8 +2758,9 @@ def figure_shapes(dev, sz: Sizes) -> dict:
     forward on table1's papers-like ELL (power-law degrees, K = d_max)
     at D = 64 (layer 1) and its reverse-index backward at D = 24 (layer
     2's narrowed table), fig6's mini-batch level (b = 128, β = 10,
-    D = 64, identity ids) forward and its atomic backward at fig4's
-    layer 2 (the same shape).  Each against its plain version, timed
+    D = 64, identity ids) forward and its backward through the backward
+    kernel's identity mode at fig4's layer 2 (the same shape; the general
+    mode timed beside it).  Each against its plain version, timed
     beside it, the bound and ``embedding_bag`` (forward and backward)."""
     gen = torch.Generator(device=dev).manual_seed(7)
     table1 = importlib.import_module("repro_torch.bench.bench_table1_tuned")
@@ -2617,7 +2779,7 @@ def figure_shapes(dev, sz: Sizes) -> dict:
                          device=dev).reshape(mb_b, mb_k),
             (torch.rand(mb_b, mb_k, generator=gen, device=dev) > 0.1
              ).float())}
-    out = {"forward": {}, "backward": {}, "backward_csr": {}}
+    out = {"forward": {}, "backward_identity": {}, "backward_csr": {}}
     for label, case in cases.items():
         feats, cidx, cw = case
         err = compare(f"figure shape {label}", torch.float32, tiled(case),
@@ -2658,13 +2820,15 @@ def figure_shapes(dev, sz: Sizes) -> dict:
             b_ms, b_by, nbytes = bound_bwd_csr(rev, dg, 4)
             key, what = "backward_csr", "reverse-index backward"
         else:
-            run = lambda: ops.neighbor_agg_backward(  # noqa: E731
-                tab, cidx, cw, gr, need=DFEATS)[0]
-            plain = lambda: neighbor_agg_backward_ref(  # noqa: E731
-                tab, cidx, cw, gr, need=DFEATS)[0]
+            run = lambda: ops.neighbor_agg_backward_identity(  # noqa: E731
+                tab, cw, gr, need=DFEATS)[0]
+            plain = lambda: neighbor_agg_backward_identity_ref(  # noqa: E731
+                tab, cw, gr, need=DFEATS)[0]
+            check(torch.equal(run(), plain()), f"figure shape {label}: the "
+                  f"identity backward differs from its plain version")
             row_err = row_rel_err(run(), want)
-            b_ms, b_by, nbytes = bound_bwd(tab, cidx, gr, None, DFEATS)
-            key, what = "backward", "atomic backward"
+            b_ms, b_by, nbytes = bound_bwd_identity(cw, gr, None, DFEATS)
+            key, what = "backward_identity", "identity backward"
         err = compare(f"figure shape {label} {what}", torch.float32, run(),
                       want, GTOL[torch.float32])
         k_ms = time_ms(run, dev, sz.iters)
@@ -2672,9 +2836,23 @@ def figure_shapes(dev, sz: Sizes) -> dict:
         out[key][label] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                                row_rel_err=row_err)
+        extra = ""
+        if key == "backward_identity":
+            # its library call is the broadcast product; embedding_bag's
+            # backward and the general (atomic) mode beside it
+            out[key][label].update(
+                embedding_bag_backward_ms=lib, library_ms=library_ms(
+                    lambda: torch.mul(cw[:, :, None], gr[:, None, :]), dev,
+                    sz.iters),
+                general_mode_ms_same_inputs=time_ms(
+                    lambda: ops.neighbor_agg_backward(
+                        tab, cidx, cw, gr, need=DFEATS), dev, sz.iters))
+            extra = (f" (broadcast torch.mul "
+                     f"{fmt(out[key][label]['library_ms'])}, general mode "
+                     f"{out[key][label]['general_mode_ms_same_inputs']:.4f})")
         print(f"figure shape {label}: {what} max_err={err:.3g} row error "
               f"{row_err:.3g} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-              f"library_ms={fmt(lib)} (embedding_bag backward) "
+              f"library_ms={fmt(lib)} (embedding_bag backward){extra} "
               f"bound_ms={b_ms:.4f} (bound by {b_by}: {nbytes} B)",
               flush=True)
         del fe, eb
@@ -3023,10 +3201,11 @@ def importance_phase(dev, sz: Sizes, graph) -> dict:
           f"waited {1e3 * tm['wait_s'] / nb:.2f} ms; H2D "
           f"{tm['h2d_ms'] / nb:.3f} ms", flush=True)
     check(all(np.isfinite(losses)), f"importance losses not finite: {losses}")
-    check_launch(dev, counts["backward"] > 0 and counts["backward_csr"] == 0
+    check_launch(dev, counts["backward_identity"] == len(losses)
+                 and counts["backward"] == 0 and counts["backward_csr"] == 0
                  and {k: counts[k] for k in want} == want,
-                 f"importance steps launched {counts}: not the atomic "
-                 f"backward alone and the tiled routes {want}")
+                 f"importance steps launched {counts}: not the identity "
+                 f"backward once a step alone and the tiled routes {want}")
     again = E.Trainer(graph, cfg, dataclasses.replace(
         plan, n_iters=sz.repeat_steps), source=E.ImportanceSampledSource(
             batch_size=sz.mb_b, fanouts=sz.mb_fanout), device=dev).run()
@@ -3257,7 +3436,8 @@ def sharded_run(dev, graph, cfg, plan, source):
 
 
 def kernel_counts(c: dict) -> dict:
-    return {k: c[k] for k in ("tiled", "backward", "backward_csr", "row")}
+    return {k: c[k] for k in ("tiled", "backward", "backward_csr", "row",
+                              "backward_identity")}
 
 
 def times_shards(got: dict, want: dict, s: int) -> bool:
@@ -3828,7 +4008,7 @@ DRYRUN_CALLS = (["--arch", "gnn-papers100m"],
                 ["--arch", "gemma3-12b", "--shape", "prefill_32k",
                  "--shape", "decode_32k"])
 KERNEL_KEYS = ("tiled_slab", "tiled_direct", "backward", "backward_csr",
-               "row")
+               "row", "backward_identity")
 
 
 def lm_args(sz: Sizes, dev, mb: int) -> argparse.Namespace:
@@ -4201,6 +4381,9 @@ def kernel_standins(dev, sz: Sizes) -> dict:
         rev = ops.build_reverse_index(i, ww, f.shape[0])
         return ops.neighbor_agg_backward(f, i, ww, gg, need=DFEATS, rev=rev)
     same("backward_csr", csr, f32, i32, w32, g)
+    same("backward_identity", lambda t, ww, gg, s_, ws_:
+         ops.neighbor_agg_backward_identity(t, ww, gg, s_, ws_),
+         *identity_inputs(gen, dev, 256, 15, 172, torch.float32, True))
     rev = ops.build_reverse_index(i32, w32, n)
     mrev = ops.build_reverse_index(*meta_of((i32, w32)), n)
     check(mrev.indptr.shape == rev.indptr.shape
@@ -4665,7 +4848,8 @@ def trace_checks(label: str, findings, records, variants=None) -> None:
         launched = sum(n for k, n in rec["kernel_launches"].items()
                        if k.count(".") == 1 and k.split(".")[1] in (
                            "tiled", "backward", "backward_csr", "row",
-                           "phase1", "phase2", "wgmma", "tf32x3"))
+                           "backward_identity", "phase1", "phase2",
+                           "wgmma", "tf32x3"))
         check(bool(launched) == kernel,
               f"{label} {name}: kernel launches {rec['kernel_launches']} "
               f"on a {'kernel' if kernel else 'plain'} variant")
@@ -4884,16 +5068,19 @@ def run(dev: torch.device, sz: Sizes) -> dict:
                               "train_importance": ti["backward"],
                               **on_figures("backward"),
                               **on_sharded("backward")},
-         **bwd["minibatch_l2"],
-         "figure_shapes": figs["shapes"]["backward"],
+         **bwd["fullgraph_l2"],
+         "note": "the general mode: no model path reaches its dfeats "
+                 "(full-graph dfeats goes to neighbor_agg_backward_csr, "
+                 "mini-batch dfeats to neighbor_agg_backward_identity); "
+                 "timed here on the full-graph inputs, forced",
          "by_shape": {
-             "minibatch_l2": dict(bwd["minibatch_l2"],
-                                  launches=tm["backward"]),
-             "fullgraph_l2": dict(
-                 bwd["fullgraph_l2"], launches=tf["backward"],
-                 note="dfeats of the full-graph path goes to "
-                      "neighbor_agg_backward_csr; timed here on its "
-                      "inputs")}},
+             "fullgraph_l2": dict(bwd["fullgraph_l2"],
+                                  launches=tf["backward"]),
+             "minibatch_l2": dict(
+                 bwd["minibatch_l2"], ms=bwd["minibatch_l2"][
+                     "general_mode_ms_same_inputs"], launches=tm["backward"],
+                 note="zero fill + f32 atomics on arange ids, the inputs "
+                      "of neighbor_agg_backward_identity's entry")}},
         {"name": "neighbor_agg_backward_csr", "route": "cuda",
          "source": CSRC + "neighbor_agg_bwd_csr.cu",
          "replaces": REF_AGG + "ops.py:55",
@@ -4917,6 +5104,8 @@ def run(dev: torch.device, sz: Sizes) -> dict:
          "launches_by_path": {"train": train["counts"]["row"],
                               "note": "on no model path: reached only "
                                       "through neighbor_agg(kernel='row')"},
+         "note": "its gather is the direct route's (common.cuh "
+                 "gather_pass), in a kernel symbol of its own",
          **row[(torch.bfloat16, d)],
          "shape": f"bf16, {cell}"},
         {"name": "flash_attention_wgmma", "route": "cuda",
@@ -4966,6 +5155,20 @@ def run(dev: torch.device, sz: Sizes) -> dict:
          "direct_route_ms_same_inputs": fg1["routes"]["direct"]["ms"],
          "slab_width_ms": fg1["routes"]["slab_width_ms"],
          "shape": f"bf16, unfused, full-graph {fg1['shape']} (layer 1)"},
+        {"name": "neighbor_agg_backward_identity", "route": "cuda",
+         "source": CSRC + "neighbor_agg_bwd.cu",
+         "replaces": REF_AGG + "ops.py:55",
+         "launches": train["counts"]["backward_identity"],
+         "launches_by_path": {"train_fullgraph": tf["backward_identity"],
+                              "train_minibatch": tm["backward_identity"],
+                              "train_cluster": tc["backward_identity"],
+                              "train_importance": ti["backward_identity"],
+                              **on_figures("backward_identity"),
+                              **on_sharded("backward_identity")},
+         **bwd["minibatch_l2"],
+         "library_call": "torch.mul(w[:, :, None], g[:, None, :])",
+         "figure_shapes": figs["shapes"]["backward_identity"],
+         "cases_max_abs_err": max(bwd["identity_cases"].values())},
     ]
     add_phase13(kernels, p13)
     return {"kernels": kernels}
@@ -4977,6 +5180,8 @@ PHASE13 = {
     "neighbor_agg_tiled_fused": ("tiled_fused", ("tiled_fused_f32",)),
     "neighbor_agg_backward": ("backward", ("backward",)),
     "neighbor_agg_backward_csr": ("backward_csr", ("backward_csr",)),
+    "neighbor_agg_backward_identity": ("backward_identity",
+                                       ("backward_identity",)),
     "neighbor_agg_row": ("row", ("row",)),
     "neighbor_agg_tiled_slab": ("tiled_slab", ("tiled_d128",)),
     "flash_attention_wgmma": ("wgmma", ("flash_wgmma_bfloat16",)),

@@ -11,7 +11,7 @@ and threads, so the checks are:
    kernel and case, with the threads per block, the static and the
    dynamic shared memory its launch code asks for (``flash_attn.cu``'s
    ``Smem<float, D>::kBytes``, ``flash_attn_wgmma.cu``'s ``Cfg<D>::kSmem``; 0
-   for the five neighbor-aggregation kernels), held to the H100's limits
+   for the six neighbor-aggregation kernels), held to the H100's limits
    (``H100``).  Over a limit is an error; over ``WARN_FRACTION`` of it a
    warning, as in the reference.  The formulas read the launch constants
    in ``SOURCE_CONSTANTS``; ``audit_sources`` holds those named
@@ -80,7 +80,7 @@ SOURCE_CONSTANTS = {
     "kernels/neighbor_agg/csrc/neighbor_agg_bwd.cu": {"kRowsPerBlock": 8},
     "kernels/neighbor_agg/csrc/neighbor_agg_bwd_csr.cu": {
         "kRowsPerBlock": 8},
-    "kernels/neighbor_agg/csrc/neighbor_agg_row.cu": {"kCols": 128},
+    "kernels/neighbor_agg/csrc/neighbor_agg_row.cu": {"kRowsPerBlock": 8},
     "kernels/flash_attn/csrc/flash_attn.cu": {
         "kBQ": 128, "kBK": 32, "kWideD": 256, "kBlocksPerSM": 2},
     "kernels/flash_attn/csrc/flash_attn_wgmma.cu": {
@@ -172,7 +172,7 @@ def budget_row(kernel: str, case: str, source: str, threads: int,
 
 
 def default_budget_table() -> List[Dict]:
-    """Every CUDA kernel and case the libraries are built with: the five
+    """Every CUDA kernel and case the libraries are built with: the six
     neighbor-aggregation kernels (no shared memory; one row each covers
     all their dtype / width / epilogue instantiations) and the two flash
     kernels at each head dim they are compiled for."""
@@ -190,13 +190,18 @@ def default_budget_table() -> List[Dict]:
                    na + "neighbor_agg_bwd.cu",
                    warp * _c(na + "neighbor_agg_bwd.cu", "kRowsPerBlock"),
                    {}),
+        budget_row("neighbor_agg_bwd_identity_kernel",
+                   "identity-id backward", na + "neighbor_agg_bwd.cu",
+                   warp * _c(na + "neighbor_agg_bwd.cu", "kRowsPerBlock"),
+                   {}),
         budget_row("neighbor_agg_bwd_csr_kernel", "reverse-index backward",
                    na + "neighbor_agg_bwd_csr.cu",
                    warp * _c(na + "neighbor_agg_bwd_csr.cu",
                              "kRowsPerBlock"), {}),
         budget_row("neighbor_agg_row_kernel", "row kernel",
                    na + "neighbor_agg_row.cu",
-                   _c(na + "neighbor_agg_row.cu", "kCols"), {}),
+                   warp * _c(na + "neighbor_agg_row.cu", "kRowsPerBlock"),
+                   {}),
     ]
     fa = "kernels/flash_attn/csrc/"
     for d in FLASH_HEAD_DIMS:

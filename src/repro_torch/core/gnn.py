@@ -118,33 +118,28 @@ def _wsum(cfg: GNNConfig, w_edge, h_nb, h_self=None, w_self=None,
     (reference ``gnn.py:81-116``).
 
     With ``cfg.use_agg_kernel`` the fan-out tree is flattened to a
-    [B*K, d] table with identity ids, so the mini-batch path runs the
-    same tiled kernel (zero-weight padding edges stay exact) and its
-    backward; the optional self term rides the fused epilogue.  With
-    ``mesh`` the flattened rows split over its NODES shards
+    [B*K, d] table with identity ids (``neighbor_agg_batch``), so the
+    mini-batch path runs the same tiled kernel (zero-weight padding edges
+    stay exact) and, for its gradient, the backward kernel's identity
+    mode; the optional self term rides the fused epilogue.  With ``mesh``
+    the flattened rows split over its NODES shards
     (``neighbor_agg_batch_sharded``: each shard's table derives from its
     own rows, so no collective)."""
     fused = h_self is not None
     if not cfg.use_agg_kernel:
         out = torch.einsum("...k,...kd->...d", w_edge, h_nb)
         return out + w_self[..., None] * h_self if fused else out
+    from repro_torch.kernels.neighbor_agg import ops
     k, d = h_nb.shape[-2], h_nb.shape[-1]
     lead = h_nb.shape[:-2]
-    table = h_nb.reshape(-1, d)
-    b = table.shape[0] // k
-    if mesh is not None:
-        from repro_torch.kernels.neighbor_agg.ops import \
-            neighbor_agg_batch_sharded
-        out = neighbor_agg_batch_sharded(
-            w_edge.reshape(b, k), h_nb.reshape(b, k, d),
+    b = math.prod(lead)
+    args = (w_edge.reshape(b, k), h_nb.reshape(b, k, d),
             h_self.reshape(b, d) if fused else None,
-            w_self.reshape(b) if fused else None, mesh=mesh)
-        return out.reshape(lead + (d,))
-    idx = torch.arange(b * k, dtype=torch.int32,
-                       device=table.device).reshape(b, k)
-    out = _kernel_agg(cfg, table, idx, w_edge.reshape(b, k),
-                      self_rows=h_self.reshape(b, d) if fused else None,
-                      w_self=w_self.reshape(b) if fused else None)
+            w_self.reshape(b) if fused else None)
+    if mesh is not None:
+        out = ops.neighbor_agg_batch_sharded(*args, mesh=mesh)
+    else:
+        out = ops.neighbor_agg_batch(*args)
     return out.reshape(lead + (d,))
 
 

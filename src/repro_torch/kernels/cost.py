@@ -1,10 +1,10 @@
 """The hand-written kernels' byte and operation model on one H100: what
 one call of each kernel must move and compute, and the least time that
 gives at the card's published peaks.  The kernel table's bounds
-(``bound``, ``bound_bwd``, ``bound_bwd_csr``, ``flash_bound``, which
-``chip_smoke.py`` uses) and the dry-run's kernel bytes and FLOPs (the
-kernel wrappers' shape-only stand-ins call ``note_kernel`` with this
-model's counts) come from here.
+(``bound``, ``bound_bwd``, ``bound_bwd_identity``, ``bound_bwd_csr``,
+``flash_bound``, which ``chip_smoke.py`` uses) and the dry-run's kernel
+bytes and FLOPs (the kernel wrappers' shape-only stand-ins call
+``note_kernel`` with this model's counts) come from here.
 
 The rates are one H100 SXM's (NVIDIA's data sheet, dense, at the full
 700 W).  A card set below 700 W runs slower under load: state a share of
@@ -94,6 +94,31 @@ def bwd_cost(n: int, b: int, k: int, d: int, el: int, need, fused: bool,
     return nbytes, flops
 
 
+def identity_cost(b: int, k: int, d: int, el: int, need,
+                  fused: bool) -> Tuple[int, int]:
+    """(bytes, f32 FLOPs) of one identity-mode backward call (ids
+    ``b·K + k``, no idx read): g read; for dfeats, w read and dfeats
+    [B·K, D] written once, one multiply an element; for dw, the table's
+    B·K rows read and dw written, a multiply-add an element; fused, for
+    dself w_self read and dself written (a multiply an element), for
+    dw_self self_rows read and dw_self written (a multiply-add)."""
+    nbytes = b * d * el
+    flops = 0
+    if need[0]:
+        nbytes += b * k * el + b * k * d * el
+        flops += b * k * d
+    if need[1]:
+        nbytes += b * k * d * el + b * k * el
+        flops += 2 * b * k * d
+    if fused and need[2]:
+        nbytes += b * el + b * d * el
+        flops += b * d
+    if fused and need[3]:
+        nbytes += b * d * el + b * el
+        flops += 2 * b * d
+    return nbytes, flops
+
+
 def csr_cost(n: int, b: int, nnz: int, d: int, el: int) -> Tuple[int, int]:
     """(bytes, f32 FLOPs) of one reverse-index backward call: g, the kept
     edges' weights, indptr and edges read once, dfeats written once; a
@@ -135,6 +160,16 @@ def bound_bwd(feats, idx, g, self_rows, need) -> tuple:
     rows = int(torch.unique(idx).numel()) if need[1] else None
     nbytes, flops = bwd_cost(n, b, k, d, feats.element_size(), need,
                              self_rows is not None, rows)
+    return least_ms(nbytes, flops, F32_FLOPS_PER_S) + (nbytes,)
+
+
+def bound_bwd_identity(w, g, self_rows, need) -> tuple:
+    """The least time for one identity-mode backward call on these
+    tensors (``identity_cost``).  Returns (ms, "bytes" | "operations",
+    bytes)."""
+    b, k = w.shape
+    nbytes, flops = identity_cost(b, k, g.shape[1], g.element_size(), need,
+                                  self_rows is not None)
     return least_ms(nbytes, flops, F32_FLOPS_PER_S) + (nbytes,)
 
 

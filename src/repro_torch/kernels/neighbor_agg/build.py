@@ -1,7 +1,7 @@
 """The neighbor-aggregation CUDA library (every ``csrc/*.cu`` here: the
-tiled forward's two routes, the backward, the reverse-index backward and
-the row kernel), built and loaded by the shared builder
-``repro_torch.kernels.build``."""
+tiled forward's two routes, the backward in its general and identity
+modes, the reverse-index backward and the row kernel), built and loaded
+by the shared builder ``repro_torch.kernels.build``."""
 from __future__ import annotations
 
 import ctypes
@@ -23,6 +23,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.neighbor_agg_forward_slab       # + slab_cols
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + tail[:-1]
                    + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.neighbor_agg_backward_identity  # no n
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + tail[1:]
     fn.restype = ctypes.c_int
 
 

@@ -15,64 +15,92 @@
 //
 // What bounds it: bytes, as for the tiled kernel (same work, same bound:
 // the distinct feature rows referenced, idx, w and out, each once, over
-// the 3.35 TB/s of HBM).
+// the 3.35 TB/s of HBM).  Its realistic floor at random ids is the
+// gather's line traffic: every (b, k) edge reads its row's L2 lines.
 //
-// What the design does about it: it keeps the seed's shape on purpose.
-// * One block of 128 threads per (b, 128-column tile); each thread owns
-//   one column and walks K in order with an f32 accumulator in a
-//   register (the TPU grid's sequential K axis becomes the loop).
-// * The id and weight of step k are one address for the whole block, so
-//   each load is a broadcast; the row read is one coalesced 128-wide
-//   segment per block.
-// * D is masked in the kernel instead of padded to d_tile (the reference
-//   pads it in ops.py:198); B and K need no mask (one block per row).
-// * Rows use 64-bit offsets; an id outside [0, N) reads nothing and
-//   poisons its output row with NaN, as the tiled kernel does.
-// It loads each row's ids once per column tile instead of once per row
-// and keeps no loads in flight across k: the tiled kernel is the fast one.
+// What the design does about it: the direct route's design, from the
+// same device code (common.cuh's gather_pass), as a kernel symbol of its
+// own without the fused epilogue.
+// * One warp per output row b (8 rows a block), the row's ids and
+//   weights read once with one coalesced 32-wide load and broadcast with
+//   __shfl_sync (the TPU grid's sequential K axis becomes the loop).
+// * Lanes along D in V-wide vectors (common.cuh: 16-byte loads wherever
+//   D and the pointers allow, 8-, 4- or 2-byte ones elsewhere), up to 256
+//   columns a block; wider rows take more block columns.
+// * K unrolled: the rows of several edges are loaded, as raw words,
+//   before any is added, so their loads are in flight together.
+// * The f32 chain is pinned as in the direct route (neighbor_agg.cu):
+//   one __fmaf_rn per edge in k order from 0, so the two kernels are
+//   bit-equal on the same inputs.
+// * Ragged B, K and D are masked, never padded; rows use 64-bit offsets.
+//   An id outside [0, N) reads nothing and poisons its output row with
+//   NaN, as the tiled kernel does.
 
 #include "common.cuh"
 
 namespace {
 
-using nagg::from_f32;
-using nagg::to_f32;
+using nagg::kPassCols;
+using nagg::kWarp;
+using nagg::store_vec;
 
-constexpr int kCols = 128;  // the reference's default d_tile
+constexpr int kRowsPerBlock = 8;  // warps per block, one output row each
 
-template <typename T>
-__global__ void __launch_bounds__(kCols)
+template <typename T, int V, int CH>
+__global__ void __launch_bounds__(kWarp * kRowsPerBlock)
     neighbor_agg_row_kernel(const T* __restrict__ feats,
                             const int32_t* __restrict__ idx,
                             const T* __restrict__ w, T* __restrict__ out,
-                            int64_t n, int k_total, int d_total) {
-  const int64_t b = blockIdx.x;
-  const int d = blockIdx.y * kCols + threadIdx.x;
-  const int32_t* idx_row = idx + b * k_total;
-  const T* w_row = w + b * k_total;
-  float acc = 0.f;
-  bool bad = false;
-  for (int k = 0; k < k_total; ++k) {
-    const int32_t nid = idx_row[k];  // one address for the whole block
-    const float wk = to_f32(w_row[k]);
-    if (nid < 0 || (int64_t)nid >= n) {
-      bad = true;
-      continue;
+                            int64_t n, int64_t b_total, int k_total,
+                            int d_total) {
+  constexpr int kCh = CH;  // V-chunks a lane holds
+  const int lane = threadIdx.x;
+  const int64_t b = (int64_t)blockIdx.x * kRowsPerBlock + threadIdx.y;
+  if (b >= b_total) return;  // whole warp: b is uniform across lanes
+  const int c0 = blockIdx.y * (kCh * kWarp * V);
+
+  float acc[kCh * V];
+#pragma unroll
+  for (int j = 0; j < kCh * V; ++j) acc[j] = 0.f;
+  const bool bad = nagg::gather_pass<T, V, CH>(
+      acc, feats, idx + b * k_total, w + b * k_total, n, k_total, d_total,
+      c0, lane);
+
+  T* out_row = out + b * d_total;
+#pragma unroll
+  for (int c = 0; c < kCh; ++c) {
+    const int d = c0 + c * kWarp * V + lane * V;
+    if (d < d_total) {
+      float v[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        v[i] = bad ? nagg::quiet_nan() : acc[c * V + i];
+      }
+      store_vec<T, V>(out_row + d, v);
     }
-    if (d < d_total) acc += wk * to_f32(feats[(int64_t)nid * d_total + d]);
   }
-  if (d < d_total) {
-    out[b * d_total + d] = from_f32<T>(bad ? nagg::quiet_nan() : acc);
-  }
+}
+
+template <typename T, int V, int CH>
+void launch_vc(const void* feats, const void* idx, const void* w, void* out,
+               int64_t n, int64_t b, int k, int d, cudaStream_t stream) {
+  const dim3 block(kWarp, kRowsPerBlock);
+  const int pass = CH * kWarp * V;
+  const dim3 grid((unsigned)((b + kRowsPerBlock - 1) / kRowsPerBlock),
+                  (unsigned)((d + pass - 1) / pass));
+  neighbor_agg_row_kernel<T, V, CH><<<grid, block, 0, stream>>>(
+      static_cast<const T*>(feats), static_cast<const int32_t*>(idx),
+      static_cast<const T*>(w), static_cast<T*>(out), n, b, k, d);
 }
 
 template <typename T>
 void launch(const void* feats, const void* idx, const void* w, void* out,
             int64_t n, int64_t b, int k, int d, cudaStream_t stream) {
-  const dim3 grid((unsigned)b, (unsigned)((d + kCols - 1) / kCols));
-  neighbor_agg_row_kernel<T><<<grid, kCols, 0, stream>>>(
-      static_cast<const T*>(feats), static_cast<const int32_t*>(idx),
-      static_cast<const T*>(w), static_cast<T*>(out), n, k, d);
+  const void* ptrs[] = {feats, out};
+  nagg::with_layout<(int)sizeof(T)>(d, ptrs, 2, [&](auto v, auto ch) {
+    launch_vc<T, decltype(v)::value, decltype(ch)::value>(
+        feats, idx, w, out, n, b, k, d, stream);
+  });
 }
 
 }  // namespace
@@ -86,7 +114,8 @@ extern "C" int neighbor_agg_row_forward(int dtype, const void* feats,
                                         void* out, long long n, long long b,
                                         int k, int d, void* stream) {
   if (b <= 0 || d <= 0 || k < 0 || n < 0) return nagg::kBadArgs;
-  if (b > 0x7fffffffLL || (d + kCols - 1) / kCols > 65535) {
+  if ((b + kRowsPerBlock - 1) / kRowsPerBlock > 0x7fffffffLL ||
+      (d + kPassCols - 1) / kPassCols > 65535) {
     return nagg::kBadArgs;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -18,8 +18,8 @@
 // shape (B = N = 524,288, K = 32) every table row is read about 28 times
 // in the graph's random node order, so the gather, not the table, is the
 // traffic: 16.8M row reads (4.3 GB at D = 128 bf16) from L2 or HBM.  The
-// direct route (neighbor_agg.cu) reads whole rows in one pass, with 2-byte
-// lane loads in bf16: a warp's load is half an L2 line.  Here D is cut
+// direct route (neighbor_agg.cu) reads whole rows in one pass, in lanes
+// up to 16 bytes wide (common.cuh's gather_pass).  Here D is cut
 // into slabs of S bytes a row, and all row blocks of slab 0 run before
 // slab 1, so a pass's working set is N * S bytes instead of the table.
 //

@@ -13,32 +13,46 @@
   slab route (``csrc/neighbor_agg_slab.cu``, column slabs walked one
   after another) or the direct route (``csrc/neighbor_agg.cu``, whole
   rows in one pass), bit-equal to each other; or, for ``kernel="row"``,
-  the row
-  kernel (``csrc/neighbor_agg_row.cu``, self term added outside as the
-  reference does), and whose backward is the CUDA backward kernel
-  (``csrc/neighbor_agg_bwd.cu``).  On a CUDA tensor each of them
-  launches or raises: never a quiet fallback.  On a CPU tensor the same
-  Functions run the kernels' plain versions (``ref.neighbor_agg_ref``
-  and ``ref.neighbor_agg_backward_ref``), because the tensor lies on the
-  CPU.
+  the row kernel (``csrc/neighbor_agg_row.cu``, self term added outside
+  as the reference does).
 
-With a reverse index (``rev=build_reverse_index(idx, w, n)``, the
-full-graph path's) dfeats comes instead from the reverse-index backward
-kernel (``csrc/neighbor_agg_bwd_csr.cu``; on a CPU tensor its plain
-version ``ref.neighbor_agg_backward_csr_ref``): a gather over the
-transposed ELL, one warp per source row, no atomics, bit-identical from
-run to run.  dw, dself and dw_self still come from the backward kernel,
-which then sends no atomics.  The index is checked against the call:
-the same ``idx`` object at the same version, the same shapes and device,
-and ``w`` zero on every edge the index left out (an on-device assert, no
-host sync).  On a CUDA tensor that kernel launches or raises; it never
-gives way to the atomic kernel.
+The backward has three kernels, and each path reaches one for dfeats:
+
+* **the reverse-index kernel** (``csrc/neighbor_agg_bwd_csr.cu``) — the
+  full-graph, cluster and sharded full-graph paths, which pass
+  ``rev=build_reverse_index(idx, w, n)``: a gather over the transposed
+  ELL, one warp per source row, no atomics, bit-identical from run to
+  run.  The index is checked against the call: the same ``idx`` object
+  at the same version, the same shapes and device, and ``w`` zero on
+  every edge the index left out (an on-device assert, no host sync).
+* **the identity mode of the backward kernel** (``csrc/neighbor_agg_bwd.cu``,
+  ``neighbor_agg_backward_identity``) — the mini-batch paths: ``_wsum``
+  calls ``neighbor_agg_batch`` (``_AggBatch``) on an already-gathered
+  fan-out level ``[B, K, D]``, flattened to a ``[B·K, D]`` table with the
+  identity ids ``b·K + k``; ``neighbor_agg_batch_sharded`` does the same
+  shard by shard.  No two edges share a row, so dfeats is
+  ``w[b, k]·g[b]`` written once with vector stores in the table's dtype:
+  no zero fill, no f32 buffer, no atomics, no cast pass.
+* **the general mode of the backward kernel** (``neighbor_agg_backward``)
+  — everything else: dw, dself and dw_self (with a null dfeats beside the
+  reverse index: GCN's full-graph dself), and dfeats of a direct
+  ``neighbor_agg(use_kernel=True)`` call without ``rev``, summed with f32
+  vector atomics into a zeroed f32 buffer cast once to ``feats.dtype``.
+  No model path reaches its dfeats.
+
+On a CUDA tensor each kernel launches or raises: never a quiet fallback,
+and neither the reverse-index kernel nor the identity mode ever gives way
+to the general mode.  On a CPU tensor the same Functions run the
+kernels' plain versions (``ref.neighbor_agg_ref``,
+``ref.neighbor_agg_backward_ref``, ``ref.neighbor_agg_backward_identity_ref``,
+``ref.neighbor_agg_backward_csr_ref``), because the tensor lies on the
+CPU.
 
 The backward reads ``ctx.needs_input_grad``: no scatter when ``feats``
 needs no gradient, no dot when ``w`` needs none (on the model paths the
 weights, masks and layer 1's raw feature table never do).  ``dfeats`` is
-summed in f32 and cast to ``feats.dtype``; ``dw`` is in ``w.dtype``.
-The kernels mask ragged B/K/D themselves, so nothing is padded to tiles.
+in ``feats.dtype``; ``dw`` in ``w.dtype``.  The kernels mask ragged
+B/K/D themselves, so nothing is padded to tiles.
 
 Shape-only tensors (fake tensors under ``FakeTensorMode``, or meta
 tensors: ``device.is_shape_only``), which the dry-run traces, take the
@@ -52,10 +66,11 @@ CUDA, never reaches a stand-in, and a stand-in counts no launch.
 shapes with every edge kept (``nnz = B·K``, the worst case).
 
 One launch counter per kernel, changed only where that kernel launches:
-``launches`` (tiled forward, both routes), ``backward_launches``,
-``backward_csr_launches`` and ``row_launches``; ``launch_counts()`` also
-splits the tiled forward by route (``tiled_slab``, ``tiled_direct``) and
-counts its launches with the fused self epilogue (``tiled_fused``).
+``launches`` (tiled forward, both routes), ``backward_launches`` (the
+general mode), ``backward_identity_launches``, ``backward_csr_launches``
+and ``row_launches``; ``launch_counts()`` also splits the tiled forward
+by route (``tiled_slab``, ``tiled_direct``) and counts its launches with
+the fused self epilogue (``tiled_fused``).
 """
 from __future__ import annotations
 
@@ -69,8 +84,8 @@ import torch
 from repro_torch.device import is_shape_only
 from repro_torch.kernels import cost
 from repro_torch.kernels.neighbor_agg.ref import (
-    neighbor_agg_backward_csr_ref, neighbor_agg_backward_ref,
-    neighbor_agg_ref)
+    neighbor_agg_backward_csr_ref, neighbor_agg_backward_identity_ref,
+    neighbor_agg_backward_ref, neighbor_agg_ref)
 
 #: launches of the tiled forward kernel (both routes)
 launches = 0
@@ -79,8 +94,10 @@ slab_launches = 0
 direct_launches = 0
 #: launches of the tiled forward with the fused self epilogue
 fused_launches = 0
-#: launches of the backward kernel
+#: launches of the backward kernel: its general mode
 backward_launches = 0
+#: launches of the backward kernel's identity mode
+backward_identity_launches = 0
 #: launches of the reverse-index backward kernel
 backward_csr_launches = 0
 #: launches of the row kernel
@@ -92,25 +109,29 @@ def reset_launches() -> None:
     """Set every kernel's launch counter to 0."""
     global launches, backward_launches, backward_csr_launches, row_launches
     global slab_launches, direct_launches, fused_launches
+    global backward_identity_launches
     with _count_lock:
         launches = backward_launches = backward_csr_launches = 0
         row_launches = slab_launches = direct_launches = fused_launches = 0
+        backward_identity_launches = 0
 
 
 def launch_counts() -> dict:
-    """The launch counters by kernel: tiled (both routes), backward,
-    backward_csr, row; the tiled forward by route: tiled_slab,
-    tiled_direct; and its launches with the fused self epilogue:
-    tiled_fused."""
+    """The launch counters by kernel: tiled (both routes), backward (the
+    general mode), backward_csr, row, backward_identity; the tiled
+    forward by route: tiled_slab, tiled_direct; and its launches with the
+    fused self epilogue: tiled_fused."""
     return {"tiled": launches, "backward": backward_launches,
             "backward_csr": backward_csr_launches, "row": row_launches,
             "tiled_slab": slab_launches, "tiled_direct": direct_launches,
-            "tiled_fused": fused_launches}
+            "tiled_fused": fused_launches,
+            "backward_identity": backward_identity_launches}
 
 
 def _count(name: str, fused: bool = False) -> None:
     global launches, backward_launches, backward_csr_launches, row_launches
     global slab_launches, direct_launches, fused_launches
+    global backward_identity_launches
     with _count_lock:
         fused_launches += fused
         if name == "tiled_slab":
@@ -121,6 +142,8 @@ def _count(name: str, fused: bool = False) -> None:
             direct_launches += 1
         elif name == "backward":
             backward_launches += 1
+        elif name == "backward_identity":
+            backward_identity_launches += 1
         elif name == "backward_csr":
             backward_csr_launches += 1
         else:
@@ -282,24 +305,32 @@ def _check_kernel_args(feats, idx, w, self_rows, w_self, rev=None,
     reverse index must be the one of this ``idx`` (object and version),
     shapes and device; ``w`` nonzero on an edge it left out fails an
     on-device assert (raised at once on the CPU, by the card's next
-    synchronising call on a CUDA tensor)."""
+    synchronising call on a CUDA tensor).  ``idx=None`` stands for the
+    identity ids ``b·K + k`` of ``w`` [B, K], with ``feats`` the
+    ``[B·K, D]`` table."""
     def req(cond, msg):
         if not cond:
             raise ValueError(f"neighbor_agg kernel: {msg}")
     req(feats.dim() == 2, f"feats must be [N, D], got {tuple(feats.shape)}")
     req(feats.dtype in _DTYPE_CODE,
         f"feats dtype must be float32 or bfloat16, got {feats.dtype}")
-    req(idx.dim() == 2 and idx.dtype == torch.int32,
-        f"idx must be int32 [B, K], got {idx.dtype} {tuple(idx.shape)}")
-    req(w.shape == idx.shape and w.dtype == feats.dtype,
-        f"w must be {feats.dtype} {tuple(idx.shape)}, got {w.dtype} "
+    if idx is None:
+        req(w.dim() == 2 and feats.shape[0] == w.numel(),
+            f"the table must be [B·K, D] for w [B, K], got "
+            f"{tuple(feats.shape)} and {tuple(w.shape)}")
+    else:
+        req(idx.dim() == 2 and idx.dtype == torch.int32,
+            f"idx must be int32 [B, K], got {idx.dtype} {tuple(idx.shape)}")
+    shape = w.shape if idx is None else idx.shape
+    req(w.shape == shape and w.dtype == feats.dtype,
+        f"w must be {feats.dtype} {tuple(shape)}, got {w.dtype} "
         f"{tuple(w.shape)}")
     odt = feats.dtype if out_dtype is None else out_dtype
     req((feats.dtype, odt) in _FORWARD_CODE,
         f"a {feats.dtype} table cannot give a {odt} output")
-    ops = [feats, idx, w]
+    ops = [feats, w] + ([] if idx is None else [idx])
     if self_rows is not None:
-        b, d = idx.shape[0], feats.shape[1]
+        b, d = shape[0], feats.shape[1]
         req(self_rows.shape == (b, d) and self_rows.dtype == odt,
             f"self_rows must be {odt} {(b, d)}, got "
             f"{self_rows.dtype} {tuple(self_rows.shape)}")
@@ -310,7 +341,7 @@ def _check_kernel_args(feats, idx, w, self_rows, w_self, rev=None,
     req(all(t.device == feats.device for t in ops),
         "all operands must be on one device")
     req(all(t.is_contiguous() for t in ops), "operands must be contiguous")
-    req(feats.shape[0] > 0 or idx.shape[1] == 0,
+    req(feats.shape[0] > 0 or shape[1] == 0,
         "feats has no rows to gather from")
     if rev is None:
         return
@@ -446,6 +477,39 @@ def _launch_backward(feats, idx, w, g, self_rows, w_self, need):
     return dfeats, dw, dself, dws
 
 
+def _launch_backward_identity(table, w, g, self_rows, w_self, need):
+    """The backward kernel's identity mode (ids ``b·K + k`` of the
+    ``[B·K, D]`` table); ``need`` as in ``_launch_backward``.  Every row
+    of dfeats is written, in the table's dtype, so nothing is zeroed or
+    cast."""
+    from repro_torch.kernels.neighbor_agg.build import load_library
+    b, k = w.shape
+    d = g.shape[1]
+    fused = self_rows is not None
+    alloc = torch.empty_like if d > 0 else torch.zeros_like
+    dfeats = (torch.empty((b * k, d), dtype=table.dtype, device=table.device)
+              if need[0] else None)
+    dw = alloc(w) if need[1] else None
+    dself = alloc(self_rows) if fused and need[2] else None
+    dws = alloc(w_self) if fused and need[3] else None
+    outs = (dfeats, dw, dself, dws)
+    launch = b > 0 and d > 0 and any(o is not None for o in outs)
+    if launch and is_shape_only(table):
+        _stand_in("backward_identity", *cost.identity_cost(
+            b, k, d, table.element_size(), need, fused))
+    elif launch:
+        lib = load_library()
+        with torch.cuda.device(table.device):
+            err = lib.neighbor_agg_backward_identity(
+                _DTYPE_CODE[table.dtype], table.data_ptr(), w.data_ptr(),
+                g.data_ptr(), _ptr(self_rows), _ptr(w_self),
+                *(_ptr(o) for o in outs), b, k, d, _stream(table))
+        _raise_on(err, "neighbor_agg backward (identity ids)", b, k, d,
+                  b * k, table.dtype)
+        _count("backward_identity")
+    return outs
+
+
 def _launch_backward_csr(rev, w, g):
     """dfeats [N, D] in g's dtype from the reverse-index kernel; every
     row is written, so nothing is zeroed first."""
@@ -502,6 +566,17 @@ def _backward(feats, idx, w, g, self_rows, w_self, need):
     return _launch_backward(feats, idx, w, g, self_rows, w_self, need)
 
 
+def _backward_identity(table, w, g, self_rows, w_self, need):
+    """The backward kernel's identity mode on a CUDA tensor, its plain
+    version on a CPU tensor; cotangents not in ``need`` come back as
+    None."""
+    g = g.to(table.dtype).contiguous()
+    if _device_of(table) == "cpu":
+        return neighbor_agg_backward_identity_ref(table, w, g, self_rows,
+                                                  w_self, need)
+    return _launch_backward_identity(table, w, g, self_rows, w_self, need)
+
+
 def _grads(feats, idx, w, g, self_rows, w_self, need,
            rev: Optional[ReverseIndex]):
     """``_backward``, with dfeats from the reverse-index kernel (its
@@ -538,6 +613,25 @@ def neighbor_agg_backward(feats, idx, w, g, self_rows=None, w_self=None, *,
                          f"{(b, d)} on {feats.device}, got {g.dtype} "
                          f"{tuple(g.shape)} on {g.device}")
     return _grads(feats, idx, w, g, self_rows, w_self, need, rev)
+
+
+def neighbor_agg_backward_identity(table, w, g, self_rows=None,
+                                   w_self=None, *,
+                                   need=(True, True, True, True)):
+    """The backward of ``neighbor_agg_batch`` called directly:
+    ``(dfeats [B·K, D], dw, dself, dw_self)`` of ``table`` [B·K, D] (the
+    flattened fan-out level) with the identity ids ``b·K + k``, for the
+    output cotangent ``g`` [B, D] (in the table's dtype), each None where
+    ``need`` does not ask for it.  The backward kernel's identity mode on
+    a CUDA tensor, its plain version on a CPU tensor."""
+    _check_kernel_args(table, None, w, self_rows, w_self)
+    b, d = w.shape[0], table.shape[1]
+    if g.shape != (b, d) or g.dtype != table.dtype or \
+            g.device != table.device:
+        raise ValueError(f"neighbor_agg backward: g must be {table.dtype} "
+                         f"{(b, d)} on {table.device}, got {g.dtype} "
+                         f"{tuple(g.shape)} on {g.device}")
+    return _backward_identity(table, w, g, self_rows, w_self, need)
 
 
 class _Agg(torch.autograd.Function):
@@ -765,18 +859,15 @@ def neighbor_agg_sharded(feats, idx, w, self_rows=None, w_self=None, *,
 class _AggBatchSharded(torch.autograd.Function):
     """The mini-batch twin (reference ``_agg_batch_sharded``): each
     shard flattens its ``[b_loc, K, D]`` block of an already-gathered
-    fan-out level to a ``[b_loc·K, D]`` table with identity ids; no
+    fan-out level to a ``[b_loc·K, D]`` table with identity ids, through
+    the tiled forward and the backward kernel's identity mode; no
     collective in either direction."""
 
     @staticmethod
     def forward(ctx, w, h_nb, h_self, w_self, mesh):
         from repro_torch import sharding as sh
-        outs = []
-        for s, (w_s, nb_s, sr_s, ws_s) in enumerate(
-                _shard_blocks(mesh, w, h_nb, h_self, w_self)):
-            table, ids = _identity_table(nb_s)
-            _check_kernel_args(table, ids, w_s, sr_s, ws_s)
-            outs.append(_forward("tiled", table, ids, w_s, sr_s, ws_s))
+        outs = [_batch_forward(*blk) for blk in _shard_blocks(
+            mesh, w, h_nb, h_self, w_self)]
         ctx.save_for_backward(w, h_nb, h_self, w_self)
         ctx.mesh = mesh
         return sh.unshard_rows(outs, h_nb.device)
@@ -788,14 +879,8 @@ class _AggBatchSharded(torch.autograd.Function):
         fused = h_self is not None
         need_w, need_nb, need_s, need_ws, _ = ctx.needs_input_grad
         need = (need_nb, need_w, need_s and fused, need_ws and fused)
-        grads = []
-        for w_s, nb_s, sr_s, ws_s, g_s in _shard_blocks(
-                ctx.mesh, w, h_nb, h_self, w_self, g.contiguous()):
-            table, ids = _identity_table(nb_s)
-            dt, dw, dsr, dws = _grads(table, ids, w_s, g_s, sr_s, ws_s,
-                                      need, None)
-            grads.append((dw, None if dt is None else dt.reshape(
-                nb_s.shape), dsr, dws))
+        grads = [_batch_backward(*blk, need) for blk in _shard_blocks(
+            ctx.mesh, w, h_nb, h_self, w_self, g.contiguous())]
 
         def rows(j):
             if grads[0][j] is None:
@@ -804,12 +889,61 @@ class _AggBatchSharded(torch.autograd.Function):
         return rows(0), rows(1), rows(2), rows(3), None
 
 
-def _identity_table(nb):
-    """``nb`` [b, K, D] as a [b·K, D] table and its identity ids [b, K]."""
+def _batch_forward(w, nb, self_rows, w_self):
+    """The tiled forward on ``nb`` [b, K, D] as a [b·K, D] table with the
+    identity ids ``b·K + k``."""
     b, k, d = nb.shape
+    table = nb.reshape(b * k, d)
     ids = torch.arange(b * k, dtype=torch.int32,
                        device=nb.device).reshape(b, k)
-    return nb.reshape(b * k, d), ids
+    _check_kernel_args(table, ids, w, self_rows, w_self)
+    return _forward("tiled", table, ids, w, self_rows, w_self)
+
+
+def _batch_backward(w, nb, self_rows, w_self, g, need):
+    """``_batch_forward``'s cotangents (dw, dnb [b, K, D], dself_rows,
+    dw_self) by the backward kernel's identity mode."""
+    dt, dw, dsr, dws = _backward_identity(nb.reshape(-1, nb.shape[-1]), w,
+                                          g, self_rows, w_self, need)
+    return dw, None if dt is None else dt.reshape(nb.shape), dsr, dws
+
+
+class _AggBatch(torch.autograd.Function):
+    """The weighted sum over an already-gathered fan-out level, unsharded
+    (the twin of ``_AggBatchSharded`` on one device): the forward is the
+    tiled kernel on the ``[B·K, D]`` table with identity ids, the
+    backward the backward kernel's identity mode."""
+
+    @staticmethod
+    def forward(ctx, w, h_nb, h_self, w_self):
+        ctx.save_for_backward(w, h_nb, h_self, w_self)
+        return _batch_forward(w, h_nb, h_self, w_self)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, h_nb, h_self, w_self = ctx.saved_tensors
+        fused = h_self is not None
+        need_w, need_nb, need_s, need_ws = ctx.needs_input_grad
+        return _batch_backward(w, h_nb, h_self, w_self, g,
+                               (need_nb, need_w, need_s and fused,
+                                need_ws and fused))
+
+
+def neighbor_agg_batch(w, h_nb, h_self=None, w_self=None):
+    """``out[b] = Σ_k w[b,k]·h_nb[b,k] [+ w_self[b]·h_self[b]]`` over an
+    ALREADY-GATHERED fan-out level (``h_nb [B, K, D]``, ``w [B, K]`` [+
+    fused ``h_self [B, D]`` / ``w_self [B]``]) through the kernels: the
+    tiled forward on ``h_nb`` flattened to a ``[B·K, D]`` table with the
+    identity ids ``b·K + k`` (the same launch, route and bits as
+    ``neighbor_agg(table, ids, w, ..., use_kernel=True)``), and for its
+    gradient the backward kernel's identity mode (no atomics, no zero
+    fill).  Plain versions of both on a CPU tensor."""
+    fused = h_self is not None
+    if fused != (w_self is not None):
+        raise ValueError("h_self and w_self must be passed together")
+    _device_of(h_nb)
+    return _AggBatch.apply(w.contiguous(), h_nb.contiguous(), h_self,
+                           w_self)
 
 
 def neighbor_agg_batch_sharded(w, h_nb, h_self=None, w_self=None, *, mesh):

@@ -15,6 +15,11 @@ Both routes of the tiled forward (``csrc/neighbor_agg.cu``,
 ``csrc/neighbor_agg_slab.cu``) are held to ``neighbor_agg_ref`` row by
 row with ``FWD_ROW_TOL``.
 
+``neighbor_agg_backward_identity_ref`` is the plain version of the
+backward kernel's identity mode (``csrc/neighbor_agg_bwd.cu``, the
+mini-batch path's): ids ``b·K + k``, dfeats the broadcast product, no
+``index_add_``.
+
 ``neighbor_agg_backward_csr_ref`` is the plain version of the
 reverse-index backward kernel (``csrc/neighbor_agg_bwd_csr.cu``): dfeats
 as a segment sum over the transposed ELL, held row by row with
@@ -71,6 +76,35 @@ def neighbor_agg_backward_ref(feats, idx, w, g, self_rows=None,
         dfeats = torch.zeros(feats.shape, dtype=torch.float32,
                              device=feats.device).index_add_(0, flat, contrib)
         dfeats = dfeats.to(feats.dtype)
+    if self_rows is not None and need[2]:
+        dself = (w_self.float()[:, None] * g32).to(self_rows.dtype)
+    if self_rows is not None and need[3]:
+        dw_self = torch.einsum("bd,bd->b", g32, self_rows.float()).to(
+            w_self.dtype)
+    return dfeats, dw, dself, dw_self
+
+
+def neighbor_agg_backward_identity_ref(table, w, g, self_rows=None,
+                                      w_self=None,
+                                      need=(True, True, True, True)):
+    """Cotangents of ``neighbor_agg_ref(table, ids, w, ...)`` with the
+    identity ids ``ids[b, k] = b·K + k`` (``table`` [B·K, D], one row an
+    edge), the plain version of the backward kernel's identity mode: no
+    id is read and no row is summed into, so dfeats is the broadcast
+    product ``w[b, k] · g[b]`` in f32, cast once to ``table``'s dtype
+    (zero-weight edges +0, whatever g holds, as the kernel writes them).
+    The rest as ``neighbor_agg_backward_ref``."""
+    b, k = w.shape
+    d = g.shape[1]
+    g32 = g.float()
+    dfeats = dw = dself = dw_self = None
+    if need[1]:
+        dw = torch.einsum("bd,bkd->bk", g32,
+                          table.reshape(b, k, d).float()).to(w.dtype)
+    if need[0]:
+        w32 = w.float()[:, :, None]
+        dfeats = torch.where(w32 != 0, w32 * g32[:, None, :], 0.0).reshape(
+            b * k, d).to(table.dtype)
     if self_rows is not None and need[2]:
         dself = (w_self.float()[:, None] * g32).to(self_rows.dtype)
     if self_rows is not None and need[3]:

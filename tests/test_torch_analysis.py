@@ -286,8 +286,9 @@ def test_flash_budget_formulas_at_d256():
     assert rows[("neighbor_agg_kernel", None)]["smem_bytes"] == 0
     assert {r["kernel"] for r in rows.values()} == {
         "neighbor_agg_kernel", "neighbor_agg_slab_kernel",
-        "neighbor_agg_bwd_kernel", "neighbor_agg_bwd_csr_kernel",
-        "neighbor_agg_row_kernel", "flash_attn_kernel",
+        "neighbor_agg_bwd_kernel", "neighbor_agg_bwd_identity_kernel",
+        "neighbor_agg_bwd_csr_kernel", "neighbor_agg_row_kernel",
+        "flash_attn_kernel",
         "flash_attn_wgmma_kernel"}
 
 

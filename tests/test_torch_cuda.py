@@ -4,7 +4,9 @@ they run on the card's machine):
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 The CUDA neighbor-aggregation kernels (tiled forward, backward, row)
-against their plain versions at the model paths' widths, a small serving
+against their plain versions at the model paths' widths (the backward's
+identity mode bit-equal to its plain version and to the general mode,
+the row kernel bit-equal to the direct route), a small serving
 build whose kernel path must launch the kernel and match the plain
 forward, and one training step whose gradients through the kernels must
 match the plain path.  Forward tolerances: 1e-5 (f32), 2e-2 (bf16).
@@ -222,6 +224,134 @@ def test_row_kernel_matches_plain_version(cuda, n, d, b, k, dtype, tol):
                                atol=tol, rtol=tol)
 
 
+def _identity_case(seed, b, k, d, dtype, fused, device, offset=0):
+    """Identity-id inputs (table [b*k, d], w with 30 % zeros, g, and
+    fused self_rows / w_self) on the card; ``offset`` elements in front
+    of the table's and g's storage, so their rows start unaligned."""
+    rng = np.random.default_rng(seed)
+    w = (rng.random((b, k)) * (rng.random((b, k)) > 0.3)).astype(np.float32)
+
+    def put(a):
+        flat = torch.zeros(a.size + offset, dtype=dtype, device=device)
+        flat[offset:] = torch.tensor(a.reshape(-1), device=device).to(dtype)
+        return flat[offset:].view(a.shape)
+    out = [put(rng.normal(size=(b * k, d)).astype(np.float32)),
+           torch.tensor(w, device=device).to(dtype),
+           put(rng.normal(size=(b, d)).astype(np.float32))]
+    if fused:
+        out += [torch.tensor(rng.normal(size=(b, d)), device=device).to(
+            dtype), torch.tensor(rng.random(b), device=device).to(dtype)]
+    else:
+        out += [None, None]
+    return out
+
+
+IDENTITY_NEEDS = [(True, False, False, False), (False, True, False, False),
+                  (True, True, False, False), (True, True, True, True),
+                  (False, False, True, True), (True, False, True, False)]
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,k,d,offset", [(300, 15, 256, 0),
+                                          (257, 15, 172, 0),
+                                          (100, 10, 64, 0),
+                                          (77, 7, 37, 0), (50, 1, 1, 0),
+                                          (40, 3, 300, 0), (33, 15, 172, 1),
+                                          (33, 15, 256, 2), (9, 0, 40, 0)])
+def test_identity_kernel_equals_plain_and_general_mode(cuda, b, k, d,
+                                                       offset, dtype, fused):
+    """The backward kernel's identity mode at aligned rows (16-byte
+    lanes), bf16 D = 172 (8-byte), odd D and rows offset by one or two
+    elements (narrower lanes), for each ``need``: dfeats and dself
+    ``torch.equal`` to the plain version and every output to the general
+    mode on ``arange`` ids (the same __fmul_rn / __fmaf_rn chains); dw
+    and dw_self, dot products summed in another order than the plain
+    version's, within 1e-5 / 2e-2 of it."""
+    table, w, g, sr, ws = _identity_case(b + k + d, b, k, d, dtype, fused,
+                                         cuda, offset)
+    ids = torch.arange(b * k, dtype=torch.int32, device=cuda).reshape(b, k)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    from repro_torch.kernels.neighbor_agg.ref import \
+        neighbor_agg_backward_identity_ref
+    for need in IDENTITY_NEEDS:
+        if not fused and not any(need[:2]):
+            continue
+        before = ops.launch_counts()
+        got = ops.neighbor_agg_backward_identity(table, w, g, sr, ws,
+                                                 need=need)
+        after = ops.launch_counts()
+        assert after["backward_identity"] == before["backward_identity"] + 1
+        assert after["backward"] == before["backward"]
+        plain = neighbor_agg_backward_identity_ref(table, w, g, sr, ws, need)
+        general = ops.neighbor_agg_backward(table, ids, w, g, sr, ws,
+                                            need=need)
+        for j, (a, p, q) in enumerate(zip(got, plain, general)):
+            assert (a is None) == (p is None) == (q is None), (need, j)
+            if a is None:
+                continue
+            assert a.dtype == p.dtype and torch.equal(a, q), (need, j)
+            if j in (0, 2):
+                assert torch.equal(a, p), (need, j)
+            else:
+                torch.testing.assert_close(a.float(), p.float(), atol=tol,
+                                           rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_identity_kernel_streaming_stores_and_zero_weights(cuda, dtype):
+    """dfeats through the streaming stores: a NaN in g behind an edge
+    of weight 0 stays out of its row (+0), as in the general mode, and
+    reaches the row of an edge of nonzero weight."""
+    table, w, g, _, _ = _identity_case(4, 64, 15, 172, dtype, False, cuda)
+    need = (True, False, False, False)
+    w[3, :5] = 0
+    w[3, 5] = 0.5
+    g[3, 7] = float("nan")
+    cs = ops._launch_backward_identity(table, w, g, None, None, need)[0]
+    assert bool((cs[3 * 15: 3 * 15 + 5] == 0).all())
+    assert not bool(torch.signbit(cs[3 * 15: 3 * 15 + 5]).any())
+    assert bool(torch.isnan(cs[3 * 15 + 5, 7]))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [1, 2, 6, 37, 64, 172, 256, 300])
+def test_general_mode_vector_atomics_at_ragged_d(cuda, d, dtype, tol):
+    """The general mode's dfeats through vector reductions (float4 /
+    float2, scalar where D allows neither) with ids that repeat (a 50-row
+    table under 400 x 12 edges): within 1e-3 / 2e-2 of the plain
+    version."""
+    feats, idx, w, g = _csr_case(d, 50, 400, 12, d, dtype, cuda)
+    feats = torch.randn(50, d, device=cuda).to(dtype)
+    got = ops.neighbor_agg_backward(feats, idx, w, g)
+    want = neighbor_agg_backward_ref(feats, idx, w, g)
+    for a, c in zip(got[:2], want[:2]):
+        assert a.dtype == c.dtype
+        torch.testing.assert_close(a.float(), c.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,b,k", SHAPES + [(4096, 256, 999, 15),
+                                              (500, 37, 65, 33),
+                                              (300, 600, 20, 9)])
+def test_row_kernel_equals_direct_route(cuda, n, d, b, k, dtype):
+    """The row kernel and the tiled forward's direct route take the same
+    __fmaf_rn chain in k order: bit-equal; an id outside [0, N) poisons
+    its row with NaN in both."""
+    t = _cast([torch.tensor(a, device=cuda) for a in
+               _inputs(d + k + 3, n, d, b, k, False)], dtype)
+    row = neighbor_agg(*t, use_kernel=True, kernel="row")
+    with ops._tiled_route("direct"):
+        direct = neighbor_agg(*t, use_kernel=True)
+    assert torch.equal(row, direct)
+    if b > 1 and k > 0:
+        t[1][1, k - 1] = n
+        row = neighbor_agg(*t, use_kernel=True, kernel="row")
+        assert bool(torch.isnan(row[1]).all())
+        assert bool(torch.isfinite(row[0]).all())
+
+
 @pytest.mark.parametrize("model,dtype", [("graphsage", "bfloat16"),
                                          ("gcn", "float32")])
 def test_training_step_grads_kernel_match_plain(cuda, model, dtype):
@@ -253,13 +383,17 @@ def test_training_step_grads_kernel_match_plain(cuda, model, dtype):
             n = ops.launch_counts()
             if not kernel:
                 assert n["backward"] == n["backward_csr"] == 0
+                assert n["backward_identity"] == 0
             elif isinstance(src, E.FullGraphSource):
                 # dfeats by the reverse index; GCN's dself by the atomic
                 # kernel, which then sends no atomics
                 assert n["backward_csr"] == 1
                 assert n["backward"] == (1 if model == "gcn" else 0)
+                assert n["backward_identity"] == 0
             else:
-                assert n["backward"] > 0 and n["backward_csr"] == 0
+                # the identity mode, never the atomic kernel
+                assert n["backward_identity"] > 0
+                assert n["backward"] == 0 and n["backward_csr"] == 0
         for a, b in zip(grads[True], grads[False]):
             err = float((a - b).abs().max() / b.abs().max())
             assert err <= tol, (type(src).__name__, err)
@@ -344,7 +478,8 @@ def test_backward_csr_kernel_skips_zero_weights_on_bad_rows(cuda):
 def test_fullgraph_step_launches_reverse_index_kernel(cuda):
     """One full-graph GraphSAGE step (bf16 aggregation) through the
     Trainer: the tiled forward, the reverse-index backward once, the
-    atomic backward never; a mini-batch step the reverse."""
+    atomic backward never; a mini-batch step the backward kernel's
+    identity mode once, and neither of the others."""
     from repro_torch.core import engine as E
     g = make_sbm_graph(n=3000, n_classes=6, avg_degree=12, feat_dim=48,
                        seed=4)
@@ -354,9 +489,11 @@ def test_fullgraph_step_launches_reverse_index_kernel(cuda):
                     use_agg_kernel=True)
     plan = E.TrainPlan(n_iters=1, eval_every=1, seed=0)
     for src, want in ((E.FullGraphSource(max_deg=16),
-                       {"backward_csr": 1, "backward": 0}),
+                       {"backward_csr": 1, "backward": 0,
+                        "backward_identity": 0}),
                       (E.SampledSource(prefetch=False),
-                       {"backward_csr": 0, "backward": 1})):
+                       {"backward_csr": 0, "backward": 0,
+                        "backward_identity": 1})):
         tr = E.Trainer(g, cfg, plan, source=src, device=cuda)
         ops.reset_launches()
         res = tr.run()

@@ -245,7 +245,8 @@ def test_traced_flops_equal_hand_count_fullgraph():
 def test_traced_flops_equal_hand_count_minibatch():
     """The smoke batch (b 32, fan-out (5, 3)), kernels on: layer 1 runs
     on hops 0 and 1 (no gradient to the hop features), layer 2 on hop 0,
-    its neighbor table's gradient through the atomic backward kernel."""
+    its neighbor table's gradient through the backward kernel's identity
+    mode (one multiply an element of the [b·f1, h] table)."""
     cfg = _gnn_cfg(True)
     b, (f1, f2), r, h, c = cfg.batch_size, cfg.fanout, cfg.feat_dim, \
         cfg.hidden, cfg.n_classes
@@ -254,8 +255,9 @@ def test_traced_flops_equal_hand_count_minibatch():
     l2 = 2 * (2 * b * h * c)
     agg = 2 * b * f1 * r + 2 * (b * f1) * f2 * r + 2 * b * f1 * h
     assert rec["flops_by_dtype"] == {"float32": 2 * l1 + 3 * l2,
-                                     F32: agg + 2 * b * f1 * h}
-    assert rec["kernel_calls"] == {"tiled_direct": 3, "backward": 1}
+                                     F32: agg + b * f1 * h}
+    assert rec["kernel_calls"] == {"tiled_direct": 3,
+                                   "backward_identity": 1}
 
 
 def _gnn_inputs(cfg, seed=0):

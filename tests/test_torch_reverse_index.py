@@ -256,13 +256,14 @@ def test_weight_outside_the_index_fails_the_device_assert():
 
 
 def test_launch_counts_name_the_new_kernel():
-    """``backward_csr`` is counted beside the others; on CPU tensors no
-    kernel launches."""
+    """``backward_csr`` is counted beside the others (the backward
+    kernel's identity mode too); on CPU tensors no kernel launches."""
     ops.reset_launches()
     assert ops.launch_counts() == {"tiled": 0, "backward": 0,
                                    "backward_csr": 0, "row": 0,
                                    "tiled_slab": 0, "tiled_direct": 0,
-                                   "tiled_fused": 0}
+                                   "tiled_fused": 0,
+                                   "backward_identity": 0}
     _, _, (feats, idx, w), g = _case(8, 20, 16, 6, 8, torch.float32)
     rev = build_reverse_index(idx, w, 20)
     f = feats.clone().requires_grad_()

@@ -298,7 +298,14 @@ def test_chip_smoke_rehearsal_on_cpu():
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     import chip_smoke
-    result = chip_smoke.run(torch.device("cpu"), chip_smoke.TINY)
+    # one intra-op thread: its many small ops do not gain from more, and
+    # beside other test workers on the host's cores more make them crawl
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        result = chip_smoke.run(torch.device("cpu"), chip_smoke.TINY)
+    finally:
+        torch.set_num_threads(threads)
     keys = {"name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"}
@@ -306,7 +313,7 @@ def test_chip_smoke_rehearsal_on_cpu():
         "neighbor_agg_tiled", "neighbor_agg_tiled_fused",
         "neighbor_agg_backward", "neighbor_agg_backward_csr",
         "neighbor_agg_row", "flash_attention_wgmma", "flash_attention",
-        "neighbor_agg_tiled_slab"]
+        "neighbor_agg_tiled_slab", "neighbor_agg_backward_identity"]
     for k in result["kernels"]:
         assert keys <= set(k) and k["route"] == "cuda"
         assert os.path.exists(k["source"])
@@ -387,3 +394,12 @@ def test_chip_smoke_rehearsal_on_cpu():
         "train_featshard_s4", "train_minibatch_sharded_s4",
         "serve_featshard_s4"}
     assert tiled["l2_table_sweep"]
+    # the backward kernel's identity mode, last: its library call is the
+    # broadcast product, the general mode timed beside it on its inputs
+    ident = result["kernels"][8]
+    assert ident["source"] == bwd["source"]
+    assert ident["library_call"].startswith("torch.mul")
+    assert ident["general_mode_ms_same_inputs"] == \
+        bwd["by_shape"]["minibatch_l2"]["ms"]
+    assert set(ident["figure_shapes"]) == {"minibatch_b128_k10_d64"}
+    assert result["kernels"][4]["bit_equal_direct_route"]

@@ -164,7 +164,9 @@ or of the reference package ``repro``.
    full-graph point the reverse-index backward and no atomic one, the
    mini-batch points the backward kernel's identity mode and no atomic
    backward, every point the tiled forward;
-   losses finite.  (c) The nine figure benches in quick mode through
+   losses finite.  (c) The nine figure benches in quick mode (fig2 cut
+   to 100 iterations and one seed, from 250 and two, for the run's
+   time) through
    ``repro_torch.bench.run``: each figure's seconds, Trainer runs,
    steps per second, rows and launches; the reference's row count,
    finite losses where the reference reports numbers, the tiled forward
@@ -327,6 +329,35 @@ or of the reference package ``repro``.
    graph.  Any gating finding left after ``allowlist.toml`` fails the
    run.  (The planned sanitizer pass is not here: ``compute-sanitizer``
    refuses this machine's H100.)
+16. The fault-tolerance surface under concurrency, gnn-papers100m at full
+   width on the shared graph.  (a) An ``EmbeddingStore`` behind a
+   ``GNNServer`` with ``max_staleness_s``, ``refresh_every_updates`` and
+   ``refresh_budget_ms`` set (the store's background scheduler on): one
+   writer streams 64 updates (feature rows of 256 nodes; every fourth
+   ``add_edges`` of 64 edges) while 4 clients send 1,024-node queries
+   with deadlines for 20 s.  No error but overload and deadline errors;
+   every answer equals the argmax of the ``final_np`` of the version it
+   names (each published version's table is kept); staleness within the
+   bound plus the reference test's 0.2 s slack; once the WAL has drained,
+   every layer table within 2^-8 ``row_rel_err`` of a fresh plain-path
+   build on the final graph; the tiled forward launched, no backward
+   kernel; the scheduler's, batcher's and chunk stream's threads ended.
+   It prints p50, p99, qps, the refreshes, the mean incremental refresh
+   time, the largest staleness and the shed and overload counts.  (b)
+   Crashes armed at ``store.mid_layer_refresh`` and ``store.before_swap``
+   inside the scheduler thread, and a fatal refresh fault whose degrade
+   build dies after its first layer (``infer.after_layer``, the chunk
+   stream's worker live): the old snapshot serves bit-equal at its
+   version, no thread is left; then ``refresh_with_recovery`` under a
+   fatal fault degrades to one full build, bit-equal to a second
+   ``build()``; device memory back within 64 MiB of where 16a started.
+   (c) ``repro_torch.ci.sweep_resume_smoke --kernel``.  (d) The four
+   examples (``repro_torch.examples``) in-process at the reference's
+   default sizes, each with exit code 0 and its output parsed: the GNN
+   examples with ``--kernel`` launch the tiled forward, ``serve_batched``
+   a flash kernel in its prefill, ``lm_pretrain_smoke`` no kernel.  The
+   ``{"kernels": [...]}`` line gives each kernel's ``launches_phase16``
+   by path.
 
 Every failed check raises.  The last stdout line is
 ``{"ok": true, "device": {...}}``; the line before it names the card and
@@ -353,6 +384,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -385,7 +417,8 @@ from repro_torch.core import faults  # noqa: E402
 from repro_torch.core import gnn as G  # noqa: E402
 from repro_torch.core.embedding_store import EmbeddingStore  # noqa: E402
 from repro_torch.core.graph import to_ell  # noqa: E402
-from repro_torch.core.serving import GNNServer  # noqa: E402
+from repro_torch.core.serving import (  # noqa: E402
+    DeadlineExceededError, GNNServer, ServerOverloadedError)
 from repro_torch.data.synth import make_preset  # noqa: E402
 from repro_torch.kernels.build import build_all  # noqa: E402
 from repro_torch.kernels.flash_attn import build as fa_build  # noqa: E402
@@ -518,6 +551,16 @@ class Sizes:
     m2_s: int = 2048
     m2_steps: int = 10
     fam_shapes: tuple = ()         # 14f's input shapes (): all of them
+    # phase 16: serving under chaos (gnn-papers100m on the shared graph)
+    ch_secs: float = 20.0          # the clients query this long
+    ch_updates: int = 64           # the writer's updates over that time
+    ch_rows: int = 256             # feature rows an update
+    ch_edges: int = 64             # new edges an add_edges update
+    ch_query: int = 1024           # nodes a query
+    ch_clients: int = 4
+    ch_deadline_s: float = 1.0     # each query's deadline
+    ch_stale_s: float = 5.0        # the server's max_staleness_s
+    ex_tiny: bool = False          # the examples at tiny sizes (CPU)
 
 
 FULL = Sizes()
@@ -532,7 +575,9 @@ TINY = Sizes(agg_n=600, agg_b=300, sweep_n=(64, 128), n_serve=3_000,
              sh_fg_steps=3, sh_mb_steps=3, sh_queries=8, lt_smoke=True,
              lt_b=4, lt_s=128, lt_steps=4, fam_smoke=True, fam_gen=4,
              fam_tf=3, zb_s=256, l4_s=128, wh_s=64, vl_text=112, m2_b=2,
-             m2_s=256, m2_steps=8, fam_shapes=("decode_32k", "long_500k"))
+             m2_s=256, m2_steps=8, fam_shapes=("decode_32k", "long_500k"),
+             ch_secs=2.0, ch_updates=8, ch_rows=8, ch_edges=4, ch_query=32,
+             ch_stale_s=2.0, ex_tiny=True)
 
 
 def check(cond, msg: str) -> None:
@@ -1724,8 +1769,8 @@ def serving_phase(dev, sz: Sizes, graph) -> dict:
         server.close()
     st = server.stats()
     infos = []
-    for nodes, rows in zip(upd, upd_rows):   # the first refresh also
-        store.update_features(nodes, rows)   # builds the reverse index
+    for nodes, rows in zip(upd, upd_rows):
+        store.update_features(nodes, rows)
         t0 = time.perf_counter()
         infos.append((store.refresh(), time.perf_counter() - t0))
     launches = ops.launches
@@ -2512,11 +2557,17 @@ def check_launch(dev, cond, msg: str) -> None:
     check(dev.type != "cuda" or cond, msg)
 
 
+#: fig2's QUICK table at full size, cut from the bench's own 250
+#: iterations and seeds (0, 1) to keep the whole run near 1,000 s with
+#: phase 16 beside it
+FIG2_QUICK_CUT = dict(iters=100, seeds=(0,))
+
+
 @contextlib.contextmanager
 def bench_sizes(sz: Sizes):
     """The figure benches' ``QUICK`` tables cut to ``sz.fig_n`` nodes and
     ``sz.fig_iters`` iterations inside the block (the CPU rehearsal);
-    untouched when ``fig_n`` is 0."""
+    when ``fig_n`` is 0, only fig2's, to ``FIG2_QUICK_CUT``."""
     saved = []
     if sz.fig_n:
         for _, mod_name in brun.BENCHES:
@@ -2527,6 +2578,10 @@ def bench_sizes(sz: Sizes):
             quick["n"] = sz.fig_n
             if "iters" in quick:
                 quick["iters"] = sz.fig_iters
+    else:
+        from repro_torch.bench import bench_fig2_convergence as fig2
+        saved.append((fig2.QUICK, dict(fig2.QUICK)))
+        fig2.QUICK.update(FIG2_QUICK_CUT)
     try:
         yield
     finally:
@@ -4914,6 +4969,522 @@ def audit_phase(dev, sz: Sizes, graph) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the fault-tolerance surface under concurrency
+# ---------------------------------------------------------------------------
+
+#: the reference chaos test's scheduling slack over the staleness bound
+STALE_SLACK_S = 0.2
+#: device memory a phase-16 part may leave behind
+MEM_SLACK = 64 * 2 ** 20
+
+
+def threads_now() -> set:
+    return {t.ident for t in threading.enumerate()}
+
+
+def check_threads(before: set, what: str) -> None:
+    """Every thread started since ``before`` has ended (the scheduler's,
+    the batcher's, the chunk stream's worker)."""
+    deadline = time.monotonic() + 10.0
+    while threads_now() - before and time.monotonic() < deadline:
+        time.sleep(0.01)
+    left = [t for t in threading.enumerate() if t.ident not in before]
+    check(not left, f"{what}: threads left running: {left}")
+
+
+def device_bytes(dev) -> int:
+    """Bytes the caching allocator holds for live tensors, without
+    cuBLAS's workspaces (one a thread that ran a GEMM: the store's
+    scheduler and the server's batcher are new threads each time)."""
+    if dev.type != "cuda":
+        return 0
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return torch.cuda.memory_allocated(dev)
+
+
+def all_counts() -> dict:
+    """Every kernel's launch counter, both libraries."""
+    return {**ops.launch_counts(), **fa.launch_counts()}
+
+
+def reset_all() -> None:
+    ops.reset_launches()
+    fa.reset_launches()
+
+
+def chaos_updates(sz: Sizes, n: int, rng) -> list:
+    """The writer's stream: every fourth update ``add_edges`` of
+    ``ch_edges`` new edges, the others ``ch_rows`` nodes' feature rows."""
+    out = []
+    for i in range(sz.ch_updates):
+        if i % 4 == 3:
+            out.append(("edges", rng.choice(n, sz.ch_edges, replace=False),
+                        rng.choice(n, sz.ch_edges, replace=False)))
+        else:
+            out.append(("feats", rng.choice(n, sz.ch_rows, replace=False),
+                        rng.normal(size=(sz.ch_rows, 128))
+                        .astype(np.float32)))
+    return out
+
+
+def watch_versions(store) -> dict:
+    """``{version: final_np}`` of every snapshot ``store`` publishes from
+    now on (and the current one), recorded by a wrapper around its
+    ``_publish`` (which runs under ``_refresh_mu``, so the snapshot read
+    right after is the one it published; a reference to the read-only
+    table, so the refresh pays for no copy); and, by wrappers
+    of the store's methods, the seconds of every incremental refresh,
+    of every ``add_edges`` apply (the CSR rebuild) and of every frontier
+    scan (``_referencing``, one a layer of a refresh)."""
+    seen = {"final": {}, "refresh_s": [], "apply_edges_s": [],
+            "frontier_s": []}
+
+    def record():
+        snap = store.snapshot()
+        seen["final"][snap.version] = snap.final_np
+
+    publish, refresh = store._publish, store.refresh
+    apply_edges, referencing = store._apply_edges, store._referencing
+
+    def publishing(*a, **kw):
+        publish(*a, **kw)
+        record()
+
+    def refreshing():
+        t0 = time.perf_counter()
+        info = refresh()
+        if info["total_rows"] and not info.get("built"):
+            seen["refresh_s"].append(time.perf_counter() - t0)
+        return info
+
+    def applying_edges(*a):
+        t0 = time.perf_counter()
+        apply_edges(*a)
+        seen["apply_edges_s"].append(time.perf_counter() - t0)
+
+    def scanning(mask):
+        t0 = time.perf_counter()
+        out = referencing(mask)
+        seen["frontier_s"].append(time.perf_counter() - t0)
+        return out
+
+    store._publish, store.refresh = publishing, refreshing
+    store._apply_edges, store._referencing = applying_edges, scanning
+    record()
+    return seen
+
+
+def chaos_serving(dev, sz: Sizes, graph) -> dict:
+    """16a: a ``GNNServer`` over a full-width store, its background
+    scheduler on, one writer streaming feature and edge updates while
+    ``ch_clients`` threads query with deadlines; the answers against the
+    versions they name, the drained table against a fresh plain build."""
+    cfg = dataclasses.replace(get_config("gnn-papers100m"),
+                              n_nodes=sz.n_serve)
+    params = G.init_gnn(torch.Generator().manual_seed(16), cfg, 128,
+                        device=dev)
+    # the store writes feature updates into its graph's table
+    g = dataclasses.replace(graph, feats=graph.feats.copy())
+    threads0, mem0 = threads_now(), device_bytes(dev)
+    store = EmbeddingStore(params, cfg, g, chunk_size=sz.chunk,
+                           max_deg=cfg.max_degree, device=dev)
+    store.build()
+    seen = watch_versions(store)
+    rng = np.random.default_rng(16)
+    updates = chaos_updates(sz, graph.n, rng)
+    answers, errors, counts = [], [], collections.Counter()
+    stop = threading.Event()
+
+    def writer():
+        try:
+            pace = sz.ch_secs / (len(updates) + 1)
+            for kind, a, b in updates:
+                if kind == "feats":
+                    store.update_features(a, b)
+                else:
+                    store.add_edges(a, b)
+                if stop.wait(pace):
+                    return
+        except Exception as e:               # noqa: BLE001 - reported
+            errors.append(e)
+
+    def client(seed):
+        crng = np.random.default_rng(seed)
+        while not stop.is_set():
+            nodes = crng.integers(0, graph.n, sz.ch_query)
+            try:
+                ans = server.submit(nodes, with_meta=True).result(
+                    timeout=120.0)
+            except ServerOverloadedError:
+                counts["overload"] += 1
+                time.sleep(0.005)
+                continue
+            except DeadlineExceededError:
+                counts["deadline"] += 1
+                continue
+            except Exception as e:           # noqa: BLE001 - reported
+                errors.append(e)
+                return
+            answers.append((nodes, ans))
+
+    # ---- the main path, between the launch-count reset and its read
+    reset_all()
+    server = GNNServer(store, max_batch=4 * sz.ch_query, max_wait_ms=2.0,
+                       queue_depth=2, overload="fail",
+                       default_deadline_s=sz.ch_deadline_s,
+                       max_staleness_s=sz.ch_stale_s,
+                       refresh_every_updates=8, refresh_budget_ms=250.0)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=writer)] + [
+        threading.Thread(target=client, args=(100 + i,))
+        for i in range(sz.ch_clients)]
+    try:
+        for t in threads:
+            t.start()
+        stop.wait(sz.ch_secs)
+        stop.set()
+        for t in threads:
+            t.join(timeout=180.0)
+        check(not any(t.is_alive() for t in threads),
+              "16a: a writer or client thread did not end")
+        wall = time.perf_counter() - t0
+        # the WAL drains: the scheduler catches up with the last updates
+        deadline = time.monotonic() + 120.0
+        while store.dirty and time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(not store.dirty and store.pending_updates() == 0,
+              f"16a: the WAL did not drain: {store.refresh_stats()}")
+        last = server.submit(np.arange(min(graph.n, sz.ch_query)),
+                             with_meta=True, deadline_s=None
+                             ).result(timeout=120.0)
+    finally:
+        stop.set()
+        server.close()
+    sync(dev)
+    c16 = all_counts()
+    # ---- end of the main path
+    # the batcher's and the scheduler's threads (and the build's chunk
+    # stream worker) have ended
+    check_threads(threads0, "16a")
+    st, rs = server.stats(), store.refresh_stats()
+    check(not errors, f"16a: errors other than overload and deadline: "
+                      f"{errors[:3]}")
+    check(answers, "16a: no query was answered")
+    stale = max(a.staleness_s for _, a in answers)
+    # the drained table against a fresh build on the plain path
+    plain = dataclasses.replace(cfg, use_agg_kernel=False)
+    fresh = EmbeddingStore(params, plain, dataclasses.replace(
+        store.graph, feats=store.graph.feats.copy()), chunk_size=sz.chunk,
+        max_deg=cfg.max_degree, device=dev)
+    fresh.build()
+    row_err = [row_rel_err(a, b) for a, b in zip(store.layers, fresh.layers)]
+    del fresh
+
+    def mean_max(xs):
+        return [sum(xs) / len(xs), max(xs)] if xs else None
+
+    out = dict(
+        p50_ms=st["p50_ms"], p99_ms=st["p99_ms"], qps=st["qps"],
+        answered=len(answers), requests=st["n_requests"],
+        queries=st["n_queries"], batches=st["n_batches"],
+        wall_s=wall, versions=len(seen["final"]),
+        refreshes=rs["refreshes"], sched_refreshes=rs["sched_refreshes"],
+        forced_refreshes=st["n_forced_refresh"],
+        builds=rs["builds"], degraded_builds=rs["degraded_builds"],
+        refresh_s_mean_max=mean_max(seen["refresh_s"]),
+        apply_edges_s_mean_max=mean_max(seen["apply_edges_s"]),
+        frontier_scan_s_mean_max=mean_max(seen["frontier_s"]),
+        staleness_max_s=stale, staleness_bound_s=sz.ch_stale_s,
+        shed=st["n_shed"], overload=st["n_overload"],
+        client_deadline=counts["deadline"],
+        client_overload=counts["overload"], updates=len(updates),
+        row_rel_err_vs_fresh_plain=row_err, counts=c16)
+    print(f"16a serving under chaos ({card_tag()}): {len(answers)} answers "
+          f"of {sz.ch_query} nodes from {sz.ch_clients} clients in "
+          f"{wall:.2f} s beside {len(updates)} updates: "
+          f"p50_ms={st['p50_ms']:.4f} p99_ms={st['p99_ms']:.4f} "
+          f"qps={st['qps']:.1f}", flush=True)
+    print(f"16a refreshes: {rs['refreshes']} incremental "
+          f"({rs['sched_refreshes']} by the scheduler, "
+          f"{st['n_forced_refresh']} forced by the staleness bound), "
+          f"{len(seen['final'])} versions; incremental refresh s [mean, "
+          f"max] {out['refresh_s_mean_max']}, of which add_edges applies "
+          f"{out['apply_edges_s_mean_max']} and frontier scans (one a "
+          f"layer) {out['frontier_scan_s_mean_max']}; largest staleness "
+          f"{stale:.3f} s (bound {sz.ch_stale_s} s); shed {st['n_shed']}, "
+          f"overload {st['n_overload']}; row_rel_err vs a fresh plain "
+          f"build {row_err}; launches {c16}", flush=True)
+    argmax = {v: np.argmax(f, -1) for v, f in seen["final"].items()}
+    bad = [a.snapshot_version for nodes, a in answers
+           if not np.array_equal(a.preds, argmax[a.snapshot_version][nodes])]
+    check(not bad, f"16a: {len(bad)} answers differ from the argmax of the "
+                   f"version they name (first: {bad[:3]})")
+    check(last.snapshot_version == store.version
+          and np.array_equal(last.preds, argmax[store.version]
+                             [np.arange(len(last.preds))]),
+          "16a: the drained answer is not the last version's")
+    check(stale <= sz.ch_stale_s + STALE_SLACK_S,
+          f"16a: an answer {stale:.3f} s stale, beyond {sz.ch_stale_s} + "
+          f"{STALE_SLACK_S} s")
+    if dev.type == "cuda":
+        check(c16["tiled"] > 0, f"16a: the tiled forward never ran: {c16}")
+    check(c16["backward"] == c16["backward_csr"]
+          == c16["backward_identity"] == 0,
+          f"16a: serving launched a backward kernel: {c16}")
+    check(max(row_err) <= FWD_ROW_TOL[torch.bfloat16],
+          f"16a: drained table vs a fresh plain build row_rel_err {row_err} "
+          f"beyond 2^-8")
+    # the class's methods again
+    del store._publish, store.refresh, store._apply_edges, \
+        store._referencing
+    del seen, answers, argmax
+    return out, store, threads0, mem0
+
+
+def chaos_failpoints(dev, sz: Sizes, store) -> dict:
+    """16b: crashes in the scheduler thread at each store failpoint (and
+    one mid-layer in the degrade build, with the chunk stream's worker
+    live) keep the old snapshot serving bit-equal at its version and
+    leave no thread; a fatal fault degrades to one full build, bit-equal
+    to a second build."""
+    rng = np.random.default_rng(161)
+    probe = np.arange(min(store.graph.n, sz.ch_query))
+    out = {}
+    # the injected crash ends the scheduler thread by design: record it
+    # instead of printing its traceback
+    died = []
+    hook, threading.excepthook = threading.excepthook, died.append
+    plans = (("store.mid_layer_refresh", faults.SimulatedCrash, ()),
+             ("store.before_swap", faults.SimulatedCrash, ()),
+             ("store.mid_layer_refresh", faults.FatalSamplerFault,
+              ("infer.after_layer",)))
+    for fp, exc, also in plans:
+        before = threads_now()
+        snap0, v0 = store.snapshot(), store.version
+        keep = snap0.final_np.copy()
+        tables = [t.clone() for t in snap0.layers]
+        nodes = rng.choice(store.graph.n, sz.ch_rows, replace=False)
+        with contextlib.ExitStack() as armed:
+            armed.enter_context(faults.armed(fp, exc=exc))
+            for name in also:
+                armed.enter_context(faults.armed(name))
+            armed.enter_context(warnings.catch_warnings())
+            warnings.simplefilter("ignore", RuntimeWarning)
+            store.start_scheduler(refresh_every_updates=1,
+                                  refresh_budget_ms=None, tick_s=0.002)
+            try:
+                store.update_features(nodes, rng.normal(
+                    size=(sz.ch_rows, 128)).astype(np.float32))
+                t = store._sched_thread
+                t.join(timeout=120.0)
+                check(not t.is_alive(),
+                      f"16b {fp}: the scheduler thread survived the crash")
+            finally:
+                store.stop_scheduler()
+        label = fp + ("+" + "+".join(also) if also else "")
+        check(store.version == v0 and store.snapshot() is snap0
+              and store.dirty, f"16b {label}: the version moved or the "
+                               f"update was lost")
+        check(np.array_equal(store.snapshot().final_np, keep)
+              and all(torch.equal(a, b)
+                      for a, b in zip(store.snapshot().layers, tables)),
+              f"16b {label}: the serving snapshot changed")
+        preds, ver, _ = store.predict_meta(probe)
+        check(ver == v0 and np.array_equal(preds,
+                                           np.argmax(keep[probe], -1)),
+              f"16b {label}: the old snapshot does not answer")
+        check_threads(before, f"16b {label}")
+        check(len(died) == 1 and died.pop().exc_type is faults.SimulatedCrash,
+              f"16b {label}: the scheduler thread did not die of the crash")
+        out[label] = {"version": v0, "bit_equal": True}
+        del tables
+    threading.excepthook = hook
+    # a fatal fault: one degrade to a full build, bit-equal to build()
+    before = threads_now()
+    degraded0 = store.refresh_stats()["degraded_builds"]
+    with faults.armed("store.mid_layer_refresh", exc=faults.FatalSamplerFault):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            info = store.refresh_with_recovery(max_retries=1,
+                                               backoff_s=0.001)
+            sync(dev)
+            degrade_s = time.perf_counter() - t0
+    check(info.get("degraded") is True and not store.dirty
+          and store.refresh_stats()["degraded_builds"] == degraded0 + 1
+          and any("DEGRADING" in str(w.message) for w in caught),
+          f"16b: the fatal fault did not degrade to one build: {info}")
+    first = [t.clone() for t in store.layers]
+    store.build()
+    check(all(torch.equal(a, b) for a, b in zip(first, store.layers)),
+          "16b: the degrade build differs from a second build()")
+    check_threads(before, "16b degrade")
+    out["degrade"] = {"seconds": degrade_s, "bit_equal_to_build": True,
+                      "rows_per_layer": info["rows_per_layer"]}
+    print(f"16b failpoints in the scheduler thread: "
+          f"{[k for k in out if k != 'degrade']} kept "
+          f"the old snapshot bit-equal at its version, no thread left; the "
+          f"fatal fault degraded to one build in {degrade_s:.3f} s, "
+          f"bit-equal to build()", flush=True)
+    return out
+
+
+def run_main(fn, argv) -> tuple:
+    """``fn(argv)`` in-process between a launch-count reset and its read,
+    its stdout captured: (rc, stdout, launch counts, seconds)."""
+    buf = io.StringIO()
+    reset_all()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    return rc, buf.getvalue(), all_counts(), time.perf_counter() - t0
+
+
+def example_args(sz: Sizes, dev) -> dict:
+    """The examples' argv: the reference's default sizes on the card (the
+    CPU rehearsal's are tiny), the kernels on where they have one."""
+    argv = {"quickstart": ["--kernel"],
+            "full_vs_minibatch": ["--kernel"],
+            "serve_batched": ["--kernel"],
+            "lm_pretrain_smoke": []}
+    if sz.ex_tiny:
+        argv["quickstart"] += ["--n", "200", "--iters", "5"]
+        argv["full_vs_minibatch"] += ["--n", "200", "--iters", "4", "--b",
+                                      "32", "--beta", "3", "2"]
+        argv["serve_batched"] += ["--gen", "4"]
+        argv["lm_pretrain_smoke"] += ["--steps", "2"]
+    return {k: v + ["--device", dev.type] for k, v in argv.items()}
+
+
+def parse_example(name: str, text: str) -> dict:
+    """The numbers each example prints, checked for form and finiteness."""
+    lines = text.strip().splitlines()
+    if name == "quickstart":
+        got = {}
+        for line in lines[1:3]:
+            m = re.fullmatch(r"(\S+) +loss (\S+) -> (\S+)  iter-to-loss"
+                             r"\(0\.5\)=(\S+)  test acc (\S+)", line)
+            check(m is not None, f"16d quickstart: line {line!r}")
+            got[m.group(1)] = [float(m.group(2)), float(m.group(3)),
+                               float(m.group(5))]
+        check(set(got) == {"full-graph", "mini-batch"}
+              and all(np.isfinite(v).all() for v in got.values()),
+              f"16d quickstart: {got}")
+        return got
+    if name == "full_vs_minibatch":
+        report = json.loads(text[text.index("\n{") + 1:])
+        rows = (report["full_graph"], report["mini_batch"])
+        check(all(np.isfinite(r["final_loss"]) and r["iters"] > 0
+                  for r in rows), f"16d full_vs_minibatch: {report}")
+        return {k: report[k] for k in ("thm3_delta(beta,b)",
+                                       "delta_full_mini_mean")} | {
+            p: {k: r[k] for k in ("first_loss", "final_loss", "test_acc",
+                                  "throughput_nodes_s")}
+            for p, r in zip(("full_graph", "mini_batch"), rows)}
+    if name == "serve_batched":
+        m = re.fullmatch(r"prefill: (\S+)s \(batch=\d+, prompt=\d+\)",
+                         lines[0])
+        d = re.fullmatch(r"decode: \d+ steps, (\S+) tok/s \(batched\)",
+                         lines[1])
+        check(m is not None and d is not None
+              and lines[2].startswith("sample: "),
+              f"16d serve_batched: {lines}")
+        return {"prefill_s": float(m.group(1)),
+                "decode_tok_s": float(d.group(1)),
+                "sample": json.loads(lines[2][len("sample: "):])}
+    result = json.loads(lines[-1])
+    check(set(result) == {"arch", "first_loss", "final_loss", "steps"}
+          and np.isfinite(result["final_loss"]),
+          f"16d lm_pretrain_smoke: {result}")
+    return result
+
+
+def examples_phase(dev, sz: Sizes) -> dict:
+    """16d: the four examples in-process at the reference's default sizes,
+    each with exit code 0, its output parsed and its launches counted."""
+    from repro_torch.examples import (full_vs_minibatch, lm_pretrain_smoke,
+                                      quickstart, serve_batched)
+    mods = {"quickstart": quickstart, "full_vs_minibatch": full_vs_minibatch,
+            "serve_batched": serve_batched,
+            "lm_pretrain_smoke": lm_pretrain_smoke}
+    out = {}
+    for name, argv in example_args(sz, dev).items():
+        rc, text, counts, secs = run_main(mods[name].main, argv)
+        check(rc == 0, f"16d {name}: exit code {rc}")
+        out[name] = {"rc": rc, "seconds": secs, "counts": counts,
+                     "output": parse_example(name, text)}
+        print(f"16d example {name} {' '.join(argv)}: rc {rc} in {secs:.2f} s, "
+              f"launches {counts}, output {out[name]['output']}", flush=True)
+    if dev.type == "cuda":
+        for name in ("quickstart", "full_vs_minibatch"):
+            check(out[name]["counts"]["tiled"] > 0,
+                  f"16d {name}: the tiled forward never ran")
+        fl = out["serve_batched"]["counts"]
+        check(fl["wgmma"] + fl["tf32x3"] > 0,
+              f"16d serve_batched: no flash kernel ran: {fl}")
+    lm = out["lm_pretrain_smoke"]["counts"]
+    check(not any(lm.values()),
+          f"16d lm_pretrain_smoke: LM training launched kernels: {lm}")
+    return out
+
+
+def chaos_phase(dev, sz: Sizes, graph) -> dict:
+    """Phase 16 (16a-d): serving under chaos, the failpoints in the
+    scheduler thread, the sweep-resume smoke, the examples."""
+    secs, out = {}, {}
+    t0 = time.perf_counter()
+    out["16a"], store, threads0, mem0 = chaos_serving(dev, sz, graph)
+    secs["16a serving under chaos"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["16b"] = chaos_failpoints(dev, sz, store)
+    del store
+    check_threads(threads0, "16a-b")
+    mem = device_bytes(dev)
+    check(mem - mem0 <= MEM_SLACK, f"16a-b: device memory {mem - mem0} B "
+                                   f"above where it started")
+    out["16a"]["device_bytes_left"] = mem - mem0
+    secs["16b failpoints"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from repro_torch.ci import sweep_resume_smoke
+    rc, text, counts, s = run_main(sweep_resume_smoke.main,
+                                   ["--device", dev.type, "--kernel"])
+    check(rc == 0 and "grid completed" in text
+          and "journal: skipping completed point" in text,
+          f"16c: the sweep-resume smoke failed: {text[-2000:]}")
+    if dev.type == "cuda":
+        check(counts["tiled"] > 0, f"16c: the tiled forward never ran")
+    out["16c"] = {"rc": rc, "seconds": s, "counts": counts}
+    print(f"16c sweep_resume_smoke --kernel: rc {rc} in {s:.2f} s, "
+          f"launches {counts}", flush=True)
+    secs["16c sweep-resume smoke"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["16d"] = examples_phase(dev, sz)
+    secs["16d examples"] = time.perf_counter() - t0
+    out["seconds"] = secs
+    return out
+
+
+def phase16_paths(p16: dict) -> dict:
+    """Phase 16's paths and the launch counts of each."""
+    return {"serve_chaos": p16["16a"]["counts"],
+            "sweep_resume_smoke": p16["16c"]["counts"],
+            **{f"example_{k}": v["counts"] for k, v in p16["16d"].items()}}
+
+
+def add_phase16(kernels: list, p16: dict) -> None:
+    """Each kernel entry's launches on phase 16's paths, read from its
+    counter."""
+    paths = phase16_paths(p16)
+    for kern in kernels:
+        key = PHASE13[kern["name"]][0]
+        kern["launches_phase16"] = {p: c[key] for p, c in paths.items()}
+
+
 def run(dev: torch.device, sz: Sizes) -> dict:
     # full f32 products everywhere (TF32 off), bf16 GEMMs reduce in f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4945,8 +5516,9 @@ def run(dev: torch.device, sz: Sizes) -> dict:
     E.drop_device_cache(graph)          # the families need the memory
     p14 = timed("14 families", family_phase, dev, sz)
     p15 = timed("15 audits", audit_phase, dev, sz, graph)
+    p16 = timed("16 chaos", chaos_phase, dev, sz, graph)
     del graph
-    for ph in (figs, srcs, shrd, p13, p14, p15):
+    for ph in (figs, srcs, shrd, p13, p14, p15, p16):
         secs.update({k: round(v, 2) for k, v in ph["seconds"].items()})
     print(f"phase seconds: {json.dumps(secs)}", flush=True)
     fig_runs = figs["10c figures"]
@@ -5171,6 +5743,7 @@ def run(dev: torch.device, sz: Sizes) -> dict:
          "cases_max_abs_err": max(bwd["identity_cases"].values())},
     ]
     add_phase13(kernels, p13)
+    add_phase16(kernels, p16)
     return {"kernels": kernels}
 
 

@@ -8,8 +8,8 @@ layer-wise pass from ``core.inference``) and then keeps them fresh under
 point updates without full recomputes.  Invalidation follows the
 FORWARD influence cone: a change to node u's layer-(l-1) embedding can
 only move layer-l rows that aggregate u — u itself (self-loop) plus the
-rows whose ELL lists reference u (a reverse index built from the
-nonzero-weight ELL entries).  ``refresh()`` therefore re-embeds, per
+rows whose ELL lists reference u through a nonzero weight (a scan of
+the ELL rows of u's CSR neighbors).  ``refresh()`` therefore re-embeds, per
 layer, ``dirty_rows ∪ changed ∪ referencing(changed)`` and carries that
 set forward as the next layer's ``changed`` — the k-hop frontier of the
 marked nodes, NOT the whole graph.  Re-embeds go through the same
@@ -143,7 +143,6 @@ class EmbeddingStore:
         self.build_stats: Optional[Dict] = None
         self._dirty_in = np.zeros(graph.n, bool)    # layer-0 inputs moved
         self._dirty_row = np.zeros(graph.n, bool)   # ELL row re-derived
-        self._rev = None                            # lazy reverse index
         # -- write-safe serving state --------------------------------
         self._mu = threading.RLock()
         self._refresh_mu = threading.RLock()
@@ -193,6 +192,8 @@ class EmbeddingStore:
         publishes a new snapshot version, resetting all dirty state."""
         with self._refresh_mu:
             self._drain_apply()
+            with self._mu:
+                self._sync_inputs(self._dirty_in)
             if self._replan:
                 self.feats_plan = featshard_plan_for(
                     self.cfg, self.graph, (self.idx, self.w, self.w_self),
@@ -216,7 +217,7 @@ class EmbeddingStore:
     def mark_dirty(self, nodes) -> None:
         """Mark nodes whose layer-0 INPUT changed (features already
         written to ``graph.feats``, or changed in place)."""
-        nodes = np.array(nodes, np.int64, copy=True).ravel()
+        nodes = self._node_ids(nodes)
         if nodes.size:
             self._append(("dirty", nodes, time.monotonic()))
             self._try_apply()
@@ -224,10 +225,13 @@ class EmbeddingStore:
     def update_features(self, nodes, feats) -> None:
         """Queue new feature rows; they land in ``graph.feats`` (and the
         dirty mask) when the record is applied — immediately if no
-        refresh is running, else at the next refresh's drain."""
-        nodes = np.array(nodes, np.int64, copy=True).ravel()
-        feats = np.array(feats, self.graph.feats.dtype, copy=True)
+        refresh is running, else at the next refresh's drain.  ``feats``
+        broadcasts to ``[len(nodes), feat_dim]``."""
+        nodes = self._node_ids(nodes)
         if nodes.size:
+            feats = np.array(np.broadcast_to(
+                np.asarray(feats, self.graph.feats.dtype),
+                (nodes.size,) + self.graph.feats.shape[1:]))
             self._append(("feats", nodes, feats, time.monotonic()))
             self._try_apply()
 
@@ -237,14 +241,26 @@ class EmbeddingStore:
         weights moved (endpoints + every neighbor of an endpoint, since
         ã depends on both endpoint degrees) are re-derived and marked
         dirty."""
-        src = np.asarray(src, np.int64).ravel()
-        dst = np.asarray(dst, np.int64).ravel()
+        src, dst = self._node_ids(src), self._node_ids(dst)
+        if src.size != dst.size:
+            raise ValueError(f"add_edges: {src.size} sources against "
+                             f"{dst.size} destinations")
         keep = src != dst
         src, dst = src[keep], dst[keep]
         if src.size:
-            self._append(("edges", src.copy(), dst.copy(),
-                          time.monotonic()))
+            self._append(("edges", src, dst, time.monotonic()))
             self._try_apply()
+
+    def _node_ids(self, ids) -> np.ndarray:
+        """``ids`` as a flat int64 copy, checked to lie in ``[0, n)``
+        before a record holding them enters the WAL: a record whose apply
+        raises is lost (see ``_drain_apply``), so a bad id fails its own
+        writer's call instead."""
+        ids = np.array(ids, np.int64, copy=True).ravel()
+        if ids.size and (ids.min() < 0 or ids.max() >= self.graph.n):
+            raise ValueError(f"node ids must lie in [0, {self.graph.n}); "
+                             f"got {ids.min()}..{ids.max()}")
+        return ids
 
     def _append(self, rec: Tuple) -> None:
         with self._mu:
@@ -266,20 +282,37 @@ class EmbeddingStore:
     def _drain_apply(self) -> int:
         """Apply every queued WAL record to the mutable build state.
         Serialized with build/refresh via ``_refresh_mu``, so applied
-        arrays are never read torn by an in-flight embed."""
-        with self._refresh_mu, self._mu:
+        arrays are never read torn by an in-flight embed.  ``_mu`` is
+        held only to read the WAL's head and to retire it: a record stays
+        queued, so ``dirty`` and ``pending_updates`` count it, until it
+        is applied, and readers (who take ``_mu`` and never read the
+        build state) do not wait out an ``add_edges`` CSR rebuild, a
+        second at 524,288 nodes.  A record whose apply raises is retired
+        and the error raised, as in the reference (which holds ``_mu``
+        over the whole drain and pops each record before applying it):
+        kept, it would fail every later drain, build and refresh."""
+        with self._refresh_mu:
             n = 0
-            while self._wal:
-                rec = self._wal.pop(0)
-                if rec[0] == "feats":
-                    self._apply_feats(rec[1], rec[2])
-                elif rec[0] == "edges":
-                    self._apply_edges(rec[1], rec[2])
-                else:
-                    self._apply_dirty(rec[1])
+            while True:
+                with self._mu:
+                    if not self._wal:
+                        return n
+                    rec = self._wal[0]      # writers only append
+                try:
+                    if rec[0] == "feats":
+                        self._apply_feats(rec[1], rec[2])
+                    elif rec[0] == "edges":
+                        self._apply_edges(rec[1], rec[2])
+                    else:
+                        self._apply_dirty(rec[1])
+                except BaseException:
+                    with self._mu:
+                        self._wal.pop(0)
+                    raise
+                with self._mu:
+                    self._wal.pop(0)
+                    self._applied_unpublished += 1
                 n += 1
-            self._applied_unpublished += n
-            return n
 
     def _apply_dirty(self, nodes: np.ndarray) -> None:
         with self._mu:
@@ -291,32 +324,37 @@ class EmbeddingStore:
             self._dirty_in[nodes] = True
 
     def _apply_edges(self, src: np.ndarray, dst: np.ndarray) -> None:
+        """The new CSR and the re-derived ELL rows, built under
+        ``_refresh_mu`` alone (the build state is read under it only);
+        ``_mu`` is taken for the swap, where the dirty rows are set."""
+        g = self.graph
+        old_a = np.repeat(np.arange(g.n, dtype=np.int64), np.diff(g.indptr))
+        old_b = g.indices.astype(np.int64)
+        a = np.concatenate([old_a, src, dst])
+        b = np.concatenate([old_b, dst, src])
+        # dedupe + sort by (row, col): the reference's np.unique, as a
+        # sort and a neighbor compare (on an H100 machine's host, with
+        # numpy 2.3.5, the apply took 52 s with np.unique over the 15M
+        # edges of a 524,288-node graph, 1 s with the sort)
+        eid = np.sort(a * g.n + b)
+        keep = np.ones(eid.size, bool)
+        keep[1:] = eid[1:] != eid[:-1]
+        eid = eid[keep]
+        a = (eid // g.n).astype(np.int64)
+        b = (eid % g.n).astype(np.int32)
+        indptr = np.zeros(g.n + 1, g.indptr.dtype)
+        indptr[1:] = np.cumsum(np.bincount(a, minlength=g.n))
+        new_graph = dataclasses.replace(g, indptr=indptr, indices=b)
+        # rows whose ã entries moved: endpoints + their (new) neighbors
+        touched = np.zeros(g.n, bool)
+        ends = np.unique(np.concatenate([src, dst]))
+        touched[ends] = True
+        for u in ends:
+            touched[new_graph.neighbors(u)] = True
+        tids = np.nonzero(touched)[0].astype(np.int32)
+        idx_t, w_t, ws_t = to_ell(new_graph, max_deg=self.max_deg, rows=tids)
+        k_new = idx_t.shape[1]
         with self._mu:
-            g = self.graph
-            old_a = np.repeat(np.arange(g.n, dtype=np.int64),
-                              np.diff(g.indptr))
-            old_b = g.indices.astype(np.int64)
-            a = np.concatenate([old_a, src, dst])
-            b = np.concatenate([old_b, dst, src])
-            eid = np.unique(a * g.n + b)     # dedupe + sort by (row, col)
-            a = (eid // g.n).astype(np.int64)
-            b = (eid % g.n).astype(np.int32)
-            indptr = np.zeros(g.n + 1, g.indptr.dtype)
-            np.add.at(indptr, a + 1, 1)
-            new_graph = dataclasses.replace(
-                g, indptr=np.cumsum(indptr).astype(g.indptr.dtype),
-                indices=b)
-            # rows whose ã entries moved: endpoints + their (new)
-            # neighbors
-            touched = np.zeros(g.n, bool)
-            ends = np.unique(np.concatenate([src, dst]))
-            touched[ends] = True
-            for u in ends:
-                touched[new_graph.neighbors(u)] = True
-            tids = np.nonzero(touched)[0].astype(np.int32)
-            idx_t, w_t, ws_t = to_ell(new_graph, max_deg=self.max_deg,
-                                      rows=tids)
-            k_new = idx_t.shape[1]
             if k_new > self.K:               # uncapped ELL grew a column
                 pad = k_new - self.K
                 self.idx = np.pad(self.idx, ((0, 0), (0, pad)))
@@ -326,7 +364,6 @@ class EmbeddingStore:
             self.w[tids, :k_new] = w_t
             self.w_self[tids] = ws_t
             self.graph = new_graph
-            self._rev = None
             # the featshard plan encodes the ELL: the next full build
             # plans anew (the reference keeps its first plan)
             self._replan = self.feats_plan is not None or self._replan
@@ -362,36 +399,31 @@ class EmbeddingStore:
     # ------------------------------------------------------------------
     # forward-influence frontier
     # ------------------------------------------------------------------
-    def _reverse_index(self):
-        """CSR over 'ELL rows referencing node u' (nonzero weights only;
-        the self-loop contribution is implicit: w_self > 0 always, so u
-        itself is added to the frontier separately via ``changed``)."""
-        with self._mu:
-            if self._rev is None:
-                r, c = np.nonzero(self.w > 0)
-                ref = self.idx[r, c]
-                order = np.argsort(ref, kind="stable")
-                ref_s, rows_s = ref[order], r[order].astype(np.int32)
-                indptr = np.zeros(self.graph.n + 1, np.int64)
-                np.add.at(indptr, ref_s.astype(np.int64) + 1, 1)
-                self._rev = (np.cumsum(indptr), rows_s)
-            return self._rev
-
     def _referencing(self, mask: np.ndarray) -> np.ndarray:
-        """Bool mask of ELL rows that aggregate any node in ``mask``."""
-        indptr, rows = self._reverse_index()
+        """Bool mask of ELL rows that aggregate any node in ``mask``
+        through a nonzero-weight entry (the self-loop contribution is
+        implicit: w_self > 0 always, so a node itself joins the frontier
+        through ``changed``).  The graph is undirected and an ELL row
+        lists a subset of its CSR row, so only the CSR neighbors of
+        ``mask`` can hold it: their ELL rows are scanned, under
+        ``_refresh_mu`` (the only lock ``idx`` and ``w`` change under).
+        The reference builds a host reverse index instead, anew after
+        every ``add_edges`` (3.8 s at 524,288 nodes on an H100 machine's
+        host); only the set of rows is used, so both give the same
+        frontier."""
         out = np.zeros(self.graph.n, bool)
-        nodes = np.nonzero(mask)[0]
-        if nodes.size == 0:
+        ids = np.nonzero(mask)[0]
+        if not ids.size:
             return out
-        start, end = indptr[nodes], indptr[nodes + 1]
-        counts = end - start
-        total = int(counts.sum())
-        if total:
-            offs = np.repeat(start - np.concatenate(([0],
-                             counts.cumsum()[:-1])),
-                             counts) + np.arange(total)
-            out[rows[offs]] = True
+        g = self.graph
+        starts = g.indptr[ids].astype(np.int64)
+        lens = g.indptr[ids + 1] - starts
+        # CSR positions of every neighbor: starts[i] + 0 .. lens[i] - 1
+        pos = (np.repeat(starts - np.cumsum(lens) + lens, lens)
+               + np.arange(int(lens.sum())))
+        out[g.indices[pos]] = True
+        cand = np.nonzero(out)[0]
+        out[cand] = (mask[self.idx[cand]] & (self.w[cand] > 0)).any(axis=1)
         return out
 
     def frontier(self) -> List[np.ndarray]:
@@ -432,17 +464,14 @@ class EmbeddingStore:
                 din = self._dirty_in.copy()
                 drow = self._dirty_row.copy()
                 snap = self._snap
-                if din.any():
-                    ids = np.nonzero(din)[0]
-                    # in place is safe here (unlike the layer tables):
-                    # _h0 is never published and only read under
-                    # _refresh_mu; the reference rebinds it at the same
-                    # point (embedding_store.py:430), so an aborted
-                    # refresh leaves the same state
-                    self._h0[torch.as_tensor(ids, device=self.device)] = \
-                        torch.as_tensor(self.graph.feats[ids],
-                                        device=self.device)
+                self._sync_inputs(din)
             if not (din.any() or drow.any()):
+                # every applied record is in the snapshot already: only
+                # the queue (appended since the drain) is pending
+                with self._mu:
+                    self._applied_unpublished = 0
+                    self._dirty_since = (self._wal[0][-1] if self._wal
+                                         else None)
                 return {"rows_per_layer": [0] * len(self.params),
                         "total_rows": 0}
             new_layers = list(snap.layers)
@@ -505,6 +534,22 @@ class EmbeddingStore:
                             * len(self.params),
                             "total_rows": self.graph.n * len(self.params),
                             "degraded": True, "stats": run.stats}
+
+    def _sync_inputs(self, din: np.ndarray) -> None:
+        """Copy the layer-0 rows marked in ``din`` from ``graph.feats``
+        into ``_h0``, the input table of every pass; the caller holds
+        ``_refresh_mu`` and ``_mu``.  In place is safe here (unlike the
+        layer tables): ``_h0`` is never published and only read under
+        ``_refresh_mu``; the reference rebinds it at the same point of
+        ``refresh`` (embedding_store.py:430), so an aborted refresh leaves
+        the same state.  ``build`` syncs too, where the reference does
+        not: its full pass reads ``_h0`` and then clears every dirty
+        mask, so rows updated since the last refresh would be lost from
+        the table for good."""
+        if din.any():
+            ids = np.nonzero(din)[0]
+            self._h0[torch.as_tensor(ids, device=self.device)] = \
+                torch.as_tensor(self.graph.feats[ids], device=self.device)
 
     def _publish(self, new_layers: List[torch.Tensor],
                  drained_in: Optional[np.ndarray] = None,

@@ -5,7 +5,8 @@ mesh, the feature-sharded table and its host caches; LM training and
 the dry-run's named: the steps, the launchers, the meshes, the
 roofline and the kernels' cost model; the LM families' named: the MoE
 and SSM blocks and the six configs; the static audits' named:
-``repro_torch.analysis`` and its checkers, fixtures and command line) and
+``repro_torch.analysis`` and its checkers, fixtures and command line; the
+four examples and the CI runner with its smokes) and
 ``chip_smoke.py`` import without
 pulling in ``jax``, the reference package ``repro`` or the reference's
 ``benchmarks`` (checked in a fresh interpreter, so nothing this test
@@ -49,8 +50,15 @@ analysis = ["repro_torch.analysis"] + [
     "repro_torch.analysis." + m for m in (
         "findings", "thread_audit", "kernel_audit", "trace_audit",
         "fixtures", "__main__")]
-missing = sorted(set(figures + sharded + dryrun + families + analysis)
-                 - set(names))
+examples = ["repro_torch.examples"] + [
+    "repro_torch.examples." + m for m in (
+        "quickstart", "full_vs_minibatch", "serve_batched",
+        "lm_pretrain_smoke")]
+ci = ["repro_torch.ci"] + [
+    "repro_torch.ci." + m for m in ("__main__", "sweep_smoke",
+                                    "sweep_resume_smoke")]
+missing = sorted(set(figures + sharded + dryrun + families + analysis
+                     + examples + ci) - set(names))
 assert not missing, missing
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro", "benchmarks") or m.startswith(

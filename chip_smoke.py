@@ -358,6 +358,27 @@ or of the reference package ``repro``.
    a flash kernel in its prefill, ``lm_pretrain_smoke`` no kernel.  The
    ``{"kernels": [...]}`` line gives each kernel's ``launches_phase16``
    by path.
+17. Tensor parallelism on a ``model = 2`` mesh whose two shards both sit
+   on the card (``launch.mesh.make_host_mesh(2, devices=(card,) * 2)``:
+   the layout's arithmetic and collectives, one shard after another).
+   (a) stablelm-1.6b at full width and depth in bf16, one prefill of
+   2 x 4096 tokens: the weights split by ``param_specs`` (16 of the 32
+   heads a shard, half of ``d_ff`` and of the vocab), the ``wgmma`` flash
+   kernel launched once a shard a layer (48) and nothing else, each
+   shard's KV cache holding its 16 heads; the last logits within 2e-2
+   (relative, over the vocab) of the same weights' ``model = 1`` prefill;
+   both also read against the same weights run in f32 (bf16's own
+   rounding, printed).
+   (b) three train steps of stablelm-1.6b (f32 master weights, bf16
+   compute, ``make_train_step``'s AdamW) at 2 x 2048 tokens, each loss
+   within 2e-2 of the ``model = 1`` run's from the same weights and
+   batches.  (c) llama4-scout at 14b's depth (4 layers), one prefill of
+   4096 tokens with 8 of the 16 experts a shard and the combine
+   reduce-scattered, its MoE routing replayed from the ``model = 1`` run
+   (``observed``), the last logits within 2e-2.  Each part prints its
+   wall time, the collective bytes the mesh counted
+   (``sharding.collective_counts``) and the flash launches; the kernels
+   line gives each kernel's ``launches_phase17`` by path.
 
 Every failed check raises.  The last stdout line is
 ``{"ok": true, "device": {...}}``; the line before it names the card and
@@ -419,7 +440,8 @@ from repro_torch.core.embedding_store import EmbeddingStore  # noqa: E402
 from repro_torch.core.graph import to_ell  # noqa: E402
 from repro_torch.core.serving import (  # noqa: E402
     DeadlineExceededError, GNNServer, ServerOverloadedError)
-from repro_torch.data.synth import make_preset  # noqa: E402
+from repro_torch.data.synth import make_preset, token_batches  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.kernels.build import build_all  # noqa: E402
 from repro_torch.kernels.flash_attn import build as fa_build  # noqa: E402
 from repro_torch.kernels.flash_attn import ops as fa  # noqa: E402
@@ -561,6 +583,13 @@ class Sizes:
     ch_deadline_s: float = 1.0     # each query's deadline
     ch_stale_s: float = 5.0        # the server's max_staleness_s
     ex_tiny: bool = False          # the examples at tiny sizes (CPU)
+    # phase 17: tensor parallelism, model = 2 on the one card
+    tp_smoke: bool = False         # smoke configs (16 heads) on the CPU
+    tp_b: int = 2
+    tp_s: int = 4096               # 17a's prompt
+    tp_train_s: int = 2048         # 17b's sequence
+    tp_steps: int = 3
+    tp_l4_s: int = 4096            # 17c's prompt (llama4-scout, 4 layers)
 
 
 FULL = Sizes()
@@ -577,7 +606,8 @@ TINY = Sizes(agg_n=600, agg_b=300, sweep_n=(64, 128), n_serve=3_000,
              fam_tf=3, zb_s=256, l4_s=128, wh_s=64, vl_text=112, m2_b=2,
              m2_s=256, m2_steps=8, fam_shapes=("decode_32k", "long_500k"),
              ch_secs=2.0, ch_updates=8, ch_rows=8, ch_edges=4, ch_query=32,
-             ch_stale_s=2.0, ex_tiny=True)
+             ch_stale_s=2.0, ex_tiny=True, tp_smoke=True, tp_s=128,
+             tp_train_s=128, tp_l4_s=128)
 
 
 def check(cond, msg: str) -> None:
@@ -5485,6 +5515,210 @@ def add_phase16(kernels: list, p16: dict) -> None:
         kern["launches_phase16"] = {p: c[key] for p, c in paths.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: tensor parallelism (model = 2 on the card)
+# ---------------------------------------------------------------------------
+
+TP_TOL = 2e-2           # model = 2 against model = 1, bf16
+
+
+def tp_cfg(arch: str, sz: Sizes, layers: int = 0):
+    """The arch's full config (depth cut to ``layers``); on the CPU its
+    smoke config with 16 heads of 16, so the heads split as at full
+    width."""
+    if sz.tp_smoke:
+        return dataclasses.replace(get_config(arch, smoke=True), n_heads=16,
+                                   n_kv_heads=4, head_dim=16)
+    return family_cfg(arch, sz, layers)
+
+
+def tp_counted(dev, fn):
+    """``fn()`` between a reset and a read of every launch counter and of
+    the mesh's collective tally: (result, seconds, launches, bytes)."""
+    ops.reset_launches()
+    fa.reset_launches()
+    SH.reset_collectives()
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return (out, time.perf_counter() - t0, all_counts(),
+            SH.collective_counts())
+
+
+def tp_line(label: str, secs: float, counts: dict, coll: dict) -> None:
+    print(f"{label}: {secs:.3f} s; flash launches wgmma={counts['wgmma']} "
+          f"tf32x3={counts['tf32x3']}; collective bytes a device "
+          f"{json.dumps(coll)}", flush=True)
+
+
+def tp_prefill_case(dev, sz: Sizes, cfg, label: str, s: int, b: int,
+                    moe: bool = False, f32_twin: bool = False) -> dict:
+    """One bf16 prefill at model = 1, then its weights split over a
+    ``model = 2`` mesh on the card and the same prefill counted (MoE
+    routing replayed from the first run).  ``f32_twin``: both also held
+    against the same weights run in f32 (outside the counted window), to
+    read the model = 2 gap beside bf16's own rounding."""
+    mesh = make_host_mesh(2, devices=(dev, dev))
+    params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                          dev, dtype=M._dt(cfg))
+    toks = torch.as_tensor(np.random.default_rng(17).integers(
+        0, cfg.vocab_size, (b, s)), device=dev)
+    batch = {"tokens": toks}
+    n_attn = M.causal_attention_layers(cfg)
+    route = fa.kernel_route(M._dt(cfg), cfg.resolved_head_dim)
+    with torch.inference_mode():
+        with observed() as seen:
+            one, one_s, one_counts, _ = tp_counted(
+                dev, lambda: steps.make_prefill_step(cfg)(params, batch)[0])
+        twin = None
+        if f32_twin:
+            p32 = tree_map_only(torch.Tensor, lambda t: t.float(), params)
+            twin = steps.make_prefill_step(dataclasses.replace(
+                cfg, dtype="float32"))(p32, batch)[0]
+            del p32
+        ps = M.shard_params(params, cfg, mesh)
+        del params
+        attn = ps[0]["runs"][0]["attn"]
+        hq = attn["wq"].shape[2]
+        check(hq * 2 == SH.padded_heads(cfg.n_heads),
+              f"{label}: {hq} query heads a shard of "
+              f"{SH.padded_heads(cfg.n_heads)}")
+        if moe:
+            e_loc = ps[0]["runs"][0]["moe"]["w_gate"].shape[1]
+            check(e_loc * 2 == cfg.n_experts,
+                  f"{label}: {e_loc} experts a shard of {cfg.n_experts}")
+        else:
+            check(ps[0]["runs"][0]["mlp"]["w_up"].shape[-1] * 2 == cfg.d_ff,
+                  f"{label}: d_ff not split")
+        check(ps[0]["embed"].shape[0] * 2 == M._vp(cfg),
+              f"{label}: the vocab not split")
+        prefill = steps.make_prefill_step(cfg, mesh)
+        replay = [e for e in seen["experts"] for _ in range(2)]
+        with observed(replay=replay if moe else None):
+            (two, caches), two_s, counts, coll = tp_counted(
+                dev, lambda: prefill(ps, batch))
+    tp_line(f"17 {label} model=1 prefill", one_s, one_counts, {})
+    tp_line(f"17 {label} model=2 prefill", two_s, counts, coll)
+    want = {r: 2 * n_attn if r == route else 0 for r in fa.ROUTES}
+    check_launch(dev, {r: counts[r] for r in fa.ROUTES} == want,
+                 f"{label}: flash launches {counts} against {want} (one a "
+                 f"shard a layer)")
+    check(coll.get("reduce-scatter", 0) > 0 and coll.get("all-gather", 0) > 0,
+          f"{label}: no reduce-scatter / all-gather counted: {coll}")
+    kv = caches[0]["runs"][0]["k"].shape[3]
+    err = logits_err(cfg, two, one)
+    print(f"17 {label}: {hq} query heads and {kv} KV heads a shard; "
+          f"last logits model=2 vs model=1 relative max error {err:.4g} "
+          f"(limit {TP_TOL})", flush=True)
+    check(bool(torch.isfinite(two[..., :cfg.vocab_size]).all()),
+          f"{label}: a logit is not finite")
+    check(err <= TP_TOL, f"{label}: model=2 logits rel err {err} beyond "
+          f"{TP_TOL}")
+    f32_errs = None
+    if twin is not None:
+        f32_errs = {"model1_vs_f32": logits_err(cfg, one, twin),
+                    "model2_vs_f32": logits_err(cfg, two, twin)}
+        print(f"17 {label}: the same weights in f32: model=1 vs f32 "
+              f"{f32_errs['model1_vs_f32']:.4g}, model=2 vs f32 "
+              f"{f32_errs['model2_vs_f32']:.4g} (bf16's own rounding)",
+              flush=True)
+        # the split itself adds no error beyond bf16's own (and the f32
+        # forward's 1e-5 for its own order of summation)
+        check(f32_errs["model2_vs_f32"] <= f32_errs["model1_vs_f32"] + 1e-5,
+              f"{label}: model=2 is further from the f32 run than model=1: "
+              f"{f32_errs}")
+    del ps, caches
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(seconds_model1=one_s, seconds=two_s, counts=counts,
+                collective_bytes=coll, rel_err=err, heads_a_shard=hq,
+                kv_heads_a_shard=kv, launches=counts[route],
+                f32_twin=f32_errs)
+
+
+def tp_train_case(dev, sz: Sizes, cfg, label: str) -> dict:
+    """``tp_steps`` train steps at model = 1 and at model = 2 from the same
+    weights and batches: each loss within ``TP_TOL``."""
+    mesh = make_host_mesh(2, devices=(dev, dev))
+    gen = token_batches(cfg.vocab_size, sz.tp_b, sz.tp_train_s, seed=17)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(gen).items()}
+               for _ in range(sz.tp_steps)]
+
+    def fresh():
+        return M.init_model(torch.Generator(device=dev).manual_seed(1), cfg,
+                            dev)
+
+    def train(mesh_):
+        p = fresh()
+        if mesh_ is not None:
+            p = M.shard_params(p, cfg, mesh_)
+        opt, step = steps.make_train_step(cfg, mesh=mesh_)
+        st = opt.init(p) if mesh_ is None else [opt.init(x) for x in p]
+        losses = []
+        for bt in batches:
+            p, st, m = step(p, st, bt)
+            losses.append(float(m["loss"]))
+        return losses
+    one, one_s, _, _ = tp_counted(dev, lambda: train(None))
+    gc.collect()
+    two, two_s, counts, coll = tp_counted(dev, lambda: train(mesh))
+    gc.collect()
+    tp_line(f"17 {label} model=1 {sz.tp_steps} train steps", one_s, {
+        "wgmma": 0, "tf32x3": 0}, {})
+    tp_line(f"17 {label} model=2 {sz.tp_steps} train steps", two_s, counts,
+            coll)
+    errs = [abs(a - b) / abs(b) for a, b in zip(two, one)]
+    print(f"17 {label}: losses model=1 {one}, model=2 {two}; relative "
+          f"errors {[round(e, 8) for e in errs]} (limit {TP_TOL})",
+          flush=True)
+    check(all(math.isfinite(x) for x in two), f"{label}: a loss is not "
+          f"finite")
+    check(max(errs) <= TP_TOL, f"{label}: model=2 losses off by {errs}")
+    return dict(seconds_model1=one_s, seconds=two_s, counts=counts,
+                collective_bytes=coll, losses=two, losses_model1=one,
+                rel_err=max(errs))
+
+
+def tp_phase(dev, sz: Sizes) -> dict:
+    """17: tensor parallelism on a model = 2 mesh on the card."""
+    secs = {}
+    out = {}
+    t0 = time.perf_counter()
+    cfg = tp_cfg("stablelm-1.6b", sz)
+    if not sz.tp_smoke:
+        check(cfg.n_heads == 32 and cfg.d_model == 2048 and cfg.n_layers == 24
+              and cfg.dtype == "bfloat16", f"unexpected stablelm {cfg}")
+    out["17a prefill"] = tp_prefill_case(dev, sz, cfg, "17a stablelm-1.6b",
+                                         sz.tp_s, sz.tp_b, f32_twin=True)
+    secs["17a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["17b train"] = tp_train_case(dev, sz, cfg, "17b stablelm-1.6b")
+    secs["17b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = tp_cfg("llama4-scout-17b-a16e", sz, sz.l4_layers)
+    if sz.tp_smoke:
+        cfg = dataclasses.replace(cfg, n_kv_heads=2, n_experts=16)
+    out["17c moe prefill"] = tp_prefill_case(
+        dev, sz, cfg, "17c llama4-scout", sz.tp_l4_s, 1, moe=True)
+    secs["17c"] = time.perf_counter() - t0
+    rounded = {k: round(v, 2) for k, v in secs.items()}
+    print(f"17 seconds: {json.dumps(rounded)}", flush=True)
+    out["seconds"] = secs
+    return out
+
+
+def add_phase17(kernels: list, p17: dict) -> None:
+    """Each kernel entry's launches on phase 17's paths."""
+    paths = {"tp_prefill_stablelm_model2": p17["17a prefill"]["counts"],
+             "tp_train_stablelm_model2": p17["17b train"]["counts"],
+             "tp_prefill_llama4_model2": p17["17c moe prefill"]["counts"]}
+    for kern in kernels:
+        key = PHASE13[kern["name"]][0]
+        kern["launches_phase17"] = {p: c[key] for p, c in paths.items()}
+
+
 def run(dev: torch.device, sz: Sizes) -> dict:
     # full f32 products everywhere (TF32 off), bf16 GEMMs reduce in f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5518,7 +5752,11 @@ def run(dev: torch.device, sz: Sizes) -> dict:
     p15 = timed("15 audits", audit_phase, dev, sz, graph)
     p16 = timed("16 chaos", chaos_phase, dev, sz, graph)
     del graph
-    for ph in (figs, srcs, shrd, p13, p14, p15, p16):
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    p17 = timed("17 tensor parallel", tp_phase, dev, sz)
+    for ph in (figs, srcs, shrd, p13, p14, p15, p16, p17):
         secs.update({k: round(v, 2) for k, v in ph["seconds"].items()})
     print(f"phase seconds: {json.dumps(secs)}", flush=True)
     fig_runs = figs["10c figures"]
@@ -5744,6 +5982,7 @@ def run(dev: torch.device, sz: Sizes) -> dict:
     ]
     add_phase13(kernels, p13)
     add_phase16(kernels, p16)
+    add_phase17(kernels, p17)
     return {"kernels": kernels}
 
 

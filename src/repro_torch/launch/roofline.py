@@ -1,10 +1,14 @@
-"""Roofline terms of a step on one H100, and the counters that read a
-step's FLOPs, bytes and peak memory from a trace (the port of the
-reference ``repro.launch.roofline``).
+"""Roofline terms of one device's share of a step on H100s, and the
+counters that read a step's FLOPs, bytes, collective bytes and peak
+memory from a trace (the port of the reference
+``repro.launch.roofline``).
 
     compute term    = Σ over dtypes of FLOPs / that dtype's peak rate
     memory term     = bytes / HBM rate
-    collective term = collective bytes / NVLink rate (0 on one card)
+    collective term = Σ over mesh axes of their collective bytes / the
+                      rate of the link that axis's ring crosses (NVLink
+                      inside a host, InfiniBand across hosts; 0 on one
+                      card)
 
 The constants are the published peaks of one H100 SXM (NVIDIA's data
 sheet, dense, at the full 700 W; the reference's are a TPU v5e's).  A
@@ -27,16 +31,19 @@ runs the step eagerly on shape-only tensors under ``TraceCounter``, a
 The hand-written kernels add what their byte and operation model
 (``kernels.cost``) says one call moves and computes, from their
 shape-only stand-ins in the kernel wrappers (``TraceCounter.note_kernel``).
-The reference's HLO
-parser ``collective_bytes`` has no counterpart: one card has no
-collectives (ROADMAP.md Queue 1 item 5).
+The collectives of a ``sharding.Mesh`` note their wire bytes a device
+(``TraceCounter.note_collective``, the reference's ring model), and
+``collective_bytes`` sums them with the keys of the reference's HLO
+parser: the port counts the collectives its per-shard programs call
+(Megatron-SP's, FSDP's and the gradients'), not the ones a partitioner
+chose.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import weakref
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -52,6 +59,10 @@ from repro_torch.optim.optimizers import dict_keys
 # kernels.cost) --------------------------------------------------------------
 NVLINK_BYTES_PER_S = 450e9    # to the other cards of a host, each way
 HBM_BYTES = 80e9              # device memory
+#: to a card of another host, each way: one 400 Gb/s NDR InfiniBand
+#: port a card (ConnectX-7; NVIDIA DGX H100 user guide, "Network ports")
+IB_BYTES_PER_S = 50e9
+LINK_BYTES_PER_S = {"nvlink": NVLINK_BYTES_PER_S, "ib": IB_BYTES_PER_S}
 
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
@@ -76,13 +87,35 @@ def peak_flops(key: str) -> float:
     return F32_FLOPS_PER_S
 
 
+def axes_key(axes) -> str:
+    """The key of a group's mesh axes in ``collective_by_axes``."""
+    return "+".join(axes)
+
+
+def link_rate(key: str, links: Optional[Mapping[str, str]]) -> float:
+    """The rate of the slowest link a group over the axes ``key`` crosses
+    (NVLink when ``links`` is None)."""
+    if not links:
+        return NVLINK_BYTES_PER_S
+    return min(LINK_BYTES_PER_S[links.get(a, "ib")] for a in key.split("+"))
+
+
 def roofline(flops_by_dtype: Mapping[str, float], bytes_per_dev: float,
-             coll_bytes_per_dev: float) -> Dict[str, Any]:
+             coll_bytes_per_dev: float,
+             coll_by_axes: Optional[Mapping[str, float]] = None,
+             links: Optional[Mapping[str, str]] = None) -> Dict[str, Any]:
     """The three terms, the dominant one and the bound (the largest),
-    with the reference's keys."""
+    with the reference's keys.  ``coll_by_axes`` (a group's axes ->
+    bytes, ``TraceCounter.collective_by_axes``) and the layout's
+    ``links``: each axis's bytes over its link's rate; else all
+    ``coll_bytes_per_dev`` over NVLink's."""
     t_compute = sum(f / peak_flops(k) for k, f in flops_by_dtype.items())
     t_memory = bytes_per_dev / HBM_BYTES_PER_S
-    t_collective = coll_bytes_per_dev / NVLINK_BYTES_PER_S
+    if coll_by_axes is None:
+        t_collective = coll_bytes_per_dev / NVLINK_BYTES_PER_S
+    else:
+        t_collective = sum(b / link_rate(k, links)
+                           for k, b in coll_by_axes.items())
     terms = {"compute_s": t_compute, "memory_s": t_memory,
              "collective_s": t_collective}
     dominant = max(terms, key=terms.get)
@@ -138,6 +171,11 @@ class TraceCounter(TorchDispatchMode):
             float)
         self.bytes = 0
         self.kernel_calls: Dict[str, int] = collections.Counter()
+        self.collective_by_kind: Dict[str, int] = collections.Counter()
+        self.collective_by_axes: Dict[str, int] = collections.Counter()
+        #: of ``collective_by_kind``, the bytes of f32 partial products
+        #: (``sharding.note_collective``'s ``f32_partial``)
+        self.collective_f32_partials: Dict[str, int] = collections.Counter()
         self.live_bytes = 0
         self.peak_bytes = 0
         self._live: Dict[int, int] = {}
@@ -175,14 +213,25 @@ class TraceCounter(TorchDispatchMode):
         self.bytes += nbytes
         self.flops_by_dtype[key] += flops
 
+    def note_collective(self, kind: str, nbytes: int, axes,
+                        f32_partial: bool = False) -> None:
+        self.collective_by_kind[kind] += nbytes
+        self.collective_by_axes[axes_key(axes)] += nbytes
+        if f32_partial:
+            self.collective_f32_partials[kind] += nbytes
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         packet = func._overloadpacket
         ins = list(_tensors((args, kwargs)))
         if packet in flop_registry:
+            # a GEMM's f32-output overload (``mm(..., out_dtype=)``) counts
+            # as its product: the formulas take no output dtype
+            fargs = [a for a in args if not isinstance(a, torch.dtype)]
+            fkw = {k: v for k, v in kwargs.items() if k != "out_dtype"}
             self.flops_by_dtype[dtype_key(ins[0].dtype)] += flop_registry[
-                packet](*args, **kwargs, out_val=out)
+                packet](*fargs, **fkw, out_val=out)
         outs = list(_tensors(out))
         if not func.is_view and packet.__name__ not in _NO_TRAFFIC:
             self.bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
@@ -191,6 +240,26 @@ class TraceCounter(TorchDispatchMode):
             if id(t.untyped_storage()) not in in_storages:
                 self._track(t)
         return out
+
+
+def collective_bytes(counter: TraceCounter) -> Dict[str, int]:
+    """Wire bytes a device of every collective a trace's mesh called, by
+    the reference's kind (``COLLECTIVES``) and ``total`` (the reference
+    parses them from the partitioned HLO)."""
+    out = {c: int(counter.collective_by_kind.get(c, 0)) for c in COLLECTIVES}
+    out["total"] = sum(out.values())
+    return out
+
+
+def collective_bytes_bf16_partials(counter: TraceCounter) -> Dict[str, int]:
+    """``collective_bytes`` had the f32 partial products of half-precision
+    GEMMs (and their gradients) moved in the operands' dtype, as the
+    reference's GSPMD moves them: each such call at half its bytes."""
+    out = {c: int(counter.collective_by_kind.get(c, 0)
+                  - counter.collective_f32_partials.get(c, 0) // 2)
+           for c in COLLECTIVES}
+    out["total"] = sum(out.values())
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -28,8 +28,16 @@ full-graph corner) through ``core.experiment.sweep`` and save its rows;
 exact-resume checkpoints under ``--ckpt-dir`` (one namespace per
 paradigm, ``--keep-last`` retention) and ``--resume`` continues each
 paradigm from its newest one (GNN only; the LM saves its parameters
-every ``--ckpt-every`` steps, as the reference does).  ``--model-par``
-other than 1 raises: one card has no tensor-parallel backend.
+every ``--ckpt-every`` steps, as the reference does).
+
+``--model-par M`` (LM) trains tensor-parallel on a ``(1, M)`` mesh
+(``launch.mesh.make_host_mesh``) whose shards all sit on the run's
+device: on the card it repeats the card M times, as the S = 4 NODES
+paths do, so the run emulates the layout's arithmetic and collectives
+one shard after another (not its speed).  The JSON line keeps its keys.
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch stablelm-1.6b --smoke --device cpu --model-par 2 --steps 5
 """
 from __future__ import annotations
 
@@ -55,23 +63,30 @@ def train_lm(args, optimizer=None) -> dict:
     of ``make_train_step`` unless ``optimizer`` is given.  Prints a log
     line every ``--log-every`` steps and the reference's JSON line;
     returns that line's keys plus ``losses`` and, on the card, each
-    step's device time ``step_ms`` (CUDA events)."""
+    step's device time ``step_ms`` (CUDA events).  With ``--model-par``
+    above 1 the parameters are split over the mesh
+    (``model.shard_params``) and saved whole."""
     from repro_torch.checkpoint import save_checkpoint
     from repro_torch.launch.serve import stub_inputs
     from repro_torch.models import model as M
     from repro_torch.models import steps as S
 
-    if args.model_par != 1:
-        raise NotImplementedError(
-            f"--model-par {args.model_par}: the port runs on one card with "
-            f"no tensor-parallel backend (ROADMAP.md Queue 1 item 5)")
+    from repro_torch.launch.mesh import make_host_mesh
+
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     params = M.init_model(torch.Generator(device=dev).manual_seed(args.seed),
                           cfg, dev)
+    mesh = None
+    if args.model_par != 1:
+        mesh = make_host_mesh(args.model_par,
+                              devices=(dev,) * args.model_par)
+        params = M.shard_params(params, cfg, mesh)
     opt, train_step = S.make_train_step(cfg, optimizer,
-                                        microbatches=args.microbatches)
-    opt_state = opt.init(params)
+                                        microbatches=args.microbatches,
+                                        mesh=mesh)
+    opt_state = (opt.init(params) if mesh is None
+                 else [opt.init(p) for p in params])
     gen = token_batches(cfg.vocab_size, args.batch, args.seq, seed=args.seed)
     losses, events = [], []
     t0 = time.perf_counter()
@@ -94,7 +109,8 @@ def train_lm(args, optimizer=None) -> dict:
                   f"acc {float(metrics['acc']):.3f} tok/s {tok_s:,.0f}",
                   flush=True)
         if args.ckpt_every and it and it % args.ckpt_every == 0:
-            save_checkpoint(args.ckpt_dir, it, params,
+            save_checkpoint(args.ckpt_dir, it, params if mesh is None
+                            else M.unshard_params(params, cfg, mesh),
                             {"arch": args.arch, "loss": loss},
                             keep_last=args.keep_last or None)
     result = {"arch": args.arch, "first_loss": losses[0],
@@ -173,7 +189,10 @@ def main(argv=None):
                     help="LM only: gradient-accumulation micro-batches a "
                          "step")
     ap.add_argument("--model-par", type=int, default=1,
-                    help="LM only: tensor-parallel degree (1: one card)")
+                    help="LM only: tensor-parallel degree; the model "
+                         "shards repeat the run's device (one card "
+                         "emulates the layout's arithmetic, not its "
+                         "speed)")
     ap.add_argument("--lr", type=float, default=0.5, help="GNN only")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--preset", default="arxiv-like")

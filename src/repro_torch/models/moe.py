@@ -7,9 +7,18 @@ O(T * E * C_g * d) with C_g = ceil(cf * T_g / E) tokens an expert a
 group.  A token past its expert's capacity is dropped: its output is 0
 and the residual carries it.  Parameters keep the reference's layout
 (``router [d, E]``, ``w_gate`` and ``w_up [E, d, f]``, ``w_down
-[E, f, d]``), so its arrays load unchanged.  On one card the
-reference's sharding constraints are the identity and its
-``shard_map`` combine needs a mesh: ``_combine`` is its plain einsum.
+[E, f, d]``), so its arrays load unchanged.
+
+Under a ``model`` axis (``moe_block(..., tp=)``) the experts are split
+over the shards where ``E % MODEL_PAR == 0`` (``param_specs``), as the
+reference's ``model`` axis holds them: every shard routes the whole
+gathered sequence with its copy of the router, runs its own experts'
+tokens, and ``_combine``'s partial sums over its experts go back to the
+sequence-sharded stream by one ``psum_scatter`` over the routing groups
+(reference ``moe.py:87-119``), a ``psum`` where the groups do not split.
+The reference moves the tokens to the experts by GSPMD's all-to-all; the
+port gathers the sequence instead (one ``all_gather``, as attention
+does).
 """
 from __future__ import annotations
 
@@ -19,6 +28,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as sh
 from repro_torch.configs.base import ModelConfig
 
 
@@ -76,12 +86,28 @@ def route(params, x, cfg: ModelConfig, expert=None):
     return dispatch, gate, expert, aux, g, tg
 
 
-def moe_block(params, x, cfg: ModelConfig):
+def moe_block(params, x, cfg: ModelConfig, *, tp=None, rs: bool = False):
     """x: [B, S, d] -> (y, aux_loss).  Top-1 capacity routing over
-    groups of ``min(moe_group, S)`` tokens; S must divide into them."""
+    groups of ``min(moe_group, S)`` tokens; S must divide into them.
+    With ``tp``: lists (the stream as ``layers`` takes it) -> (y parts,
+    aux parts)."""
+    if tp is not None:
+        return _moe_block_tp(params, x, cfg, tp, rs)
+    b, s, d = x.shape
+    dispatch, gate, _, aux, g, tg = route(params, x, cfg)
+    return _experts(params, x, cfg, dispatch, gate, g, tg).reshape(
+        b, s, d), aux
+
+
+def _experts(params, x, cfg: ModelConfig, dispatch, gate, g: int, tg: int,
+             experts: slice = slice(None), f32_out: bool = False):
+    """The combined output [b, g, t, d] of ``experts`` (the rows of the
+    expert weights in ``params``) for the routing ``dispatch`` / ``gate``
+    over all E experts; ``f32_out``: a shard's share of the combine, as
+    ``layers.partial_product`` gives it."""
     b, s, d = x.shape
     dt = x.dtype
-    dispatch, gate, _, aux, g, tg = route(params, x, cfg)
+    dispatch = dispatch[..., experts, :]
     combine = (dispatch * gate[..., None, None]).to(dt)
     dispatch = dispatch.to(dt)
     xg = x.reshape(b, g, tg, d)
@@ -91,9 +117,45 @@ def moe_block(params, x, cfg: ModelConfig):
         else F.silu(h)
     h = h * torch.einsum("bgecd,edf->bgecf", xe, params["w_up"].to(dt))
     ye = torch.einsum("bgecf,efd->bgecd", h, params["w_down"].to(dt))
-    return _combine(combine, ye).reshape(b, s, d), aux
+    if f32_out:
+        from repro_torch.models.layers import _ProductF32
+        if dt == torch.float32:
+            return _combine(combine, ye)
+        e, c = combine.shape[-2:]
+        return _ProductF32.apply(
+            combine.reshape(b * g, tg, e * c),
+            ye.reshape(b * g, e * c, d)).reshape(b, g, tg, d)
+    return _combine(combine, ye)
 
 
 def _combine(combine, ye):
     """Un-dispatch: contract experts x capacity back to tokens."""
     return torch.einsum("bgtec,bgecd->bgtd", combine, ye)
+
+
+def _moe_block_tp(params, x, cfg: ModelConfig, tp, rs: bool):
+    from repro_torch.models.layers import is_f32_partial, tp_gather, tp_reduce
+    xs = tp_gather(x, tp, rs)
+    b, s, d = xs[0].shape
+    split = tp.size > 1 and cfg.n_experts % sh.MODEL_PAR == 0
+    e_loc = params[0]["w_gate"].shape[0]
+    parts, auxs = [], []
+    for p, xf, pos in zip(params, xs, tp.positions):
+        dispatch, gate, _, aux, g, tg = route(p, xf, cfg)
+        experts = slice(pos * e_loc, (pos + 1) * e_loc) if split \
+            else slice(None)
+        parts.append(_experts(p, xf, cfg, dispatch, gate, g, tg, experts,
+                              f32_out=split))
+        auxs.append(aux)
+    dt = xs[0].dtype
+    f32p = is_f32_partial(parts[0], dt)
+    if split and rs and g % tp.size == 0:
+        # the reference's reduce-scatter onto the sequence-group dim
+        y = sh.psum_scatter(parts, tp, dim=1, f32_partial=f32p)
+        return [t.reshape(b, s // tp.size, d).to(dt) for t in y], auxs
+    if split:
+        y = [t.reshape(b, s, d).to(dt)
+             for t in sh.psum(parts, tp, f32_partial=f32p)]
+        return tp_reduce(y, tp, rs, False), auxs
+    return tp_reduce([t.reshape(b, s, d) for t in parts], tp, rs,
+                     False), auxs

@@ -134,11 +134,35 @@ def ssd_chunked(x, dt, a_neg, bmat, cmat, init_state=None):
 
 
 def mamba_block(params, x, cfg: ModelConfig, state=None, conv_x_state=None,
-                conv_bc_state=None, decode: bool = False):
+                conv_bc_state=None, decode: bool = False, *, tp=None,
+                rs: bool = False):
     """x: [B,S,d].  Returns (y, (ssm_state, conv_x_state, conv_bc_state)):
     the state after the last position (f32) and the last ``ssm_conv - 1``
-    conv inputs.  ``decode``: one position after the given states."""
-    d_in, h, p, n = ssm_dims(cfg)
+    conv inputs.  ``decode``: one position after the given states.
+
+    With ``tp`` (lists; the states too, each shard's heads): where the
+    padded heads shard (``param_specs``' ``ssm_ax``) each shard projects
+    the gathered sequence onto its heads' channels and its columns of
+    B/C, the B/C columns are all-gathered after their conv, the gated
+    norm's sum of squares is summed over the shards, and ``w_out``'s
+    partial products return to the stream as ``layers.out_proj``'s do
+    (reference ``ssm.py:146-156``); elsewhere every shard runs every
+    head."""
+    if tp is not None:
+        return _mamba_block_tp(params, x, cfg, state, conv_x_state,
+                               conv_bc_state, decode, tp, rs)
+    z, xs_c, bc_c, dt_raw, new_cx, new_cbc = _mamba_in(
+        params, x, cfg, conv_x_state, conv_bc_state, decode)
+    g, final = _mamba_ssd(params, cfg, z, xs_c, bc_c, dt_raw, state, decode)
+    out = _mamba_out(params, g, g.square().sum(-1, keepdim=True), cfg,
+                     x.dtype)
+    return out, (final, new_cx, new_cbc)
+
+
+def _mamba_in(params, x, cfg: ModelConfig, conv_x_state, conv_bc_state,
+              decode: bool):
+    """The projections and the causal convs: (z, x after conv and silu,
+    B|C after conv and silu, the raw dt, the new conv states)."""
     dt_ = x.dtype
     z = x @ params["w_z"].to(dt_)
     xs_raw = x @ params["w_x"].to(dt_)
@@ -156,9 +180,17 @@ def mamba_block(params, x, cfg: ModelConfig, state=None, conv_x_state=None,
         xs_c = _causal_conv(xs_raw, params["conv_x"])
         bc_c = _causal_conv(bc_raw, params["conv_bc"])
         new_cx, new_cbc = xs_raw[:, -(k - 1):], bc_raw[:, -(k - 1):]
-    xs_c = F.silu(xs_c)
-    bc_c = F.silu(bc_c)
+    return z, F.silu(xs_c), F.silu(bc_c), dt_raw, new_cx, new_cbc
 
+
+def _mamba_ssd(params, cfg: ModelConfig, z, xs_c, bc_c, dt_raw, state,
+               decode: bool):
+    """The SSD over the heads in ``params`` (their count from
+    ``A_log``): (the gated output before its norm, in f32, and the final
+    state)."""
+    n = cfg.ssm_state
+    h, p = params["A_log"].shape[-1], cfg.ssm_head_dim
+    dt_ = xs_c.dtype
     bmat, cmat = bc_c[..., :n], bc_c[..., n:]
     bsz, s, _ = xs_c.shape
     xh = xs_c.reshape(bsz, s, h, p)
@@ -176,11 +208,43 @@ def mamba_block(params, x, cfg: ModelConfig, state=None, conv_x_state=None,
         y, final = ssd_chunked(xh, dt, a_neg, bmat, cmat, init_state=state)
 
     y = y + params["D"].to(dt_)[None, None, :, None] * xh
-    y = y.reshape(bsz, s, d_in)
-    # gated RMSNorm over the VALID channels (the dead padded channels are
-    # exactly zero and must not dilute the variance)
-    g = (y * F.silu(z)).float()
-    var = g.square().sum(-1, keepdim=True) / ssm_valid_d_in(cfg)
+    y = y.reshape(bsz, s, h * p)
+    return (y * F.silu(z)).float(), final
+
+
+def _mamba_out(params, g, sq_sum, cfg: ModelConfig, dt_,
+               f32_out: bool = False):
+    """The gated RMSNorm over the VALID channels (the dead padded
+    channels are exactly zero and must not dilute the variance; ``sq_sum``
+    is the sum of squares over every channel), then ``w_out``
+    (``f32_out``: a shard's share, ``layers.partial_product``)."""
+    var = sq_sum / ssm_valid_d_in(cfg)
     g = g * torch.rsqrt(var + cfg.norm_eps) * (1.0 + params["norm"].float())
-    out = g.to(dt_) @ params["w_out"].to(dt_)
-    return out, (final, new_cx, new_cbc)
+    if f32_out:
+        from repro_torch.models.layers import partial_product
+        return partial_product(g.to(dt_), params["w_out"].to(dt_))
+    return g.to(dt_) @ params["w_out"].to(dt_)
+
+
+def _mamba_block_tp(params, x, cfg: ModelConfig, state, conv_x_state,
+                    conv_bc_state, decode: bool, tp, rs: bool):
+    from repro_torch.models.layers import tp_gather, tp_reduce
+    n_sh = len(params)
+    split = tp.size > 1 and ssm_dims(cfg)[1] % sh.MODEL_PAR == 0
+    none = [None] * n_sh
+    ins = [_mamba_in(p, xf, cfg, cx, cb, decode) for p, xf, cx, cb in zip(
+        params, tp_gather(x, tp, rs), conv_x_state or none,
+        conv_bc_state or none)]
+    z, xs_c, bc_c, dt_raw, new_cx, new_cbc = (list(t) for t in zip(*ins))
+    if split:
+        bc_c = sh.all_gather(bc_c, tp, dim=-1)
+    ssd = [_mamba_ssd(p, cfg, *a, st, decode) for p, *a, st in zip(
+        params, z, xs_c, bc_c, dt_raw, state or none)]
+    g, final = (list(t) for t in zip(*ssd))
+    sq = [t.square().sum(-1, keepdim=True) for t in g]
+    if split:
+        sq = sh.psum(sq, tp)
+    out = [_mamba_out(p, gg, q, cfg, x[0].dtype, f32_out=split)
+           for p, gg, q in zip(params, g, sq)]
+    return tp_reduce(out, tp, rs, split, x[0].dtype), (final, new_cx,
+                                                        new_cbc)

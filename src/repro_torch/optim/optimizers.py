@@ -30,8 +30,10 @@ F32 = torch.float32
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
-    update: Callable[[Any, Any, Any], tuple]   # (grads, state, params) ->
-    #                                            (new_params, new_state)
+    update: Callable[..., tuple]   # (grads, state, params,
+    #                                global_norm=None) -> (new_params,
+    #                                new_state); global_norm: the
+    #                                gradients' norm over every shard
 
 
 def dict_keys(path) -> tuple:
@@ -81,9 +83,13 @@ def cosine_schedule(peak: float, warmup: int, total: int,
     return fn
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(F32)))
-                        for g in tree_leaves(grads)))
+def clip_by_global_norm(grads, max_norm: float, gn=None):
+    """``grads`` scaled to a global norm of at most ``max_norm``, and that
+    norm; ``gn``: the norm, when it is computed elsewhere (over the
+    shards of a mesh)."""
+    if gn is None:
+        gn = torch.sqrt(sum(torch.sum(torch.square(g.to(F32)))
+                            for g in tree_leaves(grads)))
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return tree_map(lambda g: (g.to(F32) * scale).to(g.dtype), grads), gn
 
@@ -99,9 +105,9 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
         return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
                 "step": _step0(params)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, global_norm=None):
         if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
+            grads, _ = clip_by_global_norm(grads, clip_norm, global_norm)
         step = state["step"] + 1
         lr_t = sched(step)
         t = step.to(F32)
@@ -136,7 +142,7 @@ def sgd(lr: Callable | float, momentum: float = 0.0) -> Optimizer:
                 "step": _step0(params)}
         return {"step": _step0(params)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, global_norm=None):
         step = state["step"] + 1
         lr_t = sched(step)
         if momentum:

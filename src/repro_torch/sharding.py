@@ -1,41 +1,74 @@
 """Sharding of the port: the reference's padding rules for the LM
-parameter shapes and its logical axis names (``repro/sharding.py:17-48``)
-and its NODES mesh
-(``:119-210``), copied, since that module imports jax.
+parameter shapes, its logical axis names and their resolution onto a
+mesh (``repro/sharding.py:17-66, :109-110``) and its NODES mesh
+(``:119-210``), copied, since that module imports jax, over one
+named-axis ``Mesh``.
 
-The NODES mesh is single-controller, as the reference's is: one process
-drives every shard.  A ``NodeMesh`` is a tuple of torch devices in a
-fixed shard order, and it may repeat a device: ``node_mesh(devices=
-("cuda:0",) * 4)`` runs four shards one after another on one card, as
-the reference's CPU tests run four shards on one host with
-``--xla_force_host_platform_device_count=4``.  A NODES-sharded array is
+A ``Mesh`` has named axes, ``("data", "model")`` or ``("pod", "data",
+"model")``, over torch devices in row-major order, and it is
+single-controller, as the reference's is: one process drives every
+shard.  A device may repeat: ``("cuda:0",) * 2`` is two model shards on
+one card, ``("cpu",) * 4`` four on the host, as the reference's CPU
+tests run four shards on one host with
+``--xla_force_host_platform_device_count=4``.  A tensor sharded over it
+is a list of parts, one per shard (``shard`` / ``unshard`` by a logical
+spec), and per-shard programs meet in three collectives over a
+``Group``, the shards of one or more axes (``Mesh.group``).  A mesh
+that repeats a device emulates the layout's arithmetic and its
+collectives on that device, one shard after another: it does not model
+the layout's speed.  ``layout_mesh`` is the dry-run's: a production
+layout (256 or 512 cards) of which only shard 0 is run, on meta
+tensors, so a trace holds one device's tensors and work; its
+collectives give shard 0 the shapes of their results and note their
+bytes.
+
+A ``NodeMesh`` (``node_mesh``) is the one-axis case: a ``Mesh`` of shape
+``(S, 1)`` whose ``data`` axis carries NODES.  A NODES-sharded array is
 one tensor whose rows split into ``S`` contiguous blocks of
 ``n_pad / S`` rows, block ``s`` owned by shard ``s`` (the layout jax
-gives a row-sharded array).  The three collectives the reference's
-sharded kernels use (``all_gather``, ``psum``, ``psum_scatter``) are
-written over lists of per-shard tensors; each sums in shard order, so a
-run repeats bit for bit.
+gives a row-sharded array).  Its groups share results: the shards of
+one device get one read-only copy of a collective's result (four NODES
+shards on one card would otherwise hold four copies of every gathered
+table), and gradients flow through the collectives' plain ops.
+
+The collectives (``all_gather``, ``psum``, ``psum_scatter``) are written
+once, over lists of per-shard tensors; each sums in f32 in shard order
+and rounds once, so a run repeats bit for bit.  Each call notes its wire
+bytes a device under the reference's ring model
+(``repro/launch/roofline.py:52-61``: all-reduce 2 x the operand,
+reduce-scatter 1 x the operand, all-gather 1 x the output) to every
+active ``launch.roofline.TraceCounter`` and to ``collective_counts()``.
+Where results are not shared they are autograd functions whose backward
+is the adjoint collective (all-gather <-> reduce-scatter, all-reduce <->
+all-reduce), noted in the same way.
 """
 from __future__ import annotations
 
+import collections
 import functools
-from typing import List, Optional, Sequence, Tuple
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 # The reference's production tensor-parallel degree.  Head and vocab dims
 # are padded against it so parameter shapes equal the reference's.
 MODEL_PAR = 16
 
 # The reference's logical axis names (``repro/sharding.py:17-19,47-48``).
-# On one card nothing places a tensor by them; ``models.model.param_specs``
-# and ``cache_specs`` return them as plain data, which the dry-run records.
+# ``models.model.param_specs`` and ``cache_specs`` give them per dim;
+# ``resolve`` maps them onto a ``Mesh``'s axes and ``shard`` splits a
+# tensor by them.
 BATCH = "batch"    # data-parallel axis (pod x data)
 MODEL = "model"    # tensor-parallel axis
+NODES = "nodes"    # GNN node-parallel axis (alias of the batch axes)
 ALL = "all"        # every mesh axis (unshardable-batch decode caches)
-FSDP = "fsdp"      # weight sharding over the data axis (ZeRO-3 style)
+FSDP = "fsdp"      # weight sharding over the data axis (ZeRO-3 style);
+#                    not over "pod": cross-pod traffic stays gradient-only
 
 
 def pad_to(n: int, m: int = MODEL_PAR) -> int:
@@ -57,14 +90,283 @@ def padded_heads(n: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Named-axis meshes (reference ``repro/sharding.py:50-66, :109-110``)
+# ---------------------------------------------------------------------------
+
+MESH_AXES = ("pod", "data", "model")
+
+
+def axis_map(mesh) -> dict:
+    """The mesh axes each logical name resolves onto: the batch (and
+    NODES) over ``("pod", "data")`` on a multi-pod mesh, ``"data"``
+    otherwise; ``FSDP`` over ``"data"`` only."""
+    if "pod" in mesh.axis_names:
+        batch_axes: Any = ("pod", "data")
+        all_axes: Any = ("pod", "data", "model")
+    else:
+        batch_axes = "data"
+        all_axes = ("data", "model")
+    return {BATCH: batch_axes, NODES: batch_axes, MODEL: "model",
+            ALL: all_axes, FSDP: "data"}
+
+
+def resolve(logical: Sequence[Optional[str]], mesh) -> tuple:
+    """A logical spec as mesh axes, one entry a dim: an axis name, a
+    tuple of them, or None (the reference's ``PartitionSpec``)."""
+    m = axis_map(mesh)
+    return tuple(m.get(ax) if ax is not None else None for ax in logical)
+
+
+def batch_mesh_axes(mesh):
+    return ("pod", "data") if "pod" in mesh.axis_names else "data"
+
+
+def _axes(ax) -> Tuple[str, ...]:
+    if ax is None:
+        return ()
+    return (ax,) if isinstance(ax, str) else tuple(ax)
+
+
+class Mesh:
+    """Named axes over torch devices (the reference's jax ``Mesh``).
+
+    ``shape`` and ``axis_names`` as the reference's (``("data",
+    "model")`` or ``("pod", "data", "model")``); shard ``f`` (row-major
+    over ``shape``) runs on ``devices[f]``, and a device may repeat.
+    ``layout=True`` makes the dry-run's mesh: ``devices`` is one meta
+    device and only shard 0 is run (``traced``); collectives give it
+    their results' shapes (``layout_mesh``).  Compared and hashed by
+    identity."""
+
+    #: whether the shards of one device share a collective's result
+    #: (``NodeMesh``) or each get their own with autograd adjoints
+    shares_results = False
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 devices: Sequence, *, layout: bool = False):
+        shape = tuple(int(n) for n in shape)
+        names = tuple(axis_names)
+        if len(shape) != len(names) or len(set(names)) != len(names) \
+                or not set(names) <= set(MESH_AXES) or "model" not in names:
+            raise ValueError(f"Mesh: axes {names} of shape {shape}; want "
+                             f"('data', 'model') or ('pod', 'data', "
+                             f"'model')")
+        if min(shape) < 1:
+            raise ValueError(f"Mesh: shape {shape}")
+        devs = tuple(torch.device(d) for d in devices)
+        if len({d.type for d in devs}) != 1:
+            raise ValueError(f"Mesh: devices must share one type, got "
+                             f"{[str(d) for d in devs]}")
+        n = math.prod(shape)
+        if layout:
+            if len(devs) != 1 or devs[0].type != "meta":
+                raise ValueError("a layout mesh runs shard 0 alone, on one "
+                                 "meta device")
+            self.traced: Tuple[int, ...] = (0,)
+        else:
+            if len(devs) != n:
+                raise ValueError(f"Mesh: {len(devs)} devices for a "
+                                 f"{' x '.join(map(str, shape))} mesh")
+            self.traced = tuple(range(n))
+        self.shape, self.axis_names, self.devices = shape, names, devs
+        self.layout = layout
+        self.sizes: Dict[str, int] = dict(zip(names, shape))
+        self._groups: Dict[Tuple[Tuple[str, ...], int], "Group"] = {}
+
+    @property
+    def size(self) -> int:
+        """The number of shards (devices of the layout)."""
+        return math.prod(self.shape)
+
+    def coords(self, flat: int) -> Dict[str, int]:
+        return dict(zip(self.axis_names,
+                        (int(c) for c in np.unravel_index(flat, self.shape))))
+
+    def device_of(self, flat: int) -> torch.device:
+        return self.devices[self.traced.index(flat)]
+
+    def group(self, axes, flat: int) -> "Group":
+        """The shards along ``axes`` (a name or a tuple of names) through
+        shard ``flat``: the other coordinates fixed, ``axes`` row-major
+        in mesh order.  Made once a mesh (a step asks for its groups
+        every call)."""
+        key = (_axes(axes), flat)
+        if key not in self._groups:
+            self._groups[key] = self._group(*key)
+        return self._groups[key]
+
+    def _group(self, want: Tuple[str, ...], flat: int) -> "Group":
+        axes = tuple(a for a in self.axis_names if a in want)
+        if len(axes) != len(want):
+            raise ValueError(f"Mesh.group: {want} not all in "
+                             f"{self.axis_names}")
+        c = self.coords(flat)
+        full = []
+        for pos in range(math.prod(self.sizes[a] for a in axes)):
+            cc = dict(c)
+            cc.update(zip(axes, (int(x) for x in np.unravel_index(
+                pos, tuple(self.sizes[a] for a in axes)))))
+            full.append(int(np.ravel_multi_index(
+                tuple(cc[a] for a in self.axis_names), self.shape)))
+        members = tuple(f for f in full if f in self.traced)
+        return Group(self, axes, len(full), members,
+                     tuple(full.index(f) for f in members))
+
+    def groups(self, axes) -> List["Group"]:
+        """The distinct groups along ``axes`` that hold a traced shard,
+        in order of their first traced shard."""
+        out, seen = [], set()
+        for f in self.traced:
+            g = self.group(axes, f)
+            if g.members not in seen:
+                seen.add(g.members)
+                out.append(g)
+        return out
+
+    def __repr__(self) -> str:
+        kind = "layout" if self.layout else str(self.devices[0])
+        return (f"Mesh({dict(zip(self.axis_names, self.shape))}, "
+                f"{kind}{'' if self.layout else ' x ' + str(self.size)})")
+
+
+class Group:
+    """The shards of one or more axes of a ``Mesh`` with the others
+    fixed: ``size`` shards, of which ``members`` (flat shard ids, in
+    group order, at ``positions``) are run here, on ``devices``.
+    ``share``: the mesh's ``shares_results``."""
+
+    def __init__(self, mesh: Mesh, axes: Tuple[str, ...], size: int,
+                 members: Tuple[int, ...], positions: Tuple[int, ...]):
+        self.mesh, self.axes, self.size = mesh, axes, size
+        self.members, self.positions = members, positions
+        self.devices = tuple(mesh.device_of(f) for f in members)
+        self.share = mesh.shares_results
+
+    @property
+    def virtual(self) -> bool:
+        """True when only part of the group is run (a layout mesh)."""
+        return len(self.members) < self.size
+
+    def __repr__(self) -> str:
+        return f"Group({self.axes}, size {self.size}, run {self.members})"
+
+
+def layout_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
+    """A production layout of which only shard 0 runs, on meta tensors
+    (the dry-run's)."""
+    return Mesh(shape, axis_names, ("meta",), layout=True)
+
+
+def spec_axes(logical: Sequence[Optional[str]], mesh: Mesh
+              ) -> Tuple[str, ...]:
+    """Every mesh axis a logical spec splits a tensor over."""
+    return tuple(a for ax in resolve(logical, mesh) for a in _axes(ax))
+
+
+def _position(mesh: Mesh, flat: int, axes: Tuple[str, ...]) -> int:
+    c = mesh.coords(flat)
+    return int(np.ravel_multi_index(tuple(c[a] for a in axes),
+                                    tuple(mesh.sizes[a] for a in axes))) \
+        if axes else 0
+
+
+def shard(x: torch.Tensor, logical: Sequence[Optional[str]], mesh: Mesh
+          ) -> List[torch.Tensor]:
+    """``x`` split by a logical spec (``models.model.param_specs``), one
+    part a run shard, each a copy on the shard's device: the dims the
+    spec puts on mesh axes split into equal blocks, block ``i`` to the
+    shard at position ``i`` along those axes."""
+    axes = resolve(logical, mesh)
+    if len(axes) != x.dim():
+        raise ValueError(f"shard: spec {tuple(logical)} for a "
+                         f"{x.dim()}-d tensor")
+    parts = []
+    for f, dev in zip(mesh.traced, mesh.devices):
+        part = x
+        for dim, ax in enumerate(axes):
+            names = tuple(a for a in mesh.axis_names if a in _axes(ax))
+            k = math.prod(mesh.sizes[a] for a in names)
+            if k == 1:
+                continue
+            if x.shape[dim] % k:
+                raise ValueError(
+                    f"shard: dim {dim} of {tuple(x.shape)} ({logical[dim]}"
+                    f" over {names}) does not divide into {k} shards")
+            m = x.shape[dim] // k
+            part = part.narrow(dim, _position(mesh, f, names) * m, m)
+        parts.append(part.to(dev, copy=True))
+    return parts
+
+
+def unshard(parts: Sequence[torch.Tensor], logical: Sequence[Optional[str]],
+            mesh: Mesh, device=None) -> torch.Tensor:
+    """The tensor ``shard`` split, from the parts of every shard (not a
+    layout mesh), on ``device`` (the first shard's by default)."""
+    if mesh.layout:
+        raise ValueError("unshard: a layout mesh runs shard 0 alone")
+    axes = resolve(logical, mesh)
+    spec = set(spec_axes(logical, mesh))
+    device = device or mesh.devices[0]
+    shape = list(parts[0].shape)
+    for dim, ax in enumerate(axes):
+        shape[dim] *= math.prod(mesh.sizes[a] for a in _axes(ax))
+    out = parts[0].new_empty(shape, device=device)
+    for f, part in zip(mesh.traced, parts):
+        c = mesh.coords(f)
+        if any(c[a] for a in mesh.axis_names if a not in spec):
+            continue                        # a replica
+        view = out
+        for dim, ax in enumerate(axes):
+            names = tuple(a for a in mesh.axis_names if a in _axes(ax))
+            if names:
+                m = part.shape[dim]
+                view = view.narrow(dim, _position(mesh, f, names) * m, m)
+        view.copy_(part)
+    return out
+
+
+def is_spec(x) -> bool:
+    """A logical spec: a tuple of axis names and Nones."""
+    return isinstance(x, tuple) and all(e is None or isinstance(e, str)
+                                        for e in x)
+
+
+def shard_tree(tree, specs, mesh: Mesh) -> List[Any]:
+    """``shard`` over a tree of tensors and its tree of specs: one tree
+    a run shard."""
+    leaves, spec = tree_flatten(tree)
+    sleaves = tree_flatten(specs, is_leaf=is_spec)[0]
+    if len(sleaves) != len(leaves):
+        raise ValueError("shard_tree: specs do not match the tree")
+    cols = [shard(x, sp, mesh) for x, sp in zip(leaves, sleaves)]
+    return [tree_unflatten([c[i] for c in cols], spec)
+            for i in range(len(mesh.traced))]
+
+
+def unshard_tree(parts: Sequence[Any], specs, mesh: Mesh, device=None):
+    """``unshard`` over the per-shard trees ``shard_tree`` made."""
+    flat = [tree_flatten(p)[0] for p in parts]
+    spec = tree_flatten(parts[0])[1]
+    sleaves = tree_flatten(specs, is_leaf=is_spec)[0]
+    return tree_unflatten(
+        [unshard([f[i] for f in flat], sp, mesh, device)
+         for i, sp in enumerate(sleaves)], spec)
+
+
+# ---------------------------------------------------------------------------
 # The NODES mesh
 # ---------------------------------------------------------------------------
 
-class NodeMesh:
-    """A one-axis mesh of torch devices in a fixed shard order (shard
-    ``s`` runs on ``devices[s]``); a device may appear more than once.
+class NodeMesh(Mesh):
+    """The NODES mesh: a ``Mesh`` of shape ``(S, 1)`` over ``("data",
+    "model")``, NODES resolving onto ``data``, of torch devices in a fixed
+    shard order (shard ``s`` runs on ``devices[s]``); a device may appear
+    more than once.  Its collectives (``nodes``) give the shards of one
+    device one shared, read-only result and carry plain autograd.
     Compared and hashed by identity: ``node_mesh`` memoizes, so every
     bind of a source gets the same object back."""
+
+    shares_results = True
 
     def __init__(self, devices: Sequence):
         devs = tuple(torch.device(d) for d in devices)
@@ -73,15 +375,16 @@ class NodeMesh:
         if len({d.type for d in devs}) != 1:
             raise ValueError(f"NodeMesh: devices must share one type, got "
                              f"{[str(d) for d in devs]}")
-        self.devices: Tuple[torch.device, ...] = devs
-
-    @property
-    def size(self) -> int:
-        return len(self.devices)
+        super().__init__((len(devs), 1), ("data", "model"), devs)
 
     @property
     def device_type(self) -> str:
         return self.devices[0].type
+
+    @property
+    def nodes(self) -> "Group":
+        """The group of every shard along NODES."""
+        return self.group(axis_map(self)[NODES], 0)
 
     def __repr__(self) -> str:
         return f"NodeMesh({[str(d) for d in self.devices]})"
@@ -174,29 +477,58 @@ def unshard_rows(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
 # Collectives over per-shard tensors
 # ---------------------------------------------------------------------------
 
-def _per_device(mesh: NodeMesh, make) -> List[torch.Tensor]:
-    """``make(device)`` once per distinct device, one entry per shard:
-    shards on one device share the (read-only) result."""
-    made = {}
-    out = []
-    for dev in mesh.devices:
-        key = str(dev)
-        if key not in made:
-            made[key] = make(dev)
-        out.append(made[key])
-    return out
+#: the collectives' wire bytes a device by kind, summed over every call
+#: since ``reset_collectives`` (the reference's ``collective_bytes`` keys)
+_TALLY: Dict[str, int] = collections.Counter()
 
 
-def all_gather(parts: Sequence[torch.Tensor], mesh: NodeMesh
-               ) -> List[torch.Tensor]:
-    """Each shard gets every shard's part, concatenated along dim 0 in
-    shard order (the reference's tiled ``all_gather``)."""
-    _check_parts(parts, mesh, "all_gather")
+def reset_collectives() -> None:
+    _TALLY.clear()
 
-    def make(dev):
-        moved = [p.to(dev) for p in parts]
-        return moved[0] if len(moved) == 1 else torch.cat(moved, 0)
-    return _per_device(mesh, make)
+
+def collective_counts() -> Dict[str, int]:
+    """Wire bytes a device of every collective since the last
+    ``reset_collectives``, by kind ("all-reduce", "all-gather",
+    "reduce-scatter") and "calls" (over a mesh with several groups of an
+    axis, the sum over the groups' calls); "f32-partial": of those
+    bytes, the f32 partial products' (``note_collective``)."""
+    return dict(_TALLY)
+
+
+def note_collective(kind: str, nbytes: int, axes: Tuple[str, ...],
+                    f32_partial: bool = False) -> None:
+    """One collective call's wire bytes a device, to the tally and to
+    every active dispatch mode that counts collectives
+    (``launch.roofline.TraceCounter.note_collective``).  ``f32_partial``:
+    it carries the f32 partial products of half-precision GEMMs
+    (``layers.partial_product``) or their gradients, which the
+    reference's GSPMD moves in the operands' dtype, at half the bytes."""
+    _TALLY[kind] += nbytes
+    _TALLY["calls"] += 1
+    if f32_partial:
+        _TALLY["f32-partial"] += nbytes
+    for mode in _get_current_dispatch_mode_stack():
+        if hasattr(mode, "note_collective"):
+            mode.note_collective(kind, nbytes, axes, f32_partial)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _results(t: torch.Tensor, group: "Group") -> List[torch.Tensor]:
+    """``t`` for each run shard of ``group``.  A group that shares
+    results gives the shards of one device one read-only copy; otherwise
+    each shard gets a tensor of its own (shards never share a result a
+    shard may write or free)."""
+    if group.share:
+        made: Dict[str, torch.Tensor] = {}
+        for d in group.devices:
+            if str(d) not in made:
+                made[str(d)] = t.to(d)
+        return [made[str(d)] for d in group.devices]
+    return [t if j == 0 and t.device == torch.device(d)
+            else t.to(d, copy=True) for j, d in enumerate(group.devices)]
 
 
 def _shard_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -212,31 +544,132 @@ def _shard_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     return acc.to(dt)
 
 
-def psum(parts: Sequence[torch.Tensor], mesh: NodeMesh
-         ) -> List[torch.Tensor]:
-    """Each shard gets the sum over shards (in shard order)."""
-    _check_parts(parts, mesh, "psum")
-    total = _shard_sum(parts)
-    return _per_device(mesh, lambda dev: total.to(dev))
+def _gather_values(parts, group: "Group", dim: int, f32_partial=False):
+    if group.virtual:
+        shape = list(parts[0].shape)
+        shape[dim] *= group.size
+        out = [parts[0].new_empty(shape)]
+    else:
+        out = _results(torch.cat([p.to(group.devices[0]) for p in parts],
+                                 dim), group)
+    note_collective("all-gather", _nbytes(out[0]), group.axes, f32_partial)
+    return out
 
 
-def psum_scatter(parts: Sequence[torch.Tensor], mesh: NodeMesh
-                 ) -> List[torch.Tensor]:
-    """The sum over shards (in shard order), split along dim 0 into S
-    blocks: shard ``s`` gets block ``s`` (the reference's tiled
-    ``psum_scatter``)."""
-    _check_parts(parts, mesh, "psum_scatter")
-    total = _shard_sum(parts)
-    s = mesh.size
-    if total.shape[0] % s:
-        raise ValueError(f"psum_scatter: dim 0 of {tuple(total.shape)} "
-                         f"does not split over {s} shards")
-    m = total.shape[0] // s
-    return [total[i * m:(i + 1) * m].to(dev)
-            for i, dev in enumerate(mesh.devices)]
+def _sum_values(parts, group: "Group", f32_partial=False):
+    if group.virtual:
+        out = [parts[0].new_empty(parts[0].shape)]
+    else:
+        out = _results(_shard_sum(parts), group)
+    note_collective("all-reduce", 2 * _nbytes(parts[0]), group.axes,
+                    f32_partial)
+    return out
 
 
-def _check_parts(parts, mesh: NodeMesh, what: str) -> None:
-    if len(parts) != mesh.size:
+def _scatter_values(parts, group: "Group", dim: int, f32_partial=False):
+    n = parts[0].shape[dim]
+    if n % group.size:
+        raise ValueError(f"psum_scatter: dim {dim} of "
+                         f"{tuple(parts[0].shape)} does not split over "
+                         f"{group.size} shards")
+    if group.virtual:
+        shape = list(parts[0].shape)
+        shape[dim] = n // group.size
+        out = [parts[0].new_empty(shape)]
+    else:
+        blocks = _shard_sum(parts).split(n // group.size, dim)
+        out = [blocks[p].to(d, copy=not group.share)
+               for p, d in zip(group.positions, group.devices)]
+    note_collective("reduce-scatter", _nbytes(parts[0]), group.axes,
+                    f32_partial)
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, f32_partial, dim, *parts):
+        ctx.args = group, dim, f32_partial
+        return tuple(_gather_values(parts, group, dim, f32_partial))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) * 3 + tuple(_scatter_values(grads, *ctx.args))
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, f32_partial, *parts):
+        ctx.args = group, f32_partial
+        return tuple(_sum_values(parts, group, f32_partial))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) * 2 + tuple(_sum_values(grads, *ctx.args))
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, f32_partial, dim, *parts):
+        ctx.args = group, dim, f32_partial
+        return tuple(_scatter_values(parts, group, dim, f32_partial))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) * 3 + tuple(_gather_values(grads, *ctx.args))
+
+
+MeshLike = Union[NodeMesh, Group]
+
+
+def _group(mesh: MeshLike, parts, what: str) -> Group:
+    """The group a collective runs over (a ``NodeMesh``: its NODES
+    group), checked against the parts."""
+    g = mesh.nodes if isinstance(mesh, NodeMesh) else mesh
+    if len(parts) != len(g.devices):
         raise ValueError(f"{what}: {len(parts)} parts for a mesh of "
-                         f"{mesh.size} shards")
+                         f"{len(g.devices)} shards")
+    return g
+
+
+def _collective(fn, values, g: Group, parts, f32_partial: bool, *args
+                ) -> List[torch.Tensor]:
+    """A collective over ``g``: the parts themselves on one shard; where
+    ``g`` shares results, its values through plain autograd; else the
+    autograd function ``fn`` (the adjoint collective in its backward,
+    noted with the same ``f32_partial``)."""
+    if g.size == 1:
+        return list(parts)
+    if g.share:
+        return values(parts, g, *args, f32_partial)
+    return list(fn.apply(g, f32_partial, *args, *parts))
+
+
+def all_gather(parts: Sequence[torch.Tensor], mesh: MeshLike, dim: int = 0
+               ) -> List[torch.Tensor]:
+    """Each shard gets every shard's part, concatenated along ``dim`` in
+    shard order (the reference's tiled ``all_gather``).  ``mesh``: a
+    ``Group`` of a ``Mesh``, or a ``NodeMesh`` (its NODES group); the
+    backward is ``psum_scatter``."""
+    g = _group(mesh, parts, "all_gather")
+    return _collective(_AllGather, _gather_values, g, parts, False, dim)
+
+
+def psum(parts: Sequence[torch.Tensor], mesh: MeshLike, *,
+         f32_partial: bool = False) -> List[torch.Tensor]:
+    """Each shard gets the sum over shards (in shard order, in f32,
+    rounded once); the backward is ``psum``.  ``f32_partial``: as
+    ``note_collective`` takes it."""
+    return _collective(_Psum, _sum_values, _group(mesh, parts, "psum"),
+                       parts, f32_partial)
+
+
+def psum_scatter(parts: Sequence[torch.Tensor], mesh: MeshLike,
+                 dim: int = 0, *, f32_partial: bool = False
+                 ) -> List[torch.Tensor]:
+    """The sum over shards (in shard order), split along ``dim`` into
+    one block a shard: shard ``s`` gets block ``s`` (the reference's
+    tiled ``psum_scatter``); the backward is ``all_gather``.
+    ``f32_partial``: as ``note_collective`` takes it."""
+    g = _group(mesh, parts, "psum_scatter")
+    return _collective(_PsumScatter, _scatter_values, g, parts,
+                       f32_partial, dim)

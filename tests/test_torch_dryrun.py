@@ -18,8 +18,9 @@ virtual devices, the port traces one card):
   reaches a stand-in);
 * a trace of the kernel path holds no [B, K, D] gather;
 * rows of the kernel table (``PERF.md`` section 6) from their shapes;
-* the CLI in a subprocess (a GNN and an LM decode combination),
-  ``--multi-pod`` refused."""
+* the CLI in a subprocess (a GNN and an LM decode combination), and
+  ``--multi-pod``'s 2x16x16xH100 record (the multi-card layouts:
+  ``tests/test_torch_dryrun_multicard.py``)."""
 import dataclasses
 import json
 import os
@@ -361,12 +362,20 @@ def test_stand_ins_only_for_shape_only_tensors():
 
 
 def test_meshes():
+    """The one-card layout as it was; the multi-pod layout and the host
+    mesh of ``--model-par`` as the reference's (2 x 16 x 16 with a "pod"
+    axis; (devices / model_par, model_par))."""
     m = MESH.make_production_mesh()
     assert (m.name, m.chips, m.hbm_bytes) == ("1xH100", 1, 80e9)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        MESH.make_production_mesh(multi_pod=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        MESH.make_host_mesh(model_par=2)
+    assert m.mesh is None
+    mp = MESH.make_production_mesh(multi_pod=True)
+    assert (mp.name, mp.chips, mp.hbm_bytes) == ("2x16x16xH100", 512, 80e9)
+    assert (mp.mesh.axis_names, mp.mesh.shape) == (
+        ("pod", "data", "model"), (2, 16, 16))
+    host = MESH.make_host_mesh(model_par=2, devices=("cpu",) * 4)
+    assert (host.axis_names, host.shape) == (("data", "model"), (2, 2))
+    with pytest.raises(ValueError, match="must divide"):
+        MESH.make_host_mesh(model_par=3, devices=("cpu",) * 4)
 
 
 # ---------------------------------------------------------------------------
@@ -401,8 +410,15 @@ def test_dryrun_cli(tmp_path, args, tag):
 
 
 def test_dryrun_cli_refuses_multi_pod(tmp_path):
+    """``--multi-pod`` is no longer refused: it writes the 2x16x16xH100
+    records, one device's share of 512 cards, and no 1xH100 one."""
     out = _cli(["--arch", "gnn-papers100m", "--multi-pod", "--out",
                 str(tmp_path)])
-    assert out.returncode != 0
-    assert "Queue 1 item 5" in out.stderr
-    assert not os.listdir(tmp_path)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert sorted(os.listdir(tmp_path)) == [
+        f"gnn-papers100m__{s}__2x16x16xH100.json"
+        for s in ("fullgraph_train", "minibatch_train")]
+    for name in os.listdir(tmp_path):
+        rec = json.load(open(tmp_path / name))
+        assert rec["status"] == "ok" and rec["chips"] == 512
+        assert rec["collective_bytes_per_device"]["total"] > 0

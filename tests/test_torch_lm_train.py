@@ -22,8 +22,9 @@ weights carried over by ``params_from_numpy``:
 * ``token_batches`` array-equal; the reference's loss-falls case
   (granite smoke, 30 steps, ``adamw(3e-3)``, down by 0.5);
 * ``launch/train.py`` for an LM arch in a subprocess: the reference's
-  JSON keys, ``--ckpt-every``, ``--model-par 2`` refused, and no run on
-  the CPU without ``--device cpu``."""
+  JSON keys, ``--ckpt-every``, ``--model-par 2`` (a tensor-parallel run
+  on two CPU shards, ``tests/test_torch_tensor_parallel.py``), and no run
+  on the CPU without ``--device cpu``."""
 import dataclasses
 import json
 import os
@@ -284,8 +285,11 @@ def test_launch_train_lm_cli(tmp_path):
 
     out = _train(["--arch", "stablelm-1.6b", "--smoke", "--device", "cpu",
                   "--steps", "2", "--model-par", "2"])
-    assert out.returncode != 0
-    assert "Queue 1 item 5" in out.stderr
+    assert out.returncode == 0, out.stderr[-2000:]
+    two = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(two) == {"arch", "first_loss", "final_loss", "steps"}
+    assert two["steps"] == 2 and np.isclose(two["first_loss"],
+                                            rec["first_loss"], rtol=1e-5)
 
 
 def test_launch_train_lm_does_not_run_on_the_cpu_by_default():

@@ -269,8 +269,10 @@ def test_launch_train_smoke_prints_both_paradigms():
 
 
 @pytest.mark.parametrize("argv,exc,match", [
+    # --model-par runs (tests/test_torch_tensor_parallel.py); a degree
+    # that does not divide the dims param_specs splits is refused
     (["--arch", "granite-3-2b", "--smoke", "--device", "cpu",
-      "--model-par", "2"], NotImplementedError, "Queue 1 item 5"),
+      "--model-par", "3"], ValueError, "does not divide"),
 ])
 def test_launch_train_refuses_what_is_not_ported(argv, exc, match):
     with pytest.raises(exc, match=match):

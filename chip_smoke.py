@@ -315,9 +315,10 @@ or of the reference package ``repro``.
    library's ``kSmem`` query at every head dim) equal to the formula's,
    each symbol joined to its formula row, printed as ``15a resources``
    lines; the index tables of the audit graph; the thread audit of the
-   thread-crossing modules; the four fixtures, each of which must make
+   thread-crossing modules; the five fixtures, each of which must make
    the gate fire (the ``constant`` one uploads a host table inside a
-   step on the card).  (b) the dispatch-trace audit of the whole variant
+   step on the card; the ``pipeline`` one runs three planted pipeline
+   faults, each flagged by name, the short copy as a timeout).  (b) the dispatch-trace audit of the whole variant
    cube (every paradigm, plain and kernel, featshard, gcn), the shared
    eval and the inference chunk on the card at n = 192: no float64, no
    cast round trip, no host table fed to the card inside a step, no
@@ -326,9 +327,18 @@ or of the reference package ``repro``.
    kernel variants; each record counts the host syncs by op and as the
    sync debug mode reports them.  (c) the same trace audit of one step of each
    paradigm's kernel variant at gnn-papers100m's widths on the shared
-   graph.  Any gating finding left after ``allowlist.toml`` fails the
-   run.  (The planned sanitizer pass is not here: ``compute-sanitizer``
-   refuses this machine's H100.)
+   graph.  (d) the pipeline check: the checked build of both flash
+   kernels (``-DREPRO_PIPELINE_CHECK``, compiled here and timed) at
+   every case of ``kernel_audit.pipeline_cases`` (the ``wgmma`` ring at
+   D = 64, 112, 256 and the ``tf32x3`` cp.async groups at D = 16, 32,
+   64, 256 in f32 and once on bf16, each at S = 64, 128, 320, 200 and
+   window 0, 96), every block's event log held to the pairing rules,
+   every output bit-equal to the normal build's; one ``15d pipeline``
+   line a kernel (cases, blocks, events, findings, seconds, checked and
+   normal kernel ms) and whether ``tests/data/pipeline_logs.npz`` comes
+   from the current sources.  Any gating finding left after
+   ``allowlist.toml`` fails the run.  (``compute-sanitizer``'s memcheck
+   is not here: the sanitizer refuses this machine's H100.)
 16. The fault-tolerance surface under concurrency, gnn-papers100m at full
    width on the shared graph.  (a) An ``EmbeddingStore`` behind a
    ``GNNServer`` with ``max_staleness_s``, ``refresh_every_updates`` and
@@ -4940,8 +4950,67 @@ def trace_checks(label: str, findings, records, variants=None) -> None:
               f"on a {'kernel' if kernel else 'plain'} variant")
 
 
+#: the flash cases' logs kept for the CPU tests (recorded on the card by
+#: ``kernel_audit.record_pipeline_logs``)
+PIPELINE_LOGS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "data", "pipeline_logs.npz")
+
+
+def pipeline_fixture_checks(fs) -> None:
+    """Each planted pipeline fault flagged by a gating finding that names
+    it; the short copy as a timeout of the bounded wait."""
+    for name in AFX.PIPELINE_FAULTS:
+        mine = [f for f in fs if f":fixture:{name}:" in f.site]
+        check(mine, f"15a: the planted pipeline fault {name} was not "
+                    f"flagged")
+        print(f"15a fixture pipeline {name}: {len(mine)} finding(s), "
+              f"rules {sorted({f.site.rsplit(':', 1)[1] for f in mine})}",
+              flush=True)
+    check(any(f.site.endswith(":timeout") for f in fs
+              if ":ring_short_copy:" in f.site),
+          "15a: the short copy was not flagged as a timeout")
+
+
+def pipeline_phase(dev) -> dict:
+    """15d: the pipeline check (``kernel_audit.audit_pipelines``): the
+    checked build of both flash kernels (compiled here, timed) at every
+    case, each block's log held to the pairing rules, each output
+    bit-equal to the normal build's.  Its launches are no main-path
+    launches (it calls the libraries, not the counted wrappers)."""
+    if dev.type != "cuda":
+        print("15d pipeline check: not measured (the checked build runs on "
+              "the card)", flush=True)
+        return {"not measured": "the checked build runs on the card"}
+    tag = card_tag()
+    fs, summary = KA.audit_pipelines(device=dev)
+    print(f"15d checked library {summary['library']}: compiled in "
+          f"{summary['compile_s']:.2f} s ({tag})", flush=True)
+    rows = summary["kernels"]
+    for kernel, r in rows.items():
+        print(f"15d pipeline {kernel}: {r['cases']} cases, {r['blocks']} "
+              f"blocks, {r['events']} events, {r['findings']} findings, "
+              f"{r['seconds']:.2f} s; {r['bit_equal']} of {r['cases']} "
+              f"outputs bit-equal to the normal build; checked kernels "
+              f"{r['checked_ms']:.4f} ms against normal "
+              f"{r['normal_ms']:.4f} ms, summed over the cases ({tag})",
+              flush=True)
+    want = collections.Counter(c.kernel for c in KA.pipeline_cases())
+    check({k: r["cases"] for k, r in rows.items()} == dict(want),
+          f"15d: cases run {rows}, expected {dict(want)}")
+    check(all(r["bit_equal"] == r["cases"] for r in rows.values()),
+          f"15d: a checked output differs from the normal build's: {rows}")
+    gate_findings("15d", fs)
+    digest = KA.checked_digest()
+    kept = {lg["digest"] for lg in KA.load_pipeline_logs(PIPELINE_LOGS)
+            } if os.path.exists(PIPELINE_LOGS) else set()
+    print(f"15d committed logs (tests/data/pipeline_logs.npz): digest "
+          f"{sorted(kept)}, the checked build's {digest}: "
+          f"{'current' if kept == {digest} else 'stale'}", flush=True)
+    return dict(summary, committed_logs_current=kept == {digest})
+
+
 def audit_phase(dev, sz: Sizes, graph) -> dict:
-    """Phase 15 (15a-c): the static audits on the card."""
+    """Phase 15 (15a-d): the static audits on the card."""
     tag = card_tag()
     secs, out = {}, {}
     t0 = time.perf_counter()
@@ -4971,6 +5040,8 @@ def audit_phase(dev, sz: Sizes, graph) -> dict:
         check(fs, f"15a: fixture {name} did not make the gate fire")
         print(f"15a fixture {name}: {len(fs)} gating finding(s), first: "
               f"{fs[0].site}: {fs[0].detail}", flush=True)
+        if name == "pipeline":
+            pipeline_fixture_checks(fs)
     secs["15a kernels + threads"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     fs, recs = TR.audit_traces(n=192, device=dev)
@@ -4995,6 +5066,9 @@ def audit_phase(dev, sz: Sizes, graph) -> dict:
     out["full_width"] = full
     secs["15c traces full width"] = time.perf_counter() - t0
     E.drop_device_cache(graph)
+    t0 = time.perf_counter()
+    out["pipelines"] = pipeline_phase(dev)
+    secs["15d pipeline check"] = time.perf_counter() - t0
     out["seconds"] = secs
     return out
 

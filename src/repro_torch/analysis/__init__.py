@@ -9,8 +9,10 @@ surfaces (the counterpart of the reference's ``repro.analysis``):
   the host syncs per step in each record.
 * :mod:`repro_torch.analysis.kernel_audit` — the CUDA kernels' shared
   memory, registers and threads against the H100's limits, by formula
-  and (on the card's machine) as built, and bounds checks of the index
-  tables the kernels gather by.
+  and (on the card's machine) as built, bounds checks of the index
+  tables the kernels gather by, and the pairing of the flash kernels'
+  asynchronous pipelines (the event logs of their checked build, run on
+  the card).
 * :mod:`repro_torch.analysis.thread_audit` — AST concurrency lint over
   the thread-crossing modules (prefetch/engine/serving/featcache/
   inference/embedding_store): shared attributes written from two thread

@@ -11,14 +11,16 @@ finding (severity error / warning) survives ``allowlist.toml``:
   inference chunk under a dispatch trace (``trace_audit``);
 * **kernel** — the CUDA kernels' budgets by formula and their launch
   constants against the sources; on the card, every symbol of the built
-  libraries as ``cuobjdump`` reads it; the index tables of the audit
-  graph (``kernel_audit``);
+  libraries as ``cuobjdump`` reads it and the pipeline check (the
+  checked build of both flash kernels, every case of
+  ``kernel_audit.pipeline_cases``, its logs held to the pairing rules);
+  the index tables of the audit graph (``kernel_audit``);
 * **thread** — AST concurrency lint over the thread-crossing modules.
 
 ``--device`` defaults to ``cuda`` and raises on a machine without a
-card; ``--device cpu`` runs what the CPU can: the resource half of the
-kernel audit needs the card's toolkit and is then reported as not
-measured.  The trace audit is cached in
+card; ``--device cpu`` runs what the CPU can: the resource half and the
+pipeline check of the kernel audit need the card and its toolkit and are
+then reported as not measured.  The trace audit is cached in
 ``experiments/.analysis_cache_torch.json``, keyed by a sha256 over every
 ``src/repro_torch/**/*.{py,cu,cuh}`` (path and bytes), ``torch.__version__``
 and the device; ``--no-cache`` retraces.  The audit graph has
@@ -126,10 +128,13 @@ def main(argv=None) -> int:
     findings += KA.audit_budgets(table) + KA.audit_sources()
     if device.type == "cuda":
         rfs, resources = KA.audit_built()
-        findings += rfs
+        pfs, pipelines = KA.audit_pipelines(device=device)
+        findings += rfs + pfs
     else:
         resources = ("not measured: the built libraries' resources are "
                      "read with cuobjdump on the card's machine")
+        pipelines = ("not measured: the checked build of the flash kernels "
+                     "runs on the card")
     findings += KA.audit_index_tables(audit_graph())
     findings += TA.audit_threads()
     tfs, records, cached, digest = run_trace_audit(not args.no_cache,
@@ -141,6 +146,10 @@ def main(argv=None) -> int:
         "trace cache": ("hit" if cached else "miss")
                        + f" (src digest {digest[:12]})",
         "variants traced": len(records),
+        "pipeline check": pipelines if isinstance(pipelines, str) else
+        ", ".join(f"{k} {r['cases']} cases, {r['events']} events, "
+                  f"{r['findings']} findings"
+                  for k, r in pipelines["kernels"].items()),
         "device": str(device),
         "elapsed": f"{time.time() - t0:.1f}s",
     }))
@@ -153,6 +162,7 @@ def main(argv=None) -> int:
                        if device.type == "cuda" else "cpu"),
             "budget_table": table,
             "resource_table": resources,
+            "pipeline_check": pipelines,
             "trace_records": records,
             "src_digest": digest,
         }

@@ -8,9 +8,11 @@ link per library.  ``build_all`` starts the compiles of every library it
 is given at once.  The build runs at first use, from the sources in the
 checkout, into ``_build/`` beside the package's ``csrc/`` (listed in
 ``.gitignore``); the library's file name carries a digest of every
-source and header under ``csrc/`` and of the flags, so an edited source
-is rebuilt and never loaded stale.  Nothing happens at import: the CPU
-tests import this module on machines without ``nvcc``.
+source and header under ``csrc/`` (and the include directories), of the
+flags and of the library's extra defines, so an edited source is rebuilt
+and never loaded stale, and a checked build (``-DREPRO_PIPELINE_CHECK``)
+never shares a file with the normal one.  Nothing happens at import: the
+CPU tests import this module on machines without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -55,16 +57,21 @@ def _run_all(cmds) -> list:
 
 
 class Library:
-    """One kernel package's library: ``package_dir/csrc/*.cu`` built into
+    """One kernel package's library: ``package_dir/<csrc>/*.cu`` built into
     ``package_dir/_build/lib<name>_<digest>.so``.  ``declare`` sets the
     ``argtypes`` and ``restype`` of every C entry point on the loaded
-    library."""
+    library.  ``defines`` are passed as ``-D``; ``include_dirs`` as
+    ``-I``, their headers hashed into the digest."""
 
     def __init__(self, package_dir: str, name: str,
-                 declare: Callable[[ctypes.CDLL], None]):
-        self.csrc = os.path.join(package_dir, "csrc")
+                 declare: Callable[[ctypes.CDLL], None], *,
+                 csrc: str = "csrc", defines: Sequence[str] = (),
+                 include_dirs: Sequence[str] = ()):
+        self.csrc = os.path.join(package_dir, csrc)
         self.build_dir = os.path.join(package_dir, "_build")
         self.name = name
+        self.defines = tuple(defines)
+        self.include_dirs = tuple(include_dirs)
         self._declare = declare
         self._lock = threading.Lock()
         self._lib: Optional[ctypes.CDLL] = None
@@ -72,10 +79,18 @@ class Library:
     def sources(self) -> List[str]:
         return sorted(glob.glob(os.path.join(self.csrc, "*.cu")))
 
+    def flags(self) -> List[str]:
+        return [*NVCC_FLAGS, *(f"-D{d}" for d in self.defines),
+                *(f"-I{d}" for d in self.include_dirs)]
+
     def path(self) -> str:
-        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for path in sorted(self.sources()
-                           + glob.glob(os.path.join(self.csrc, "*.cuh"))):
+        # the include directories enter by their headers' bytes, not by
+        # their paths, so a digest is the same in every checkout
+        digest = hashlib.sha256(" ".join(
+            [*NVCC_FLAGS, *(f"-D{d}" for d in self.defines)]).encode())
+        headers = [h for d in (self.csrc, *self.include_dirs)
+                   for h in glob.glob(os.path.join(d, "*.cuh"))]
+        for path in sorted(self.sources() + headers):
             with open(path, "rb") as f:
                 digest.update(os.path.basename(path).encode() + b"\0"
                               + f.read())
@@ -118,7 +133,7 @@ def build_all(libs: Sequence[Library], verbose: bool = False) -> List[str]:
             srcs = lib.sources()
             objs = [os.path.join(tmp, os.path.basename(s) + ".o")
                     for s in srcs]
-            compiles += [[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", o, s]
+            compiles += [[nvcc, *lib.flags(), *ptxas, "-c", "-o", o, s]
                          for s, o in zip(srcs, objs)]
             links.append((os.path.join(tmp, "lib.so"), path, objs))
         outs = _run_all(compiles)

@@ -1,6 +1,9 @@
 """The flash-attention CUDA library (``csrc/flash_attn.cu`` and
 ``csrc/flash_attn_wgmma.cu``), built and loaded by the shared builder
-``repro_torch.kernels.build``."""
+``repro_torch.kernels.build``, and its checked build (``CHECKED``: the
+same sources with ``-DREPRO_PIPELINE_CHECK``, whose kernels log their
+pipelines for ``analysis.kernel_audit.audit_pipelines``; built only when
+that check runs, and only at the head dims of ``CHECKED_DIMS``)."""
 from __future__ import annotations
 
 import ctypes
@@ -26,8 +29,28 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_longlong
 
 
-LIBRARY = Library(os.path.dirname(os.path.abspath(__file__)), "flash_attn",
-                  _declare)
+def _declare_checked(lib: ctypes.CDLL) -> None:
+    _declare(lib)
+    for name in ("flash_attn_forward", "flash_attn_wgmma_forward"):
+        fn = getattr(lib, name)                  # + the log, records a block
+        fn.argtypes = list(fn.argtypes) + [ctypes.c_void_p, ctypes.c_int]
+    lib.pipeline_check_record_bytes.argtypes = []
+    lib.pipeline_check_record_bytes.restype = ctypes.c_int
+
+
+#: the head dims the checked build compiles, by kernel and dtype: those
+#: of the pipeline check's cases
+CHECKED_DIMS = {"PC_WGMMA_DIMS": (64, 112, 256),
+                "PC_F32_DIMS": (16, 32, 64, 256),
+                "PC_BF16_DIMS": (64,)}
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+LIBRARY = Library(_DIR, "flash_attn", _declare)
+CHECKED = Library(
+    _DIR, "flash_attn_checked", _declare_checked,
+    defines=("REPRO_PIPELINE_CHECK",) + tuple(
+        f"{k}={sum(1 << (d // 16) for d in dims)}"
+        for k, dims in CHECKED_DIMS.items()))
 
 
 def load_library() -> ctypes.CDLL:

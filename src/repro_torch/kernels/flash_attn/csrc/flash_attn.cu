@@ -71,11 +71,19 @@
 //   here there is none to rescale.
 // * Ragged S: rows and keys past S are loaded as 0, keys past S are
 //   masked, rows past S are not stored.
+//
+// Built with -DREPRO_PIPELINE_CHECK (the checked library of build.py) it
+// logs its cp.async pipeline on lane 0 of each warp (pipeline_check.cuh):
+// each tile load with its buffer, each commit and wait_group, each
+// __syncthreads by its site, and each read of a Q, K or V tile with the
+// tile it expects.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "pipeline_check.cuh"
 
 namespace {
 
@@ -387,9 +395,14 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, Tile<D>::kMinBlocks)
   }
   const int kt_hi = q_last / kBK;
 
+  if (threadIdx.x == 0)
+    PC_LOG(kLayout, smem_addr(qs), smem_addr(ks), smem_addr(vs), -1, 0);
+  PC_LANE0_LOG(kLoad, smem_addr(qs), -1, -1, 0, qi);
   load_tile<T, D, kBQ, Tl::kThreads>(qs, qb, q_row, q_start, s_len);
+  PC_LANE0_LOG(kLoad, smem_addr(ks), -1, -1, 0, kt_lo);
   load_tile<T, D, kBK, Tl::kThreads>(ks, kb, kv_row, kt_lo * kBK, s_len);
   cp_async_commit();
+  PC_LANE0_LOG(kCommit, -1, -1, -1, 0, -1);
 
   const uint32_t a_at = smem_addr(qs + kWR * warp * kS) + a_lane<T, kS>(lane);
   const uint32_t k_at = smem_addr(ks) + kb_lane<T, kS>(lane);
@@ -413,8 +426,10 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, Tile<D>::kMinBlocks)
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k_start = kt * kBK;
     const int k_end = k_start + kBK;  // one past the tile's last key
+    PC_LANE0_LOG(kLoad, smem_addr(vs), -1, -1, 0, kt);
     load_tile<T, D, kBK, Tl::kThreads>(vs, vb, kv_row, k_start, s_len);
     cp_async_commit();
+    PC_LANE0_LOG(kCommit, -1, -1, -1, 0, kt);
     // does any row of this warp keep a key of the tile, and must the tile
     // be masked key by key for it
     const bool active = r0 < s_len && k_start <= r0 + kWR - 1 &&
@@ -422,7 +437,9 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, Tile<D>::kMinBlocks)
     const bool full = k_end - 1 <= r0 && k_end <= s_len &&
                       (window == 0 || k_start > r0 + kWR - 1 - window);
     cp_async_wait<1>();  // this tile's K (and Q) have landed
+    PC_LANE0_LOG(kWaitGroup, -1, -1, 1, 0, kt);
     __syncthreads();
+    PC_LANE0_LOG(kSync, -1, -1, 1, 0, kt);
 
     // ---- S = Q K^T for the warp's rows (V is in flight)
     float sc[kMT][kNT][4];
@@ -433,6 +450,8 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, Tile<D>::kMinBlocks)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[mt][n][e] = 0.f;
     if (active) {
+      PC_LANE0_LOG(kRead, smem_addr(qs), -1, -1, 0, qi);
+      PC_LANE0_LOG(kRead, smem_addr(ks), -1, -1, 0, kt);
 #pragma unroll
       for (int kc = 0; kc < D; kc += 8) {
         uint32_t ab[kMT][4], as[kMT][4];
@@ -459,9 +478,12 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, Tile<D>::kMinBlocks)
       }
     }
     __syncthreads();  // every warp is done with K
+    PC_LANE0_LOG(kSync, -1, -1, 2, 0, kt);
     if (kt < kt_hi) {
+      PC_LANE0_LOG(kLoad, smem_addr(ks), -1, -1, 0, kt + 1);
       load_tile<T, D, kBK, Tl::kThreads>(ks, kb, kv_row, k_end, s_len);
       cp_async_commit();
+      PC_LANE0_LOG(kCommit, -1, -1, -1, 0, kt + 1);
     }
 
     // ---- mask, then the online softmax of rows g and g + 8 of each m16
@@ -516,13 +538,17 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, Tile<D>::kMinBlocks)
     }
     if (kt < kt_hi) {
       cp_async_wait<1>();  // this tile's V has landed; the next K flies
+      PC_LANE0_LOG(kWaitGroup, -1, -1, 1, 0, kt);
     } else {
       cp_async_wait<0>();
+      PC_LANE0_LOG(kWaitGroup, -1, -1, 0, 0, kt);
     }
     __syncthreads();
+    PC_LANE0_LOG(kSync, -1, -1, 3, 0, kt);
 
     // ---- O += P V over the tile's keys (the next tile's K is in flight)
     if (active) {
+      PC_LANE0_LOG(kRead, smem_addr(vs), -1, -1, 0, kt);
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
         // k-slot t <- key 8j + 2t (c0, c2), slot t + 4 <- key 8j + 2t + 1
@@ -550,6 +576,7 @@ __global__ void __launch_bounds__(Tile<D>::kThreads, Tile<D>::kMinBlocks)
       }
     }
     __syncthreads();  // every warp is done with V
+    PC_LANE0_LOG(kSync, -1, -1, 4, 0, kt);
   }
 
   // n-tiles n and n + 1 hold, in this thread, the output columns
@@ -588,21 +615,25 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int s, int hq, int hkv, int window, float scale,
            cudaStream_t stream) {
-  using Tl = Tile<D>;
-  const size_t smem = Smem<T, D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // z is scheduled last: every (head, batch) block of the last query
-  // tile goes before any block of an earlier one
-  const dim3 grid((unsigned)hq, (unsigned)b,
-                  (unsigned)((s + kBQ - 1) / kBQ));
-  flash_attn_kernel<T, D><<<grid, Tl::kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), s, hq, hkv, window,
-      scale * kLog2e);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (!PC_BUILT(sizeof(T) == 4 ? PC_F32_DIMS : PC_BF16_DIMS, D)) {
+    return kBadArgs;  // a head dim this checked build leaves out
+  } else {
+    using Tl = Tile<D>;
+    const size_t smem = Smem<T, D>::kBytes;
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_attn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // z is scheduled last: every (head, batch) block of the last query
+    // tile goes before any block of an earlier one
+    const dim3 grid((unsigned)hq, (unsigned)b,
+                    (unsigned)((s + kBQ - 1) / kBQ));
+    flash_attn_kernel<T, D><<<grid, Tl::kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), s, hq, hkv, window,
+        scale * kLog2e);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T>
@@ -633,16 +664,18 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int b,
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16.  Returns 0, a cudaError_t of the launch, or
-// 1000 for arguments it refuses (the wrapper checks them first).
+// 1000 for arguments it refuses (the wrapper checks them first).  The
+// checked build also takes the log and its capacity in records a block.
 extern "C" int flash_attn_forward(int dtype, const void* q, const void* k,
                                   const void* v, void* o, int b, int s,
                                   int hq, int hkv, int d, int window,
-                                  float scale, void* stream) {
+                                  float scale, void* stream PC_ENTRY_PARAMS) {
   if (b <= 0 || s <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 ||
       window < 0 || b > 65535 || (s + kBQ - 1) / kBQ > 65535) {
     return kBadArgs;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  PC_SET_LOG(st);
   if (dtype == 0) {
     return launch_d<float>(q, k, v, o, b, s, hq, hkv, d, window, scale, st);
   }
@@ -675,3 +708,10 @@ extern "C" long long flash_attn_smem_bytes(int d) {
       return -1;
   }
 }
+
+#ifdef REPRO_PIPELINE_CHECK
+// bytes of one log record (the host's decoder checks its layout)
+extern "C" int pipeline_check_record_bytes() {
+  return (int)(pc::kFields * sizeof(int));
+}
+#endif

@@ -61,6 +61,11 @@
 //   with exp2 and the scale folded into scale * log2(e).  A row with no
 //   kept key so far keeps its max at -inf and adds nothing, whatever
 //   order the tiles come in (as in csrc/flash_attn.cu).
+//
+// Built with -DREPRO_PIPELINE_CHECK (the checked library of build.py) it
+// logs its ring (pipeline_check.cuh): the layout, every mbarrier init,
+// expect_tx, TMA box, wait and arrival, and each wgmma group's commit and
+// retire with the stage it reads.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -140,6 +145,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_tiles = q_last / kBK - kt_lo + 1;
 
   if (threadIdx.x == 0) {
+    PC_LOG(kLayout, sq, sk, sv, bar, C::kTile);
     for (int st = 0; st < kStages; ++st) {
       mbar_init(full_k(st), 1);
       mbar_init(full_v(st), 1);
@@ -213,6 +219,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         // zero-filled columns 112-127 take no step)
         float s[32];
         const uint32_t k_st = sk + st * C::kTile;
+        PC_LANE0_LOG(kMmaCommit, k_st, q_wg, -1, 0, it);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
@@ -223,6 +230,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(s);
+        PC_LANE0_LOG(kMmaRetire, k_st, q_wg, -1, 0, it);
 
         // s[4j + e]: row (e < 2 ? row_a : row_b), key k0 + 8j + 2t + (e & 1)
         float mx_a = -INFINITY, mx_b = -INFINITY;
@@ -287,6 +295,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t v_st = sv + st * C::kTile;
         fence_regs(acc);  // the rescale and P are written before the fence
         fence_regs(pf);
+        PC_LANE0_LOG(kMmaCommit, v_st, -1, -1, 0, it);
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < kBK / 16; ++ks) {
@@ -298,6 +307,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(acc);
+        PC_LANE0_LOG(kMmaRetire, v_st, -1, -1, 0, it);
       } else {
         mbar_wait(full_v(st), ph);
       }
@@ -383,18 +393,23 @@ template <int D>
 int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
            void* o, int b, int s, int hq, int hkv, int window, float scale_log2,
            cudaStream_t stream) {
-  const size_t smem = Cfg<D>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // z is scheduled last: every (head, batch) block of the last query
-  // tile goes before any block of an earlier one
-  const dim3 grid((unsigned)hq, (unsigned)b, (unsigned)((s + kBQ - 1) / kBQ));
-  flash_attn_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), s, hq, hkv, window,
-      scale_log2);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (!PC_BUILT(PC_WGMMA_DIMS, D)) {
+    return kBadArgs;  // a head dim this checked build leaves out
+  } else {
+    const size_t smem = Cfg<D>::kSmem;
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_attn_wgmma_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // z is scheduled last: every (head, batch) block of the last query
+    // tile goes before any block of an earlier one
+    const dim3 grid((unsigned)hq, (unsigned)b,
+                    (unsigned)((s + kBQ - 1) / kBQ));
+    flash_attn_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
+        qm, km, vm, static_cast<__nv_bfloat16*>(o), s, hq, hkv, window,
+        scale_log2);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 }  // namespace
@@ -402,11 +417,13 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
 // bf16 only; d is 64, 112, 128 or 256.  Returns 0, a cudaError_t of the
 // launch, 1000 for arguments it refuses (the wrapper checks them first),
 // 2000 + a CUresult if a tensor map cannot be encoded, or 3000 if the
-// CUDA driver's cuTensorMapEncodeTiled cannot be found.
+// CUDA driver's cuTensorMapEncodeTiled cannot be found.  The checked
+// build also takes the log and its capacity in records a block.
 extern "C" int flash_attn_wgmma_forward(const void* q, const void* k,
                                         const void* v, void* o, int b, int s,
                                         int hq, int hkv, int d, int window,
-                                        float scale, void* stream) {
+                                        float scale,
+                                        void* stream PC_ENTRY_PARAMS) {
   if (b <= 0 || s <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 ||
       window < 0 || b > 65535 || (s + kBQ - 1) / kBQ > 65535 ||
       (d != 64 && d != 112 && d != 128 && d != 256)) {
@@ -421,6 +438,7 @@ extern "C" int flash_attn_wgmma_forward(const void* q, const void* k,
   if (err != 0) return err;
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  PC_SET_LOG(st);
   switch (d) {
     case 64:
       return launch<64>(qm, km, vm, o, b, s, hq, hkv, window, scale_log2, st);

@@ -2,11 +2,15 @@
 // (flash_attn_wgmma.cu): mbarriers, TMA tile loads, wgmma matrix
 // descriptors for 128-byte swizzled shared-memory tiles, and the wgmma
 // instructions the kernel issues.  Raw PTX, no CUTLASS/CuTe, so the file
-// builds in seconds.
+// builds in seconds.  In the checked build (pipeline_check.cuh) every
+// mbarrier operation and TMA load logs itself, and mbar_wait gives up
+// after pc::kTimeoutCycles instead of spinning without a bound.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (the type only; no CUDA driver call is linked)
 #include <stdint.h>
+
+#include "pipeline_check.cuh"
 
 namespace fa_sm90 {
 
@@ -17,6 +21,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // ---- mbarrier -------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  PC_LOG(kInit, bar, -1, -1, count, -1);
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
                "r"(count)
                : "memory");
@@ -24,6 +29,7 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
 
 // arrive once and add `bytes` to the transactions the phase waits for
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  PC_LOG(kExpectTx, bar, -1, -1, bytes, -1);
   asm volatile(
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
       "r"(bytes)
@@ -31,12 +37,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
 }
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  PC_LOG(kArrive, bar, -1, -1, 0, -1);
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
 }
 
 // wait until the phase of parity `parity` has completed (a fresh barrier
 // counts the phase before its first as completed, parity 1)
+#ifndef REPRO_PIPELINE_CHECK
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
   do {
@@ -51,8 +59,37 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "memory");
   } while (!done);
 }
+#else
+// the checked build's wait: bounded, logged once a warp after the phase
+// completed (or when it gives up)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > pc::kTimeoutCycles) {
+      PC_LANE0_LOG(kTimeout, bar, -1, parity, 0, -1);
+      return;
+    }
+  } while (!done);
+  PC_LANE0_LOG(kWait, bar, -1, parity, 0, -1);
+}
+#endif
 
 // ---- TMA ------------------------------------------------------------------
+
+// bytes of one TMA box: 64 columns x 64 rows of bf16 (the box of
+// flash_attn_wgmma.cu's make_map; rows and columns outside the tensor
+// arrive as zeros and count all the same)
+constexpr uint32_t kBoxBytes = 64 * 64 * 2;
 
 // one box of a 4-D tensor map into shared memory; completion is counted
 // in bytes on `bar`.  Coordinates run innermost first; rows outside the
@@ -60,6 +97,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1,
                                             int c2, int c3) {
+  PC_LOG(kTma, bar, dst, -1, kBoxBytes, c2);
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),

@@ -1302,3 +1302,28 @@ def test_constant_fixture_is_flagged_on_the_card(cuda):
     fs = AFX.run_fixture("constant", cuda)
     assert fs and all(f.severity == "error" for f in fs), fs
     assert "host tensor" in fs[0].detail
+
+
+def test_pipeline_fixture_is_flagged_on_the_card(cuda):
+    """The three planted pipeline faults run on the card, each flagged by
+    name; the short copy as a timeout of the bounded wait, not a hang."""
+    from repro_torch.analysis import fixtures as AFX
+    fs = AFX.run_fixture("pipeline", cuda)
+    assert fs and all(f.severity == "error" for f in fs)
+    for name in AFX.PIPELINE_FAULTS:
+        assert any(f":fixture:{name}:" in f.site for f in fs), name
+    assert any(f.site.endswith(":timeout") for f in fs
+               if ":ring_short_copy:" in f.site)
+
+
+def test_pipeline_check_is_clean_on_the_card(cuda):
+    """The checked build of both flash kernels at the ring's warm-up,
+    wrap and ragged tail: no finding, outputs bit-equal to the normal
+    build's."""
+    from repro_torch.analysis import kernel_audit as KA
+    cases = [c for c in KA.pipeline_cases() if c.s in (64, 320)
+             and c.d in (64, 256)]
+    fs, summary = KA.audit_pipelines(cases, device=cuda)
+    assert fs == [], [str(f) for f in fs]
+    assert all(r["bit_equal"] == r["cases"]
+               for r in summary["kernels"].values())

@@ -202,9 +202,9 @@ def test_ci_stage_commands():
     assert "tests/test_torch_serving_chaos.py" in tests
     assert all(a.startswith("tests/test_torch_") for a in tests[4:])
     fixtures = [s.argv[-1] for s in card["analyze"] if s.gate]
-    assert fixtures == ["thread", "f64", "constant", "kernel"]
+    assert fixtures == ["thread", "f64", "constant", "kernel", "pipeline"]
     assert [s.argv[-1] for s in cpu["analyze"] if s.gate] == [
-        "thread", "f64", "kernel"]
+        "thread", "f64", "kernel", "pipeline"]
     assert len(cpu["serve-smoke"]) == 2
     assert "--kernel" in cpu["serve-smoke"][1].argv
     chaos = " ".join(" ".join(s.argv) for s in cpu["chaos"])

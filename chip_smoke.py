@@ -389,6 +389,25 @@ or of the reference package ``repro``.
    wall time, the collective bytes the mesh counted
    (``sharding.collective_counts``) and the flash launches; the kernels
    line gives each kernel's ``launches_phase17`` by path.
+18. The NODES-sharded paths one process a rank (``launch.procs``,
+   ``sharding.process_node_mesh``): the shared graph's arrays written
+   once to a temporary directory and memory-mapped by each rank, which
+   uploads only its ``n_pad / S`` rows.  (a) World size 1 over NCCL
+   (each collective called once): ``fullgraph_sharded`` (5 steps) and
+   ``minibatch_sharded`` (b = 8192, fan-out (15, 10), 10 steps) bit-equal
+   to phase 12a's one-shard runs (losses, evaluations, test accuracy,
+   parameters) with equal launches.  (b) Four processes on the card over
+   the host-staged transport, ``fullgraph_sharded`` with the kernels, 5
+   steps: every rank the same losses and parameters, within 2e-2 of phase
+   12b's single-process S = 4 run; each rank's tiled-forward and
+   reverse-index-backward launches those of the unsharded run (one a
+   call, on its own block); each rank holding a quarter of the padded ELL,
+   features and labels; each rank's peak bytes beside 12b's and its
+   ms/step (time-sliced on one card, not a four-card time).  (c) Two
+   processes, ``minibatch_sharded`` (1e-4) and the featshard layout
+   (2e-2) against 12b, three steps each.  A rank's failure fails the
+   phase.  The kernels line gives each kernel's ``launches_phase18`` by
+   path, summed over the ranks.
 
 Every failed check raises.  The last stdout line is
 ``{"ok": true, "device": {...}}``; the line before it names the card and
@@ -424,6 +443,7 @@ import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
@@ -447,7 +467,7 @@ from repro_torch.core import experiment as X  # noqa: E402
 from repro_torch.core import faults  # noqa: E402
 from repro_torch.core import gnn as G  # noqa: E402
 from repro_torch.core.embedding_store import EmbeddingStore  # noqa: E402
-from repro_torch.core.graph import to_ell  # noqa: E402
+from repro_torch.core.graph import Graph, to_ell  # noqa: E402
 from repro_torch.core.serving import (  # noqa: E402
     DeadlineExceededError, GNNServer, ServerOverloadedError)
 from repro_torch.data.synth import make_preset, token_batches  # noqa: E402
@@ -460,6 +480,7 @@ from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
 from repro_torch.kernels.neighbor_agg import build as na_build  # noqa: E402
 from repro_torch.kernels.neighbor_agg import featshard as FS  # noqa: E402
 from repro_torch.kernels.neighbor_agg import ops  # noqa: E402
+from repro_torch.launch import procs  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
@@ -558,7 +579,7 @@ class Sizes:
     # phase 12 (b and fan-out are mb_b and mb_fanout)
     sh_shards: int = 4             # NODES shards of 12b-c, all on one card
     sh_fg_steps: int = 5           # full-graph runs
-    sh_mb_steps: int = 10          # mini-batch runs
+    sh_mb_steps: int = 5           # mini-batch runs
     sh_queries: int = 64           # queries to the featshard store
     # phase 13: LM training (stablelm-1.6b, train_4k's sequence, its
     # global batch 256 cut to 8 for one card)
@@ -566,7 +587,7 @@ class Sizes:
     lt_smoke: bool = False
     lt_b: int = 8
     lt_s: int = 4096
-    lt_steps: int = 10
+    lt_steps: int = 5
     # phase 14: the MoE, SSM, hybrid, audio and VLM families (full
     # configs at the depths below; smoke configs when fam_smoke)
     fam_smoke: bool = False
@@ -3559,6 +3580,26 @@ def sharded_grads(loss_a, loss_b, params, tol, label) -> float:
     return err
 
 
+def run_record(res) -> dict:
+    """What phase 18 holds a run to: History's losses and evaluations,
+    the test accuracy and the final parameters on the host."""
+    h = res.history
+    return {"losses": list(h.losses), "val_accs": list(h.val_accs),
+            "test_acc": res.final_test_acc,
+            "params": [{k: v.detach().float().cpu().numpy()
+                        for k, v in p.items()} for p in res.params]}
+
+
+def peak_reset(dev) -> int:
+    """Reset the card's peak-memory counter; the bytes allocated now (0
+    on the CPU)."""
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
 def fresh_params(res):
     return [{k: v.detach().clone().requires_grad_() for k, v in p.items()}
             for p in res.params]
@@ -3606,7 +3647,8 @@ def sharded_s1(dev, sz: Sizes, graph) -> dict:
                          f"12a {key}: launches {counts}, want {want} and "
                          f"no phase 2")
         out[key] = dict(counts=counts, wall_s=wall, ms_step=steady_ms(
-            res.history), stats=src.featshard_stats, bind_s=src.bind_s)
+            res.history), stats=src.featshard_stats, bind_s=src.bind_s,
+            run=run_record(res))
         print(f"12a {key} S=1: {len(res.history.losses)} steps, losses "
               f"bit-equal to FullGraphSource "
               f"{[round(x, 6) for x in res.history.losses]}, launches "
@@ -3625,7 +3667,8 @@ def sharded_s1(dev, sz: Sizes, graph) -> dict:
           f"{steady_ms(res.history):.2f} ms/step ({shard_label(1)})",
           flush=True)
     out["minibatch_sharded"] = dict(counts=counts, wall_s=wall,
-                                    ms_step=steady_ms(res.history))
+                                    ms_step=steady_ms(res.history),
+                                    run=run_record(res))
     out["fullgraph"] = dict(counts=base[1], ms_step=steady_ms(
         base[0].history), params=fresh_params(base[0]))
     out["minibatch"] = dict(counts=mb[1], ms_step=steady_ms(mb[0].history))
@@ -3653,7 +3696,10 @@ def sharded_s4(dev, sz: Sizes, graph, s1: dict) -> dict:
     for key, c in (("fullgraph_sharded", cfg), ("featshard", fs_cfg)):
         def source():
             return E.ShardedFullGraphSource(max_deg=k, mesh=mesh)
+        base_bytes = peak_reset(dev)
         res, counts, wall, src = sharded_run(dev, graph, c, fplan, source())
+        peak = (torch.cuda.max_memory_allocated(dev) - base_bytes
+                if dev.type == "cuda" else 0)
         losses = res.history.losses
         check(falling(losses), f"12b {key}: losses {losses} not finite "
               f"and falling")
@@ -3682,7 +3728,8 @@ def sharded_s4(dev, sz: Sizes, graph, s1: dict) -> dict:
                             2e-2, f"12b {key} S={s} (bf16 aggregation)")
         entry = dict(counts=counts, wall_s=wall, losses=losses,
                      ms_step=steady_ms(res.history), grad_err=err,
-                     bind_s=src.bind_s)
+                     bind_s=src.bind_s, run=run_record(res),
+                     peak_bytes=peak)
         if key == "featshard":
             entry.update(featshard_check(graph, c, src))
             entry["plan"] = src.feats_plan
@@ -3722,7 +3769,8 @@ def sharded_s4(dev, sz: Sizes, graph, s1: dict) -> dict:
     one.close()
     out["minibatch_sharded"] = dict(counts=counts, wall_s=wall,
                                     losses=losses, grad_err=err,
-                                    ms_step=steady_ms(res.history))
+                                    ms_step=steady_ms(res.history),
+                                    run=run_record(res))
     print(f"12b minibatch_sharded S={s}: {len(losses)} steps at "
           f"b={src.b}, losses {[round(x, 5) for x in losses]}; launches "
           f"{counts}; {out['minibatch_sharded']['ms_step']:.2f} ms/step "
@@ -5793,12 +5841,321 @@ def add_phase17(kernels: list, p17: dict) -> None:
         kern["launches_phase17"] = {p: c[key] for p, c in paths.items()}
 
 
-def run(dev: torch.device, sz: Sizes) -> dict:
-    # full f32 products everywhere (TF32 off), bf16 GEMMs reduce in f32
+# ---------------------------------------------------------------------------
+# phase 18: the NODES-sharded paths one process a rank
+# ---------------------------------------------------------------------------
+
+GRAPH_ARRAYS = ("indptr", "indices", "feats", "labels", "train_mask",
+                "val_mask", "test_mask")
+#: seconds a phase-18 spawn may take before its ranks are ended
+P18_JOIN_S = 400.0
+#: 18c's steps of each run
+P18C_STEPS = 3
+
+
+def save_graph(graph, root: str) -> None:
+    """The graph's arrays as ``.npy`` files under ``root``, for the
+    ranks to memory-map."""
+    for name in GRAPH_ARRAYS:
+        np.save(os.path.join(root, name + ".npy"), getattr(graph, name))
+
+
+def load_graph(root: str) -> Graph:
+    """The graph ``save_graph`` wrote, its arrays memory-mapped: a rank
+    reads its rows of the features and whatever else it touches."""
+    arrs = {name: np.load(os.path.join(root, name + ".npy"), mmap_mode="r")
+            for name in GRAPH_ARRAYS}
+    return Graph(n=int(arrs["labels"].shape[0]), **arrs)
+
+
+def full_precision() -> None:
+    """Full f32 products everywhere (TF32 off), bf16 GEMMs reduce in
+    f32: every process of the script runs so."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
         False
+
+
+def transport_check(tr) -> dict:
+    """One call of each collective of the transport on the rank's device
+    (f32 and bf16) and a barrier: at world size 1 each returns its part
+    itself."""
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.arange(24, device=tr.device).reshape(6, 4).to(dt)
+        want = torch.cat([x] * tr.world)
+        out[str(dt)] = (torch.equal(tr.all_gather(x), want)
+                        and tr.all_reduce(x).dtype == dt
+                        and tr.reduce_scatter(want).dtype == dt)
+        if tr.world == 1:
+            out[str(dt)] &= (torch.equal(tr.all_reduce(x), x)
+                             and torch.equal(tr.reduce_scatter(x), x))
+    tr.barrier()
+    return out
+
+
+def phase18_rank(rank, world, init, root, sz, device, cases, threads):
+    """One rank of phase 18 (run by ``procs.spawn``): its process group
+    on ``device``'s layout, the graph memory-mapped from ``root``, and
+    each case of ``cases`` trained on the process-group mesh between a
+    launch-count reset and its read.  ``threads``: the parent's intra-op
+    threads (a CPU reduction's order follows them, and 18a compares bits
+    with the parent's runs).  Returns each case's run record, launches,
+    wall and steady step times, the card's peak bytes of this process
+    and the bytes of the rows it holds."""
+    full_precision()
+    torch.set_num_threads(threads)
+    tr = procs.init(rank, world, init, device=device)
+    mesh = SH.process_node_mesh(tr)
+    dev = mesh.devices[0]
+    graph = load_graph(root)
+    cfg = papers_cfg(graph, sz)
+    out = {"transport": tr.name, "device": str(dev)}
+    if tr.name == "nccl":
+        out["nccl_check"] = transport_check(tr)
+    for case, steps in cases:
+        if case == "minibatch_sharded":
+            c = cfg
+            plan = E.TrainPlan(lr=TRAIN_LR, n_iters=steps,
+                               eval_every=sz.sh_mb_steps, seed=0)
+            src = E.ShardedSampledSource(batch_size=sz.mb_b, mesh=mesh)
+        else:
+            c = (dataclasses.replace(cfg, feats_layout="sharded")
+                 if case == "featshard" else cfg)
+            plan = E.TrainPlan(lr=TRAIN_LR, n_iters=steps,
+                               eval_every=sz.sh_fg_steps, seed=0)
+            src = E.ShardedFullGraphSource(max_deg=cfg.max_degree,
+                                           mesh=mesh)
+        base = peak_reset(dev)
+        trainer = E.Trainer(graph, c, plan, source=src, device=dev)
+        held = {name: (tuple(t.shape), t.numel() * t.element_size())
+                for name, t in zip(("idx", "w", "w_self", "feats",
+                                    "labels"), src.ell)}
+        ops.reset_launches()
+        FS.reset_launches()
+        sync(dev)
+        t0 = time.perf_counter()
+        try:
+            res = trainer.run()
+            sync(dev)
+        finally:
+            trainer.close()
+        out[case] = dict(
+            run=run_record(res), counts=sharded_counts(),
+            wall_s=time.perf_counter() - t0, ms_step=steady_ms(res.history),
+            held=held, base_bytes=base,
+            peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                        if dev.type == "cuda" else 0))
+        E.drop_device_cache(graph)
+    return out
+
+
+def close_runs(got: dict, want: dict, tol: float, what: str,
+               steps: Optional[int] = None) -> float:
+    """``got``'s losses (the first ``steps`` of ``want``'s) and, when the
+    runs are as long, final parameters within ``tol`` relative of
+    ``want``'s: the largest relative error."""
+    n = steps or len(want["losses"])
+    a = torch.tensor(got["losses"], dtype=torch.float64)
+    b = torch.tensor(want["losses"][:n], dtype=torch.float64)
+    check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+          f"{what}: losses {got['losses']}")
+    errs = [rel_err(a, b)]
+    if steps is None:
+        for p, q in zip(got["params"], want["params"]):
+            errs += [rel_err(torch.from_numpy(p[k]).double(),
+                             torch.from_numpy(q[k]).double()) for k in p]
+    err = max(errs)
+    check(err <= tol, f"{what}: relative error {err} beyond {tol} "
+          f"(losses {got['losses']} vs {want['losses'][:n]})")
+    return err
+
+
+def equal_runs(got: dict, want: dict, what: str) -> None:
+    """Two run records bit-equal: History's losses and evaluations, the
+    test accuracy and every final parameter."""
+    for f in ("losses", "val_accs", "test_acc"):
+        check(got[f] == want[f], f"{what}: {f} {got[f]} != {want[f]}")
+    for p, q in zip(got["params"], want["params"]):
+        for k in p:
+            check(np.array_equal(p[k], q[k]), f"{what}: parameter {k} "
+                  f"differs")
+
+
+def same_on_every_rank(runs: list, case: str) -> None:
+    """Every rank logs the same (all-reduced) losses and ends with the
+    same parameters."""
+    for r in runs[1:]:
+        equal_runs(r[case]["run"], runs[0][case]["run"],
+                   f"18 {case}: rank vs rank 0")
+
+
+def procs_18a(sz, root, own, s1) -> dict:
+    """18a: world size 1 over the run's own transport (NCCL on the
+    card): both paradigms bit-equal to phase 12a's one-shard runs."""
+    cases = (("fullgraph_sharded", sz.sh_fg_steps),
+             ("minibatch_sharded", sz.sh_mb_steps))
+    r = procs.spawn(phase18_rank, 1,
+                    (root, sz, own, cases, torch.get_num_threads()),
+                    timeout_s=P18_JOIN_S, init_dir=root)[0]
+    if own != "cpu":
+        check(r["transport"] == "nccl" and all(r["nccl_check"].values()),
+              f"18a: transport {r['transport']}, checks {r.get('nccl_check')}")
+    for case, _ in cases:
+        equal_runs(r[case]["run"], s1[case]["run"],
+                   f"18a {case} world 1 vs phase 12a S=1")
+        check_launch(torch.device(own),
+                     r[case]["counts"] == s1[case]["counts"],
+                     f"18a {case}: launches {r[case]['counts']} != phase "
+                     f"12a's {s1[case]['counts']}")
+        print(f"18a {case} world 1 ({r['transport']}, {r['device']}): "
+              f"{len(r[case]['run']['losses'])} steps bit-equal to phase "
+              f"12a's one-shard run (and so to the unsharded source), "
+              f"launches {r[case]['counts']}, {r[case]['ms_step']:.2f} "
+              f"ms/step ({card_tag()})", flush=True)
+    return r
+
+
+def procs_18b(sz, graph, root, shared, s1, s4) -> list:
+    """18b: S processes on the one card, fullgraph_sharded with the
+    kernels: within 2e-2 of phase 12b's single-process S-shard run, each
+    rank launching on its own block and holding 1/S of the rows."""
+    s = sz.sh_shards
+    runs = procs.spawn(phase18_rank, s,
+                       (root, sz, shared, (("fullgraph_sharded",
+                                            sz.sh_fg_steps),),
+                        torch.get_num_threads()),
+                       timeout_s=P18_JOIN_S, init_dir=root)
+    case = "fullgraph_sharded"
+    same_on_every_rank(runs, case)
+    err = close_runs(runs[0][case]["run"], s4[case]["run"], 2e-2,
+                     f"18b {case} {s} processes vs phase 12b S={s}")
+    want = s1["fullgraph"]["counts"]
+    k = papers_cfg(graph, sz).max_degree
+    n_pad = graph.n + (-graph.n) % s
+    m = n_pad // s
+    for r in runs:
+        got = r[case]["counts"]
+        check_launch(torch.device(shared), all(got[q] == want[q] for q in (
+            "tiled", "backward_csr", "backward")),
+            f"18b rank launches {got}, want the unsharded run's {want} "
+            f"(one launch a call, on the rank's own block)")
+        held = r[case]["held"]
+        ell = held["idx"][1] + held["w"][1]
+        check(held["idx"][0] == (m, k) and held["feats"][0][0] == m
+              and held["labels"][0] == (m,) and ell == n_pad * k * 8 // s
+              and held["feats"][1] == n_pad * graph.feats.shape[1]
+              * graph.feats.dtype.itemsize // s,
+              f"18b: a rank holds {held}, not 1/{s} of the padded rows")
+    ms = [round(r[case]["ms_step"], 2) for r in runs]
+    peaks = [r[case]["peak_bytes"] for r in runs]
+    held = runs[0][case]["held"]
+    print(f"18b {case} {s} processes on one card ({runs[0]['transport']}): "
+          f"{len(runs[0][case]['run']['losses'])} steps, losses "
+          f"{[round(x, 6) for x in runs[0][case]['run']['losses']]}, "
+          f"within {err:.3g} (limit 2e-2) of phase 12b's S={s} run; each "
+          f"rank holds {m} of {n_pad} rows: ELL idx + w "
+          f"{held['idx'][1] + held['w'][1]} B, features {held['feats'][1]} "
+          f"B ({graph.feats.dtype}), labels {held['labels'][1]} B", flush=True)
+    print(f"18b peak device bytes a rank (max_memory_allocated of its "
+          f"process): {peaks}; phase 12b's single process, its S={s} "
+          f"run's peak above what it held before: "
+          f"{s4[case]['peak_bytes']}", flush=True)
+    print(f"18b ms/step by rank {ms} ({s} processes time-slicing one card: "
+          f"not a {s}-card time; {card_tag()})", flush=True)
+    return runs
+
+
+def procs_18c(sz, root, shared, s4) -> list:
+    """18c: two processes on the card, minibatch_sharded and the
+    featshard layout, a few steps each, within their phase-12b
+    tolerances of the single-process runs."""
+    steps = P18C_STEPS
+    runs = procs.spawn(phase18_rank, 2,
+                       (root, sz, shared, (("minibatch_sharded", steps),
+                                           ("featshard", steps)),
+                        torch.get_num_threads()),
+                       timeout_s=P18_JOIN_S, init_dir=root)
+    for case, tol in (("minibatch_sharded", 1e-4), ("featshard", 2e-2)):
+        same_on_every_rank(runs, case)
+        err = close_runs(runs[0][case]["run"], s4[case]["run"], tol,
+                         f"18c {case} 2 processes vs phase 12b", steps)
+        counts = [r[case]["counts"] for r in runs]
+        if case == "featshard":
+            ok = all(c["featshard_phase1"] > 0 and c["featshard_phase2"] > 0
+                     and c["backward_csr"] > 0 for c in counts)
+        else:
+            ok = all(c["tiled"] > 0 and c["backward_identity"] > 0
+                     for c in counts)
+        check_launch(torch.device(shared), ok,
+                     f"18c {case}: launches by rank {counts}")
+        print(f"18c {case} 2 processes: {steps} steps, losses "
+              f"{[round(x, 6) for x in runs[0][case]['run']['losses']]} "
+              f"within {err:.3g} (limit {tol}) of phase 12b's; launches by "
+              f"rank {counts}; ms/step by rank "
+              f"{[round(r[case]['ms_step'], 2) for r in runs]} (two "
+              f"processes time-slicing one card; {card_tag()})", flush=True)
+    return runs
+
+
+def procs_phase(dev, sz: Sizes, graph, shrd: dict) -> dict:
+    """Phase 18: the NODES-sharded paths one process a rank, each rank
+    holding only its rows, the graph handed to the ranks as memory-mapped
+    files: 18a world size 1 over NCCL, 18b S processes on the card over
+    the host-staged transport, 18c two processes (mini-batch and
+    featshard).  On the CPU the ranks take gloo."""
+    cuda = dev.type == "cuda"
+    own, shared = ("cuda", "cuda:0") if cuda else ("cpu", "cpu")
+    E.drop_device_cache(graph)
+    if cuda:
+        torch.cuda.empty_cache()
+    s1, s4 = shrd["12a s1"], shrd["12b s4"]
+    secs, out = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_procs_") as root:
+        t0 = time.perf_counter()
+        save_graph(graph, root)
+        secs["18 graph files"] = time.perf_counter() - t0
+        for key, fn, args in (
+                ("18a world 1", procs_18a, (sz, root, own, s1)),
+                ("18b processes", procs_18b, (sz, graph, root, shared, s1,
+                                              s4)),
+                ("18c mini-batch featshard", procs_18c, (sz, root, shared,
+                                                         s4))):
+            t0 = time.perf_counter()
+            out[key] = fn(*args)
+            secs[key] = time.perf_counter() - t0
+    rounded = {k: round(v, 2) for k, v in secs.items()}
+    print(f"18 seconds: {json.dumps(rounded)}", flush=True)
+    out["seconds"] = secs
+    return out
+
+
+def add_phase18(kernels: list, p18: dict, shards: int) -> None:
+    """Each kernel entry's launches on phase 18's paths, summed over the
+    ranks of each run."""
+    runs = {"procs_w1_fullgraph_sharded": ([p18["18a world 1"]],
+                                           "fullgraph_sharded"),
+            "procs_w1_minibatch_sharded": ([p18["18a world 1"]],
+                                           "minibatch_sharded"),
+            f"procs_w{shards}_fullgraph_sharded": (p18["18b processes"],
+                                                   "fullgraph_sharded"),
+            "procs_w2_minibatch_sharded": (p18["18c mini-batch featshard"],
+                                           "minibatch_sharded"),
+            "procs_w2_featshard": (p18["18c mini-batch featshard"],
+                                   "featshard")}
+    for kern in kernels:
+        key = PHASE13[kern["name"]][0]
+        if key not in ops.launch_counts():
+            kern["launches_phase18"] = {p: 0 for p in runs}
+            continue
+        kern["launches_phase18"] = {
+            p: sum(r[case]["counts"][key] for r in ranks)
+            for p, (ranks, case) in runs.items()}
+
+
+def run(dev: torch.device, sz: Sizes) -> dict:
+    full_precision()
     secs = {}
 
     def timed(name, fn, *args):
@@ -5825,12 +6182,13 @@ def run(dev: torch.device, sz: Sizes) -> dict:
     p14 = timed("14 families", family_phase, dev, sz)
     p15 = timed("15 audits", audit_phase, dev, sz, graph)
     p16 = timed("16 chaos", chaos_phase, dev, sz, graph)
+    p18 = timed("18 processes", procs_phase, dev, sz, graph, shrd)
     del graph
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     p17 = timed("17 tensor parallel", tp_phase, dev, sz)
-    for ph in (figs, srcs, shrd, p13, p14, p15, p16, p17):
+    for ph in (figs, srcs, shrd, p13, p14, p15, p16, p17, p18):
         secs.update({k: round(v, 2) for k, v in ph["seconds"].items()})
     print(f"phase seconds: {json.dumps(secs)}", flush=True)
     fig_runs = figs["10c figures"]
@@ -6057,6 +6415,7 @@ def run(dev: torch.device, sz: Sizes) -> dict:
     add_phase13(kernels, p13)
     add_phase16(kernels, p16)
     add_phase17(kernels, p17)
+    add_phase18(kernels, p18, sz.sh_shards)
     return {"kernels": kernels}
 
 

@@ -21,7 +21,13 @@ and differ only in their ``BatchSource``:
   ``neighbor_agg_batch_sharded``), and under ``cfg.feats_layout ==
   "sharded"`` the full-graph table is row-sharded with a hot cache
   (``featshard``).  The dense parts (``h @ W``, the loss) run on the
-  run's device, whole.
+  run's device, whole.  On a process-group mesh
+  (``sharding.process_node_mesh``, one process a shard) each rank holds
+  only its own rows of the ELL, features and labels, runs the dense
+  parts on them, and the Trainer all-reduces the loss and the
+  gradients; host decisions that could differ between ranks (a bad
+  step, a stop, an evaluation) are agreed before they are acted on, and
+  rank 0 alone writes checkpoints.
 
 How the reference's throughput knobs map (PyTorch runs eagerly, so
 there is no compiled step to cache):
@@ -154,7 +160,7 @@ def _sharded_ell(graph: Graph, max_deg: Optional[int], device, mesh):
     and featshard plan."""
     from repro_torch import sharding as sh
     dev = torch.device(device)
-    key = ("sharded_ell", str(dev), mesh.devices,
+    key = ("sharded_ell", str(dev), _mesh_key(mesh),
            _resolve_max_deg(graph, max_deg))
     cache = _graph_cache(graph)
     if key not in cache:
@@ -163,10 +169,21 @@ def _sharded_ell(graph: Graph, max_deg: Optional[int], device, mesh):
                 k[1] == str(dev)]:
             del cache[stale]
         idx, w, w_self = to_ell(graph, max_deg=max_deg)
-        arrs = (idx, w, w_self, graph.feats, graph.labels.astype(np.int64))
-        cache[key] = tuple(torch.as_tensor(sh.pad_rows(a, mesh.size)).to(dev)
-                           for a in arrs)
+        arrs = (idx, w, w_self, graph.feats, graph.labels)
+        if mesh.rank_local:
+            # the reference's row layout: rank r uploads only its block
+            blocks = [sh.rank_block(a, mesh) for a in arrs]
+        else:
+            blocks = [sh.pad_rows(a, mesh.size) for a in arrs]
+        blocks[4] = blocks[4].astype(np.int64)
+        cache[key] = tuple(torch.as_tensor(a).to(dev) for a in blocks)
     return cache[key]
+
+
+def _mesh_key(mesh):
+    """What the device caches key a mesh by: its devices, and for a
+    process-group mesh its rank and size too."""
+    return (mesh.devices, mesh.traced, mesh.size)
 
 
 def _sharded_reverse_index(graph: Graph, max_deg: Optional[int], device,
@@ -177,11 +194,13 @@ def _sharded_reverse_index(graph: Graph, max_deg: Optional[int], device,
     from repro_torch.kernels.neighbor_agg.ops import \
         build_sharded_reverse_index
     idx, w = _sharded_ell(graph, max_deg, device, mesh)[:2]
-    key = ("sharded_rev", str(torch.device(device)), mesh.devices,
+    key = ("sharded_rev", str(torch.device(device)), _mesh_key(mesh),
            _resolve_max_deg(graph, max_deg))
     cache = _graph_cache(graph)
     if key not in cache:
-        cache[key] = build_sharded_reverse_index(idx, w, idx.shape[0], mesh)
+        # a rank holds its own rows; its index spans the whole table
+        n_pad = idx.shape[0] * (mesh.size if mesh.rank_local else 1)
+        cache[key] = build_sharded_reverse_index(idx, w, n_pad, mesh)
     return cache[key]
 
 
@@ -197,29 +216,55 @@ def _source_mesh(mesh, device):
     if mesh.device_type != dev.type:
         raise ValueError(f"the mesh {mesh} and the run's device {dev} are "
                          f"of different types")
+    if mesh.rank_local and mesh.devices[0] != dev:
+        raise ValueError(f"the process-group mesh {mesh} runs this rank on "
+                         f"{mesh.devices[0]}, the run's device is {dev}")
     return mesh
+
+
+def _local_nodes(nodes, mesh, m: int):
+    """Of the global node ids ``nodes`` (a device tensor), the ones this
+    rank of a process-group mesh holds, as local row ids into its ``m``
+    rows (``nodes`` itself on any other mesh)."""
+    if mesh is None or not mesh.rank_local:
+        return nodes
+    loc = nodes - mesh.rank * m
+    return loc[(loc >= 0) & (loc < m)]
 
 
 def _eval_acc(params, cfg: GNNConfig, ell, nodes, mesh=None,
               feats_plan=None):
     """Accuracy over ``nodes`` with ALL neighbors (§4.1), as a device
     scalar (no host sync).  ``mesh`` / ``feats_plan``: the sharded
-    sources' (see ``full_graph_forward``)."""
+    sources' (see ``full_graph_forward``); on a process-group mesh
+    ``ell`` is this rank's rows and the counts are all-reduced."""
+    from repro_torch import sharding as sh
     idx, w, w_self, feats, labels = ell
     with torch.no_grad():
         logits = G.full_graph_forward(params, cfg, feats, idx, w, w_self,
                                       mesh=mesh, feats_plan=feats_plan)
-        return G.accuracy(logits[nodes], labels[nodes])
+        loc = _local_nodes(nodes, mesh, idx.shape[0])
+        denom = sh.mean_denom(mesh, nodes.numel())
+        if denom is None:
+            return G.accuracy(logits[loc], labels[loc])
+        # the ranks' hit counts, summed exactly, over the global count
+        hits = (torch.argmax(logits[loc], -1) == labels[loc]).float().sum()
+        return sh.psum([hits], mesh)[0] / denom
 
 
 def _full_loss(params, cfg: GNNConfig, ell, sel, mesh=None,
                feats_plan=None):
     """The full training objective at ``params`` as a device scalar."""
+    from repro_torch import sharding as sh
     idx, w, w_self, feats, labels = ell
     with torch.no_grad():
         logits = G.full_graph_forward(params, cfg, feats, idx, w, w_self,
                                       mesh=mesh, feats_plan=feats_plan)
-        return G.gnn_loss(logits[sel], labels[sel], cfg.loss, cfg.n_classes)
+        loc = _local_nodes(sel, mesh, idx.shape[0])
+        denom = sh.mean_denom(mesh, sel.numel())
+        loss = G.gnn_loss(logits[loc], labels[loc], cfg.loss, cfg.n_classes,
+                          denom=denom)
+        return loss if denom is None else sh.psum([loss], mesh)[0]
 
 
 def evaluate_full(params, cfg: GNNConfig, graph: Graph, ell, nodes,
@@ -422,6 +467,10 @@ class BatchSource:
     #: the sharded sources' NODES mesh and featshard plan (set at bind)
     _mesh = None
     feats_plan = None
+    #: what divides the loss's row sum: None takes the rows' mean; a
+    #: process-group mesh's rank takes its share of the global mean
+    #: (``sharding.mean_denom``)
+    _loss_denom = None
 
     def bind(self, graph: Graph, cfg: GNNConfig, plan: TrainPlan,
              device, params: Optional[Sequence[dict]] = None
@@ -435,9 +484,11 @@ class BatchSource:
         return _device_nodes(self.graph, which, self.device)
 
     def kernel_mesh(self):
-        """The NODES mesh the aggregation kernel splits its rows over: the
-        source's mesh on the kernel path, else None."""
-        if self._mesh is None or not self.cfg.use_agg_kernel:
+        """The NODES mesh the forward splits its rows over: the source's
+        mesh on the kernel path, and a process-group mesh on either path
+        (its rows are resident by rank); else None."""
+        if self._mesh is None or not (self.cfg.use_agg_kernel
+                                      or self._mesh.rank_local):
             return None
         return self._mesh
 
@@ -485,7 +536,7 @@ class FullGraphSource(BatchSource):
         self.ell = _device_ell(graph, self.max_deg, device)
         self.rev = (_device_reverse_index(graph, self.max_deg, device)
                     if cfg.use_agg_kernel else None)
-        self.train_nodes = self.node_split("train")
+        self.train_nodes = self._loss_rows = self.node_split("train")
         self.n_nodes = len(graph.train_nodes)
         return self
 
@@ -495,9 +546,9 @@ class FullGraphSource(BatchSource):
                                       w_self, rev=self.rev,
                                       mesh=self.kernel_mesh(),
                                       feats_plan=self.feats_plan)
-        sel = self.train_nodes
+        sel = self._loss_rows
         return G.gnn_loss(logits[sel], labels[sel], self.cfg.loss,
-                          self.cfg.n_classes)
+                          self.cfg.n_classes, denom=self._loss_denom)
 
     def batches(self):
         while True:
@@ -520,7 +571,12 @@ class ShardedFullGraphSource(FullGraphSource):
 
     ``mesh=None`` takes every visible card for a CUDA run, the run's
     device alone otherwise.  On one shard the loss sequence is bit-equal
-    to ``FullGraphSource``'s."""
+    to ``FullGraphSource``'s.
+
+    On a process-group mesh this rank uploads only its rows of the padded
+    ELL, features and labels (reference ``engine.py:569-576``), and its
+    loss is the sum over the train nodes it owns divided by the global
+    count (the Trainer all-reduces it)."""
 
     name = "fullgraph_sharded"
 
@@ -531,6 +587,7 @@ class ShardedFullGraphSource(FullGraphSource):
         self.mesh = mesh
 
     def bind(self, graph, cfg, plan, device, params=None):
+        from repro_torch import sharding as sh
         self.graph, self.cfg, self.device = graph, cfg, device
         mesh = self._mesh = _source_mesh(self.mesh, device)
         self.ell = _sharded_ell(graph, self.max_deg, device, mesh)
@@ -545,13 +602,16 @@ class ShardedFullGraphSource(FullGraphSource):
                                               mesh)
         self.train_nodes = self.node_split("train")
         self.n_nodes = len(graph.train_nodes)
+        self._loss_rows = _local_nodes(self.train_nodes, mesh,
+                                       self.ell[0].shape[0])
+        self._loss_denom = sh.mean_denom(mesh, self.n_nodes)
         return self
 
     def _bind_featshard(self, graph, cfg, mesh):
         """The featshard plan of this (ELL, mesh, C), memoized on the
         graph beside the padded ELL, and its accounting."""
         from repro_torch.kernels.neighbor_agg import featshard as FS
-        key = ("featshard", str(torch.device(self.device)), mesh.devices,
+        key = ("featshard", str(torch.device(self.device)), _mesh_key(mesh),
                _resolve_max_deg(graph, self.max_deg), cfg.feat_cache_rows)
         cache = _graph_cache(graph)
         if key not in cache:
@@ -737,7 +797,7 @@ class SampledSource(_StagedSource):
                                      weights, self_w,
                                      mesh=self.kernel_mesh())
         return G.gnn_loss(logits, labels, self.cfg.loss, self.cfg.n_classes,
-                          valid=valid)
+                          valid=valid, denom=self._loss_denom)
 
     # -- host-side batch assembly --------------------------------------
     def _pad_batch(self, fb: FanoutBatch) -> FanoutBatch:
@@ -786,7 +846,12 @@ class SampledSource(_StagedSource):
     def _stage(self, graph, fb):
         valid_n = fb.batch_size
         fb = self._pad_batch(fb)
-        extra = tuple(self._extra_cols(fb, valid_n))
+        return self._stage_rows(graph, fb, tuple(self._extra_cols(fb,
+                                                                  valid_n)))
+
+    def _stage_rows(self, graph, fb, extra):
+        """``(slot, host arrays)``: the padded batch ``fb`` and its
+        ``extra`` columns gathered into a staging slot."""
         fd = graph.feats.shape[1]
         specs = ([(ids.shape + (fd,), graph.feats.dtype)
                   for ids in fb.nodes]
@@ -879,10 +944,17 @@ class ShardedSampledSource(SampledSource):
     ``History.counters``).  Exact resume restores the stream and so the
     losses; the LRU model restarts empty, so a resumed run's counters
     cover the resumed part.  On one shard the batches and the loss
-    sequence are bit-equal to ``SampledSource``'s."""
+    sequence are bit-equal to ``SampledSource``'s.
+
+    On a process-group mesh every rank draws the same whole batch from
+    the same seed (so the batches stay the reference's) and stages only
+    its own ``b / S`` target rows; its loss is their row sum divided by
+    the batch's valid count.  Its evaluations run on its rows of the
+    padded full ELL (``ell``)."""
 
     name = "minibatch_sharded"
     feat_cache = None
+    ell = None
 
     def __init__(self, batch_size: Optional[int] = None,
                  fanouts: Optional[Sequence[int]] = None, mesh=None, **kw):
@@ -890,6 +962,7 @@ class ShardedSampledSource(SampledSource):
         self.mesh = mesh
 
     def bind(self, graph, cfg, plan, device, params=None):
+        from repro_torch import sharding as sh
         super().bind(graph, cfg, plan, device)
         mesh = self._mesh = _source_mesh(self.mesh, device)
         if self.b % mesh.size:           # surplus rows are masked out
@@ -903,7 +976,32 @@ class ShardedSampledSource(SampledSource):
             self.feat_cache = LRURowCache(
                 resolve_cache_rows(cfg.feat_cache_rows, graph.n),
                 row_bytes=graph.feats.shape[1] * graph.feats.dtype.itemsize)
+        self._rows = self.ell = None
+        if mesh.rank_local:
+            self._rows = sh.rank_rows(self.b, mesh)
+            self.ell = _sharded_ell(graph, None, device, mesh)
+        # the global mean's share of this rank: b - pad rows are valid
+        self._loss_denom = sh.mean_denom(mesh, self.b - self.pad)
         return self
+
+    def _stage(self, graph, fb):
+        if self._rows is None:
+            return super()._stage(graph, fb)
+        valid_n = fb.batch_size
+        fb = self._pad_batch(fb)
+        lo, hi = self._rows
+        extra = self._extra_cols(fb, valid_n)
+
+        def rows(arrs):
+            return [a[lo:hi] for a in arrs]
+        own = FanoutBatch(nodes=rows(fb.nodes), masks=rows(fb.masks),
+                          weights=rows(fb.weights), self_w=rows(fb.self_w),
+                          labels=fb.labels[lo:hi], target_w=None)
+        return self._stage_rows(graph, own, tuple(rows(extra)))
+
+    def close(self) -> None:
+        super().close()
+        self.ell = None
 
     def _host_batch(self, graph, fb):
         if self.feat_cache is not None:
@@ -1278,12 +1376,27 @@ class EarlyStop(Callback):
             state.request_stop(f"target_acc>={ta}")
 
 
-def save_trainer_state(state: TrainState, final: bool = False) -> str:
+def save_trainer_state(state: TrainState, final: bool = False
+                       ) -> Optional[str]:
     """One exact-resume snapshot: params + optimizer state in the npz
     (copied to the host now), the engine state (iteration, the source's
     stream position and rng, History) in the step's metadata JSON.
     ``Trainer.run(resume_from=...)`` restores all of it and continues
-    bit-for-bit as the run that was not stopped."""
+    bit-for-bit as the run that was not stopped.  On a process-group
+    mesh (parameters, state and History are the same on every rank)
+    rank 0 writes and every rank waits for the write (None on the
+    others)."""
+    from repro_torch import sharding as sh
+    mesh = state.source._mesh
+    if mesh is not None and mesh.rank_local and mesh.rank != 0:
+        sh.barrier(mesh)
+        return None
+    path = _write_trainer_state(state, final)
+    sh.barrier(mesh)
+    return path
+
+
+def _write_trainer_state(state: TrainState, final: bool) -> str:
     from repro_torch.checkpoint import save_checkpoint
     meta = {
         "loss": state.loss, "it": state.it, "source": state.source.name,
@@ -1383,6 +1496,10 @@ class Trainer:
         # for its padded ELL, which ``_ell`` then is) row-shards the table
         self._agg_mesh = self.source.kernel_mesh()
         self._feats_plan = self.source.feats_plan
+        #: a process-group mesh: gradients and the loss are all-reduced
+        #: and host decisions agreed across its ranks
+        mesh = self.source._mesh
+        self._procs = mesh if mesh is not None and mesh.rank_local else None
 
     # ------------------------------------------------------------------
     def _initial_params(self):
@@ -1399,10 +1516,30 @@ class Trainer:
         flat = iter([torch.zeros_like(p) if g is None else g
                      for p, g in zip(leaves, flat)])
         grads = [{k: next(flat) for k in p} for p in params]
+        loss = loss.detach()
+        if self._procs is not None:
+            grads, loss = self._all_reduce(grads, loss)
         params, opt_state, good = _guarded_update(
-            self.opt, params, opt_state, loss.detach(), grads,
+            self.opt, params, opt_state, loss, grads,
             inplace=self.plan.donate)
-        return params, opt_state, loss.detach(), good
+        return params, opt_state, loss, good
+
+    def _all_reduce(self, grads, loss):
+        """Every rank's gradients and loss share summed over the ranks, in
+        one all-reduce of their f32 concatenation, each rounded once to
+        its dtype (on one rank: the values themselves)."""
+        from repro_torch import sharding as sh
+        leaves = _tree_leaves(grads)
+        flat = torch.cat([g.reshape(-1).float() for g in leaves]
+                         + [loss.reshape(1).float()])
+        flat = sh.psum([flat], self._procs)[0]
+        out, at = [], 0
+        for g in leaves:
+            out.append(flat[at:at + g.numel()].view_as(g).to(g.dtype))
+            at += g.numel()
+        it = iter(out)
+        return ([{k: next(it) for k in p} for p in grads],
+                flat[at].to(loss.dtype))
 
     def _eval_dev(self, params, nodes):
         return _eval_acc(params, self.cfg, self._ell, nodes, self._agg_mesh,
@@ -1442,8 +1579,25 @@ class Trainer:
         self._fire("on_step", state)
         if state.val_acc is not None:
             self._fire("on_eval", state)
+        if self._procs is not None:
+            self._agree(state)
         if state.step_bad:
             self._apply_bad_step_policy(state)
+
+    def _agree(self, state: TrainState) -> None:
+        """The ranks' host decisions of one step, summed over the ranks
+        before any is acted on: a stop any rank asked for stops all; a
+        bad step or an evaluation that not every rank saw is an error."""
+        from repro_torch import sharding as sh
+        n = self._procs.size
+        bad, stop, ev = sh.agree(self._procs, [state.step_bad, state.stop,
+                                               state.val_acc is not None])
+        if bad not in (0, n) or ev not in (0, n):
+            raise RuntimeError(
+                f"ranks disagree at iteration {state.it}: {bad:g} of {n} "
+                f"saw a bad step, {ev:g} of {n} evaluated")
+        if stop and not state.stop:
+            state.request_stop("another rank stopped")
 
     def _apply_bad_step_policy(self, state: TrainState) -> None:
         """A guard-tripped step reached the host.  The guard already made
@@ -1526,6 +1680,12 @@ class Trainer:
         if resume_from is not None:
             start_it, history = self._restore_run_state(resume_from,
                                                         params, opt_state)
+        if self._procs is not None:
+            from repro_torch import sharding as sh
+            first = sh.agree(self._procs, [start_it])[0]
+            if first != start_it * self._procs.size:
+                raise RuntimeError(f"ranks resume from different steps "
+                                   f"(this rank: {start_it})")
         state = TrainState(graph=graph, cfg=cfg, plan=plan,
                            source=self.source, history=history,
                            params=params, opt_state=opt_state,

@@ -23,6 +23,13 @@ under ``--device cuda``, the one device otherwise; a ``mesh=`` argument
 of ``sweep`` / ``make_source`` picks another (``node_mesh(devices=
 ("cuda:0",) * 4)`` is four shards on one card).
 
+Under ``torchrun`` (``python -m torch.distributed.run --nproc-per-node S
+-m repro_torch.core.experiment ...``) the sharded paradigms bind to the
+process-group mesh of the S ranks (``launch.procs``): each rank holds
+its own rows, on its own card under ``--device cuda`` (nccl), on one
+shared card under ``--device cuda:0`` (the host-staged transport) or on
+the CPU (gloo).  Only rank 0 prints and writes rows and the journal.
+
 ``sweep(journal=)`` / ``--journal`` make a sweep crash-safe: every
 finished point is appended to a JSONL journal, and a rerun with the same
 journal skips the points recorded ``ok``.
@@ -259,7 +266,11 @@ def _load_journal(path: Optional[str]) -> Dict[str, Dict]:
 
 def _append_journal(path: str, rec: Dict) -> None:
     """Durable append: one JSON line, flushed + fsynced before the sweep
-    moves on, so a kill after this point cannot lose the record."""
+    moves on, so a kill after this point cannot lose the record.  Rank 0
+    alone writes (its points' rows are every rank's)."""
+    from repro_torch.launch.procs import rank_zero
+    if not rank_zero():
+        return
     with open(path, "a") as f:
         f.write(json.dumps(rec) + "\n")
         f.flush()
@@ -451,7 +462,15 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
                     help="torch device (cuda unless told otherwise)")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    from repro_torch.launch import procs
+    mesh = None
+    if procs.in_torchrun():
+        from repro_torch import sharding as sh
+        mesh = sh.process_node_mesh(procs.init(device=args.device))
+        dev = mesh.devices[0]
+    else:
+        dev = resolve_device(args.device)
+    lead = procs.rank_zero()
     graph = make_preset(args.preset, n=args.n, seed=0)
     cfg = GNNConfig(name="sweep", model="graphsage", n_nodes=graph.n,
                     feat_dim=graph.feats.shape[1], hidden=32,
@@ -466,11 +485,13 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
           else tuple(args.fanout))
     rows = sweep(graph, cfg, plan, batch_sizes=args.bs, fanout_grid=[fo],
                  include_fullgraph=args.fullgraph, sources=args.sources,
-                 verbose=True, journal=args.journal,
+                 verbose=lead, journal=args.journal,
                  inference=args.inference,
-                 serve_queries=args.serve_queries, device=dev)
-    paths = save_rows(args.out, rows)
-    print(json.dumps({"rows": len(rows), **paths}))
+                 serve_queries=args.serve_queries, device=dev, mesh=mesh)
+    if lead:
+        paths = save_rows(args.out, rows)
+        print(json.dumps({"rows": len(rows), **paths}))
+    procs.close()
     return rows
 
 

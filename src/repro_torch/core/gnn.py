@@ -238,7 +238,12 @@ def full_graph_forward(params, cfg: GNNConfig, feats, ell_idx, ell_w,
     ``mesh`` (the sharded sources) splits the KERNEL path's rows over
     the mesh's NODES shards (``ops.neighbor_agg_sharded``: one launch
     per shard over the whole table, the table's gradient psum'd); the
-    einsum path ignores it.  ``feats_plan`` (a ``FeatShardPlan`` built at
+    einsum path ignores it.  On a process-group mesh (one process a
+    shard) every operand is this rank's rows on either path: each layer
+    all-gathers the rank's cast table into the whole one its gathers
+    read (the reference's GSPMD all-gather; its adjoint reduce-scatters
+    the table's gradient back to the owners), and ``h @ W`` runs on the
+    rank's rows.  ``feats_plan`` (a ``FeatShardPlan`` built at
     bind under ``cfg.feats_layout == "sharded"``) sends the gcn /
     graphsage kernel path through ``neighbor_agg_featshard`` instead:
     the source table is row-sharded, with the plan's hot cache and one
@@ -256,6 +261,13 @@ def full_graph_forward(params, cfg: GNNConfig, feats, ell_idx, ell_w,
     n_layers = len(params)
     fs_active = (feats_plan is not None and cfg.use_agg_kernel
                  and cfg.model in ("gcn", "graphsage"))
+    from repro_torch import sharding as sh
+    ranked = mesh is not None and mesh.rank_local
+
+    def table(srcr):
+        """The whole table a rank's gathers read: its rows all-gathered
+        on a process-group mesh, ``srcr`` itself otherwise."""
+        return sh.all_gather([srcr], mesh)[0] if ranked else srcr
 
     def agg_w(srcr, w_edge):
         """Σ_k w_edge[n,k] · srcr[ell_idx[n,k]]; ``srcr`` is the already
@@ -266,10 +278,10 @@ def full_graph_forward(params, cfg: GNNConfig, feats, ell_idx, ell_w,
             return neighbor_agg_featshard(srcr, w_edge.to(agg_dt),
                                           feats_plan).to(h.dtype)
         if cfg.use_agg_kernel:
-            return _kernel_agg(cfg, srcr, ell_idx, w_edge.to(agg_dt),
+            return _kernel_agg(cfg, table(srcr), ell_idx, w_edge.to(agg_dt),
                                rev=rev, mesh=mesh).to(h.dtype)
         return torch.einsum("nk,nkd->nd", w_edge.to(agg_dt),
-                            gather_rows(srcr, ell_idx)).to(h.dtype)
+                            gather_rows(table(srcr), ell_idx)).to(h.dtype)
 
     layers = []
     for li, p in enumerate(params):
@@ -287,9 +299,10 @@ def full_graph_forward(params, cfg: GNNConfig, feats, ell_idx, ell_w,
                     w_self=w_self.to(agg_dt)).to(h.dtype)
             elif cfg.use_agg_kernel:
                 # fused epilogue: the self row IS the source table row b
-                agg = _kernel_agg(cfg, srcr, ell_idx, ell_w.to(agg_dt),
-                                  self_rows=srcr, w_self=w_self.to(agg_dt),
-                                  rev=rev, mesh=mesh).to(h.dtype)
+                agg = _kernel_agg(cfg, table(srcr), ell_idx,
+                                  ell_w.to(agg_dt), self_rows=srcr,
+                                  w_self=w_self.to(agg_dt), rev=rev,
+                                  mesh=mesh).to(h.dtype)
             else:
                 agg = agg_w(srcr, ell_w) + (w_self.to(agg_dt)[:, None]
                                             * srcr).to(h.dtype)
@@ -302,7 +315,7 @@ def full_graph_forward(params, cfg: GNNConfig, feats, ell_idx, ell_w,
             mean = agg_w(src.to(agg_dt), mask_agg) / cnt
             out = h @ p["w_self"] + (mean if pre else mean @ wn)
         else:  # gat — gathers the raw h (per-edge attention)
-            nb = gather_rows(h.to(agg_dt), ell_idx).to(h.dtype)
+            nb = gather_rows(table(h.to(agg_dt)), ell_idx).to(h.dtype)
             out = _gat_layer(p, h, nb, maskb)
             if last:
                 heads = cfg.gat_heads
@@ -343,29 +356,30 @@ def minibatch_forward(params, cfg: GNNConfig, hop_feats: Sequence,
 # ---------------------------------------------------------------------------
 
 def gnn_loss(logits, labels, kind: str, n_classes: int, valid=None,
-             weight=None):
+             weight=None, denom=None):
     """CE / MSE over target rows (reference ``gnn.py:331-358``).
     ``valid`` (float 0/1 per row, or None) masks padded rows out of the
     mean: they contribute exact zeros and the divisor is the valid
     count.  ``weight`` (float per row, or None) scales each row's loss
-    before the mean and does not enter the divisor."""
+    before the mean and does not enter the divisor.  ``denom`` (a count)
+    divides the rows' sum instead: one rank's share of a mean over rows
+    that several ranks hold."""
     z = logits.to(F32)
     if kind == "mse":
         onehot = F.one_hot(labels.long(), n_classes).to(F32)
         rows = torch.sum(torch.square(z - onehot), dim=-1)
-        if weight is not None:
-            rows = rows * weight
-        if valid is None:
-            return 0.5 * torch.mean(rows)
-        return 0.5 * (torch.sum(rows * valid) / torch.sum(valid))
-    logz = torch.logsumexp(z, dim=-1)
-    ll = torch.gather(z, -1, labels.long()[..., None])[..., 0]
-    rows = logz - ll
+    else:
+        logz = torch.logsumexp(z, dim=-1)
+        rows = logz - torch.gather(z, -1, labels.long()[..., None])[..., 0]
     if weight is not None:
         rows = rows * weight
-    if valid is None:
-        return torch.mean(rows)
-    return torch.sum(rows * valid) / torch.sum(valid)
+    if denom is not None:
+        loss = torch.sum(rows if valid is None else rows * valid) / denom
+    elif valid is None:
+        loss = torch.mean(rows)
+    else:
+        loss = torch.sum(rows * valid) / torch.sum(valid)
+    return 0.5 * loss if kind == "mse" else loss
 
 
 def accuracy(logits, labels):

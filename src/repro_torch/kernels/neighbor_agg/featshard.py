@@ -32,7 +32,11 @@ each part of the table gradient in the table's dtype, then summed.
 On a multi-card layout a shard would hold ``(n/S + C)·d`` table values
 (``table_bytes_per_device``) and receive ``(S-1)·(M + C_max)`` rows per
 call (``remote_bytes_per_call``); with the shards on one card they
-slice one padded table.  The plan is static per (ELL, mesh, C); on
+slice one padded table.  On a process-group mesh (one process a shard)
+that is what a rank holds: its plan arrays, its ``n_pad / S`` rows of
+the table, and the two all-gathers and the backward's ``psum_scatter``
+and ``psum`` cross processes; the plan is built on every rank's host
+from the global ELL.  The plan is static per (ELL, mesh, C); on
 one shard every reference is hot or local, there is no miss, and the op
 is bit-equal to the unsharded kernel path, forward and gradients.
 Launches: S phase-1 and, with misses, S phase-2 tiled launches per call
@@ -233,7 +237,7 @@ class FeatShardPlan:
         self.lidx_hot, self.hot_mask, self.lidx_miss = [], [], []
         self.serve_loc, self.hot_src_loc, self.hot_slot = [], [], []
         self.hot_valid, self.hot_perm, self.rev1, self.rev2 = [], [], [], []
-        for s, dev in enumerate(mesh.devices):
+        for s, dev in zip(mesh.traced, mesh.devices):
             lh = put(rows(host["lidx_hot"], s), dev, I32)
             hm = rows(host["hot_mask"], s)
             w_s = rows(w_host, s)
@@ -413,12 +417,12 @@ class _FeatShardAgg(torch.autograd.Function):
                 # the cold-row gradients go back to their OWNERS: each
                 # shard gets its [M, d] serve slice summed over requesters
                 dserve = sh.psum_scatter(dgaths, plan.mesh)
-                for s in range(plan.S):
+                for s in range(len(dloc)):
                     dloc[s].index_add_(0, plan.serve_loc[s], dserve[s])
             if C:
                 # only the C hot rows cross every shard
                 dhot = sh.psum([df1[:C] for df1 in df1s], plan.mesh)
-                for s in range(plan.S):
+                for s in range(len(dloc)):
                     back = (torch.index_select(dhot[s], 0, plan.hot_slot[s])
                             * plan.hot_valid[s][:, None])
                     dloc[s].index_add_(0, plan.hot_src_loc[s],
@@ -444,16 +448,18 @@ def neighbor_agg_featshard(feats, w, plan: FeatShardPlan, self_rows=None,
     sharded; ``w`` [n_pad, K] / ``w_self`` [n_pad] row-sharded with the
     zero pattern the plan was built from (the plan holds the remapped
     ids, so ``ell_idx`` is not an operand).  The output rows stay
-    NODES-sharded.  On one shard this is bit-equal to
-    ``neighbor_agg(..., use_kernel=True)``, forward and gradients."""
+    NODES-sharded.  On a process-group mesh every operand and the
+    output are this rank's ``n_pad / S`` rows.  On one shard this is
+    bit-equal to ``neighbor_agg(..., use_kernel=True)``, forward and
+    gradients."""
     fused = self_rows is not None
     if fused != (w_self is not None):
         raise ValueError("self_rows and w_self must be passed together")
-    if feats.shape[0] != plan.n_pad or tuple(w.shape) != (plan.n_pad,
-                                                          plan.K):
+    rows = plan.n_loc if plan.mesh.rank_local else plan.n_pad
+    if feats.shape[0] != rows or tuple(w.shape) != (rows, plan.K):
         raise ValueError(
             f"neighbor_agg_featshard: operands (feats "
             f"{tuple(feats.shape)}, w {tuple(w.shape)}) do not match the "
-            f"plan (n_pad={plan.n_pad}, K={plan.K}) — rebuild the plan for "
+            f"plan ({rows} rows, K={plan.K}) — rebuild the plan for "
             f"this ELL/mesh")
     return _FeatShardAgg.apply(feats, w, self_rows, w_self, plan)

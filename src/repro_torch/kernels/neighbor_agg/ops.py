@@ -716,7 +716,10 @@ def neighbor_agg(feats, idx, w, self_rows=None, w_self=None, *,
 # block of the output / idx / w (+ self_rows / w_self), gathering from
 # the whole table, so the forward needs no collective.  Only the table's
 # gradient, summed into a table every shard reads, needs a psum; dw /
-# dself_rows / dw_self are row-local like their primals.
+# dself_rows / dw_self are row-local like their primals.  On a
+# process-group mesh each rank passes its own rows and launches once over
+# them; the table is its all-gathered copy, whose adjoint (the caller's
+# all_gather) sums the table's gradient over the ranks.
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ShardedReverseIndex:
@@ -740,7 +743,8 @@ def build_sharded_reverse_index(idx: torch.Tensor, w: torch.Tensor, n: int,
                                 mesh) -> ShardedReverseIndex:
     """One ``build_reverse_index`` per shard, each over that shard's
     rows of ``(idx, w)`` (rows must divide the shards: pad first) and
-    all ``n`` table rows, built on the shard's device."""
+    all ``n`` table rows, built on the shard's device; on a process-group
+    mesh ``(idx, w)`` are this rank's rows and it builds their one."""
     from repro_torch import sharding as sh
     idx_s = sh.shard_rows(idx, mesh)
     w_s = sh.shard_rows(w, mesh)
@@ -751,10 +755,11 @@ def build_sharded_reverse_index(idx: torch.Tensor, w: torch.Tensor, n: int,
 
 def _shard_blocks(mesh, *tensors):
     """Per-shard row blocks of each tensor (None stays None), as one
-    tuple per shard."""
+    tuple per shard; on a process-group mesh the tensors are this rank's
+    rows, its one block."""
     from repro_torch import sharding as sh
-    cols = [sh.shard_rows(t, mesh) if t is not None else [None] * mesh.size
-            for t in tensors]
+    cols = [sh.shard_rows(t, mesh) if t is not None
+            else [None] * len(mesh.traced) for t in tensors]
     return list(zip(*cols))
 
 
@@ -824,7 +829,13 @@ def neighbor_agg_sharded(feats, idx, w, self_rows=None, w_self=None, *,
     With one shard this is bit-equal to ``neighbor_agg(...,
     use_kernel=True)``, forward and gradients (the psum of one part is
     that part).  ``mesh=None`` or ``use_kernel=False`` call
-    ``neighbor_agg`` itself."""
+    ``neighbor_agg`` itself.
+
+    On a process-group mesh ``idx`` / ``w`` / ``self_rows`` / ``w_self``
+    and the output are this rank's rows and ``feats`` is its
+    all-gathered copy of the whole table: one launch over the rank's
+    block, no copy of the table and no collective here (the all-gather's
+    adjoint sums the table's gradient over the ranks)."""
     fused = self_rows is not None
     if fused != (w_self is not None):
         raise ValueError("self_rows and w_self must be passed together")
@@ -846,7 +857,11 @@ def neighbor_agg_sharded(feats, idx, w, self_rows=None, w_self=None, *,
             raise ValueError("neighbor_agg_sharded: rev was built for "
                              "another idx (or mesh), or idx changed in "
                              "place since")
-    elif b % n_sh:
+    if mesh.rank_local:
+        return neighbor_agg(feats, idx, w, self_rows, w_self,
+                            use_kernel=True, kernel="tiled",
+                            rev=None if rev is None else rev.revs[0])
+    if rev is None and b % n_sh:
         idx, w = sh.pad_rows(idx, n_sh), sh.pad_rows(w, n_sh)
         if fused:
             self_rows = sh.pad_rows(self_rows, n_sh)
@@ -953,11 +968,15 @@ def neighbor_agg_batch_sharded(w, h_nb, h_self=None, w_self=None, *, mesh):
     (reference ``neighbor_agg_batch_sharded``).  B must be a multiple of
     the shard count (the sharded mini-batch source rounds b up at bind,
     and fan-out products keep every level divisible).  With one shard
-    this is bit-equal to the unsharded mini-batch kernel path."""
+    this is bit-equal to the unsharded mini-batch kernel path.  On a
+    process-group mesh the operands are this rank's target rows: one
+    ``neighbor_agg_batch`` launch over them."""
     fused = h_self is not None
     if fused != (w_self is not None):
         raise ValueError("h_self and w_self must be passed together")
     from repro_torch import sharding as sh
+    if mesh.rank_local:
+        return neighbor_agg_batch(w, h_nb, h_self, w_self)
     n_sh = sh.nodes_shards(mesh)
     if w.shape[0] % n_sh:
         raise ValueError(

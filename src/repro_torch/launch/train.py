@@ -30,6 +30,19 @@ paradigm, ``--keep-last`` retention) and ``--resume`` continues each
 paradigm from its newest one (GNN only; the LM saves its parameters
 every ``--ckpt-every`` steps, as the reference does).
 
+Under ``torchrun`` (a ``WORLD_SIZE`` in the environment) the GNN
+paradigms run NODES-sharded, one process a shard
+(``ShardedFullGraphSource`` / ``ShardedSampledSource`` on the
+process-group mesh of ``launch.procs``): each rank holds only its rows.
+``--device cuda`` gives each rank its own card (nccl), ``--device
+cuda:0`` puts every rank on that card (the host-staged gloo transport,
+a check of the layout, not of its speed), ``--device cpu`` runs them on
+the CPU (gloo).  Only rank 0 prints and writes.
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch gnn-papers100m --smoke \
+        --device cpu --steps 20
+
 ``--model-par M`` (LM) trains tensor-parallel on a ``(1, M)`` mesh
 (``launch.mesh.make_host_mesh``) whose shards all sit on the run's
 device: on the card it repeats the card M times, as the S = 4 NODES
@@ -124,10 +137,20 @@ def train_lm(args, optimizer=None) -> dict:
 
 def train_gnn(args) -> dict:
     from repro_torch.core.engine import (FullGraphSource, SampledSource,
-                                         Trainer, TrainPlan)
+                                         ShardedFullGraphSource,
+                                         ShardedSampledSource, Trainer,
+                                         TrainPlan)
     from repro_torch.core.experiment import save_rows, sweep
+    from repro_torch.launch import procs
 
-    dev = resolve_device(args.device)
+    mesh = None
+    if procs.in_torchrun():
+        from repro_torch import sharding as sh
+        mesh = sh.process_node_mesh(procs.init(device=args.device))
+        dev = mesh.devices[0]
+    else:
+        dev = resolve_device(args.device)
+    lead = procs.rank_zero()
     cfg = get_config(args.arch, smoke=args.smoke)
     graph = make_preset(args.preset, seed=args.seed)
     cfg_run = dataclasses.replace(cfg, n_classes=graph.n_classes,
@@ -143,11 +166,16 @@ def train_gnn(args) -> dict:
                      batch_sizes=args.sweep_bs or [cfg_run.batch_size],
                      fanout_grid=[int(f) for f in args.sweep_fanout]
                      if args.sweep_fanout else [cfg_run.fanout],
-                     include_fullgraph=True, verbose=True,
-                     journal=args.journal, device=dev)
-        paths = save_rows(f"{args.arch}_sweep", rows)
-        result = {"arch": args.arch, "sweep_rows": len(rows), **paths}
-        print(json.dumps(result, indent=2))
+                     include_fullgraph=mesh is None,
+                     sources=(("minibatch",) if mesh is None else
+                              ("fullgraph_sharded", "minibatch_sharded")),
+                     verbose=lead, journal=args.journal, device=dev,
+                     mesh=mesh)
+        result = {"arch": args.arch, "sweep_rows": len(rows)}
+        if lead:
+            result.update(save_rows(f"{args.arch}_sweep", rows))
+            print(json.dumps(result, indent=2))
+        procs.close()
         return result
 
     # the two paradigms' Trainers share plan.ckpt_dir: namespace their
@@ -160,11 +188,12 @@ def train_gnn(args) -> dict:
             plan, ckpt_dir=os.path.join(plan.ckpt_dir, tag))
 
     pf, pm = _plan_for("fullgraph"), _plan_for("minibatch")
-    rf = Trainer(graph, cfg_run, pf, source=FullGraphSource(),
-                 device=dev).run(
+    full, mini = ((FullGraphSource(), SampledSource()) if mesh is None else
+                  (ShardedFullGraphSource(mesh=mesh),
+                   ShardedSampledSource(mesh=mesh)))
+    rf = Trainer(graph, cfg_run, pf, source=full, device=dev).run(
         resume_from=pf.ckpt_dir if args.resume else None)
-    rm = Trainer(graph, cfg_run, pm, source=SampledSource(),
-                 device=dev).run(
+    rm = Trainer(graph, cfg_run, pm, source=mini, device=dev).run(
         resume_from=pm.ckpt_dir if args.resume else None)
     result = {
         "arch": args.arch, "preset": args.preset, "device": str(dev),
@@ -173,7 +202,11 @@ def train_gnn(args) -> dict:
         "mini_batch": {"final_loss": rm.history.losses[-1],
                        "test_acc": rm.final_test_acc},
     }
-    print(json.dumps(result, indent=2))
+    if mesh is not None:
+        result["ranks"] = mesh.size
+    if lead:
+        print(json.dumps(result, indent=2))
+    procs.close()
     return result
 
 

@@ -16,7 +16,11 @@ spec), and per-shard programs meet in three collectives over a
 ``Group``, the shards of one or more axes (``Mesh.group``).  A mesh
 that repeats a device emulates the layout's arithmetic and its
 collectives on that device, one shard after another: it does not model
-the layout's speed.  ``layout_mesh`` is the dry-run's: a production
+the layout's speed.  A process-group ``NodeMesh`` (``process_node_mesh``)
+is PyTorch's idiom for the same layout: one process a shard, each
+holding only its own rows and running its shard alone (``traced`` is
+its rank), the collectives going through ``torch.distributed`` on a
+``launch.procs`` transport.  ``layout_mesh`` is the dry-run's: a production
 layout (256 or 512 cards) of which only shard 0 is run, on meta
 tensors, so a trace holds one device's tensors and work; its
 collectives give shard 0 the shapes of their results and note their
@@ -40,7 +44,9 @@ reduce-scatter 1 x the operand, all-gather 1 x the output) to every
 active ``launch.roofline.TraceCounter`` and to ``collective_counts()``.
 Where results are not shared they are autograd functions whose backward
 is the adjoint collective (all-gather <-> reduce-scatter, all-reduce <->
-all-reduce), noted in the same way.
+all-reduce), noted in the same way.  Over a process group the parts are
+cast to f32, reduced by the backend (its order, not shard order) and
+cast back once; one shard returns its part as it is.
 """
 from __future__ import annotations
 
@@ -143,7 +149,8 @@ class Mesh:
     shares_results = False
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
-                 devices: Sequence, *, layout: bool = False):
+                 devices: Sequence, *, layout: bool = False,
+                 transport=None):
         shape = tuple(int(n) for n in shape)
         names = tuple(axis_names)
         if len(shape) != len(names) or len(set(names)) != len(names) \
@@ -163,6 +170,13 @@ class Mesh:
                 raise ValueError("a layout mesh runs shard 0 alone, on one "
                                  "meta device")
             self.traced: Tuple[int, ...] = (0,)
+        elif transport is not None:
+            if len(devs) != 1 or transport.world != n:
+                raise ValueError(f"a process-group mesh runs one shard a "
+                                 f"process: one device and {n} ranks, got "
+                                 f"{len(devs)} devices and "
+                                 f"{transport.world} ranks")
+            self.traced = (int(transport.rank),)
         else:
             if len(devs) != n:
                 raise ValueError(f"Mesh: {len(devs)} devices for a "
@@ -170,6 +184,8 @@ class Mesh:
             self.traced = tuple(range(n))
         self.shape, self.axis_names, self.devices = shape, names, devs
         self.layout = layout
+        #: the ``launch.procs`` transport of a process-group mesh, else None
+        self.transport = transport
         self.sizes: Dict[str, int] = dict(zip(names, shape))
         self._groups: Dict[Tuple[Tuple[str, ...], int], "Group"] = {}
 
@@ -177,6 +193,12 @@ class Mesh:
     def size(self) -> int:
         """The number of shards (devices of the layout)."""
         return math.prod(self.shape)
+
+    @property
+    def rank_local(self) -> bool:
+        """True for a process-group mesh: this process runs one shard and
+        holds only that shard's rows."""
+        return self.transport is not None
 
     def coords(self, flat: int) -> Dict[str, int]:
         return dict(zip(self.axis_names,
@@ -241,11 +263,14 @@ class Group:
         self.members, self.positions = members, positions
         self.devices = tuple(mesh.device_of(f) for f in members)
         self.share = mesh.shares_results
+        self.transport = mesh.transport
 
     @property
     def virtual(self) -> bool:
-        """True when only part of the group is run (a layout mesh)."""
-        return len(self.members) < self.size
+        """True when only part of the group is run and the rest is not run
+        anywhere (a layout mesh; a process-group mesh's other shards run
+        in the other ranks)."""
+        return len(self.members) < self.size and self.transport is None
 
     def __repr__(self) -> str:
         return f"Group({self.axes}, size {self.size}, run {self.members})"
@@ -368,18 +393,28 @@ class NodeMesh(Mesh):
 
     shares_results = True
 
-    def __init__(self, devices: Sequence):
+    def __init__(self, devices: Sequence, transport=None):
         devs = tuple(torch.device(d) for d in devices)
         if not devs:
             raise ValueError("NodeMesh: needs at least one device")
         if len({d.type for d in devs}) != 1:
             raise ValueError(f"NodeMesh: devices must share one type, got "
                              f"{[str(d) for d in devs]}")
-        super().__init__((len(devs), 1), ("data", "model"), devs)
+        # a process-group mesh's shards are in other processes: each
+        # gets its own result, with the adjoint collectives
+        self.shares_results = transport is None
+        shards = len(devs) if transport is None else transport.world
+        super().__init__((shards, 1), ("data", "model"), devs,
+                         transport=transport)
 
     @property
     def device_type(self) -> str:
         return self.devices[0].type
+
+    @property
+    def rank(self) -> int:
+        """The shard this process runs (0 on a single-controller mesh)."""
+        return self.traced[0] if self.rank_local else 0
 
     @property
     def nodes(self) -> "Group":
@@ -387,6 +422,9 @@ class NodeMesh(Mesh):
         return self.group(axis_map(self)[NODES], 0)
 
     def __repr__(self) -> str:
+        if self.rank_local:
+            return (f"NodeMesh(rank {self.rank} of {self.size} on "
+                    f"{self.devices[0]}, {self.transport.name})")
         return f"NodeMesh({[str(d) for d in self.devices]})"
 
 
@@ -426,6 +464,53 @@ def node_mesh(n: Optional[int] = None,
     return _node_mesh_cached(tuple(_canonical(d) for d in devices))
 
 
+def process_node_mesh(transport) -> NodeMesh:
+    """The NODES mesh of an initialised process group: ``transport.world``
+    shards, one a process, this process's shard ``transport.rank`` on
+    ``transport.device`` (``launch.procs.init`` makes the transport)."""
+    return NodeMesh((transport.device,), transport=transport)
+
+
+def rank_rows(n_pad: int, mesh: NodeMesh) -> Tuple[int, int]:
+    """``(lo, hi)``: the rows of an [n_pad, ...] NODES-sharded table that
+    this rank of a process-group mesh holds (``row_owner``'s block)."""
+    if not mesh.rank_local:
+        raise ValueError(f"rank_rows: {mesh} is not a process-group mesh")
+    if n_pad % mesh.size:
+        raise ValueError(f"rank_rows: n_pad={n_pad} rows must divide the "
+                         f"{mesh.size} NODES shards (pad first)")
+    m = n_pad // mesh.size
+    return mesh.rank * m, (mesh.rank + 1) * m
+
+
+def rank_block(a: np.ndarray, mesh: NodeMesh) -> np.ndarray:
+    """This rank's row block of the host array ``a`` padded with zero rows
+    to a multiple of the shards (``pad_rows``), read without padding or
+    copying the whole (a memory-mapped ``a`` reads only the block)."""
+    n_pad = a.shape[0] + (-a.shape[0]) % mesh.size
+    lo, hi = rank_rows(n_pad, mesh)
+    block = np.array(a[lo:min(hi, a.shape[0])])      # a copy of the rows
+    return pad_rows(block, hi - lo) if block.shape[0] < hi - lo else block
+
+
+def barrier(mesh) -> None:
+    """Wait for every rank of a process-group mesh (no-op for any other
+    mesh or None)."""
+    if mesh is not None and mesh.rank_local:
+        mesh.transport.barrier()
+
+
+def agree(mesh, flags: Sequence[float]) -> List[float]:
+    """Each host value summed over the ranks of a process-group mesh (the
+    values themselves otherwise): how ranks agree on a host decision
+    before acting on it.  Not a NODES collective: not tallied."""
+    if not mesh.rank_local or mesh.size == 1:
+        return [float(f) for f in flags]
+    t = torch.tensor([float(f) for f in flags], dtype=torch.float32,
+                     device=mesh.devices[0])
+    return [float(x) for x in mesh.transport.all_reduce(t).cpu()]
+
+
 def nodes_shards(mesh: NodeMesh) -> int:
     """Number of shards along the NODES axis."""
     return mesh.size
@@ -457,14 +542,28 @@ def pad_rows(x, mult: int):
 
 
 def shard_rows(x: torch.Tensor, mesh: NodeMesh) -> List[torch.Tensor]:
-    """The row blocks of ``x`` [S·m, ...], block ``s`` on ``devices[s]``
-    (a view where the device is ``x``'s own)."""
+    """The row blocks of a NODES-sharded ``x`` that this process runs:
+    on a single-controller mesh ``x`` is the whole table [S·m, ...] and
+    block ``s`` lands on ``devices[s]`` (a view where the device is
+    ``x``'s own); on a process-group mesh ``x`` already is this rank's
+    rows, its one block."""
+    if mesh.rank_local:
+        return [x.to(mesh.devices[0])]
     s = mesh.size
     if x.shape[0] % s:
         raise ValueError(f"shard_rows: {x.shape[0]} rows do not divide the "
                          f"{s} NODES shards")
     m = x.shape[0] // s
     return [x[i * m:(i + 1) * m].to(dev) for i, dev in enumerate(mesh.devices)]
+
+
+def mean_denom(mesh, n: int) -> Optional[int]:
+    """The divisor that makes a rank's row sum its share of a mean over
+    ``n`` rows the ranks of a process-group mesh hold between them (the
+    shares then sum to the mean); None, each call's own mean, on any
+    other mesh, on one rank and without a mesh."""
+    return n if mesh is not None and mesh.rank_local and mesh.size > 1 \
+        else None
 
 
 def unshard_rows(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
@@ -545,7 +644,9 @@ def _shard_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def _gather_values(parts, group: "Group", dim: int, f32_partial=False):
-    if group.virtual:
+    if group.transport is not None:
+        out = [group.transport.all_gather(parts[0], dim)]
+    elif group.virtual:
         shape = list(parts[0].shape)
         shape[dim] *= group.size
         out = [parts[0].new_empty(shape)]
@@ -557,7 +658,9 @@ def _gather_values(parts, group: "Group", dim: int, f32_partial=False):
 
 
 def _sum_values(parts, group: "Group", f32_partial=False):
-    if group.virtual:
+    if group.transport is not None:
+        out = [group.transport.all_reduce(parts[0])]
+    elif group.virtual:
         out = [parts[0].new_empty(parts[0].shape)]
     else:
         out = _results(_shard_sum(parts), group)
@@ -572,7 +675,9 @@ def _scatter_values(parts, group: "Group", dim: int, f32_partial=False):
         raise ValueError(f"psum_scatter: dim {dim} of "
                          f"{tuple(parts[0].shape)} does not split over "
                          f"{group.size} shards")
-    if group.virtual:
+    if group.transport is not None:
+        out = [group.transport.reduce_scatter(parts[0], dim)]
+    elif group.virtual:
         shape = list(parts[0].shape)
         shape[dim] = n // group.size
         out = [parts[0].new_empty(shape)]

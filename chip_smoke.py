@@ -164,9 +164,10 @@ or of the reference package ``repro``.
    full-graph point the reverse-index backward and no atomic one, the
    mini-batch points the backward kernel's identity mode and no atomic
    backward, every point the tiled forward;
-   losses finite.  (c) The nine figure benches in quick mode (fig2 cut
-   to 100 iterations and one seed, from 250 and two, for the run's
-   time) through
+   losses finite.  (c) The nine figure benches in quick mode (for the
+   run's time fig2 cut to 50 iterations and one seed, from 250 and two,
+   fig3 to 75 iterations from 150, table1 to 60 from 120:
+   ``QUICK_CUTS``) through
    ``repro_torch.bench.run``: each figure's seconds, Trainer runs,
    steps per second, rows and launches; the reference's row count,
    finite losses where the reference reports numbers, the tiled forward
@@ -408,6 +409,33 @@ or of the reference package ``repro``.
    (2e-2) against 12b, three steps each.  A rank's failure fails the
    phase.  The kernels line gives each kernel's ``launches_phase18`` by
    path, summed over the ranks.
+19. The LM's tensor parallelism one process a shard
+   (``launch.mesh.make_process_mesh``: the ``(world // 2, 2)`` mesh over
+   the ranks, a ``torch.distributed`` subgroup for each group of each
+   axis set), the ranks sharing the card over the host-staged transport.
+   Phase 17 runs before phase 18, and these cases run in phase 18's
+   spawns after its GNN cases (18c's two ranks: 19a and 19c; 18b's four:
+   19b), so they pay no start-up of their own; each rank draws only its
+   own shard of phase 17's weights from the seed (``init_model(mesh=)``).
+   (a) stablelm-1.6b at full width and depth, bf16, ``(1, 2)`` over 2
+   ranks: one prefill of 17a's 2 x 4096 prompt, then two decode steps.
+   Each rank launches the ``wgmma`` kernel once a layer (24) and nothing
+   else and caches its 16 heads; the last logits are bit-equal to 17a's
+   one-process ``model = 2`` prefill and within 2e-2 of its ``model =
+   1``; each rank's collective tally equals 17a's (the batch axes have
+   size 1, so no logits gather is added); the decode logits are within
+   5e-2 of 17a's ``model = 1`` decode of the same tokens.  (b) three
+   train steps of stablelm-1.6b (17b's f32 weights and batches, one row
+   a data replica) on ``(2, 2)`` over 4 ranks: every rank the same
+   losses and replicated leaves, the losses within 2e-2 of 17b's ``model
+   = 1`` and 1e-4 relative of its ``model = 2``, each rank holding a
+   quarter of the leaves split over both axes; each rank's peak bytes
+   and wall ms a step (time-sliced, host-staged: not a four-card time).
+   (c) llama4-scout at 4 layers, one prefill of 4096 tokens on ``(1,
+   2)``, its MoE routing replayed from 17c's ``model = 1`` run: within
+   2e-2 of it, 4 flash launches a rank.  A rank's failure fails the
+   phase; the kernels line gives ``launches_phase19`` by path, summed
+   over the ranks.
 
 Every failed check raises.  The last stdout line is
 ``{"ok": true, "device": {...}}``; the line before it names the card and
@@ -471,7 +499,9 @@ from repro_torch.core.graph import Graph, to_ell  # noqa: E402
 from repro_torch.core.serving import (  # noqa: E402
     DeadlineExceededError, GNNServer, ServerOverloadedError)
 from repro_torch.data.synth import make_preset, token_batches  # noqa: E402
-from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.device import TRACE_DEVICE  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    make_host_mesh, make_process_mesh)
 from repro_torch.kernels.build import build_all  # noqa: E402
 from repro_torch.kernels.flash_attn import build as fa_build  # noqa: E402
 from repro_torch.kernels.flash_attn import ops as fa  # noqa: E402
@@ -614,7 +644,8 @@ class Sizes:
     ch_deadline_s: float = 1.0     # each query's deadline
     ch_stale_s: float = 5.0        # the server's max_staleness_s
     ex_tiny: bool = False          # the examples at tiny sizes (CPU)
-    # phase 17: tensor parallelism, model = 2 on the one card
+    # phase 17: tensor parallelism, model = 2 on the one card (and phase
+    # 19, one process a shard, at the same sizes)
     tp_smoke: bool = False         # smoke configs (16 heads) on the CPU
     tp_b: int = 2
     tp_s: int = 4096               # 17a's prompt
@@ -2618,17 +2649,22 @@ def check_launch(dev, cond, msg: str) -> None:
     check(dev.type != "cuda" or cond, msg)
 
 
-#: fig2's QUICK table at full size, cut from the bench's own 250
-#: iterations and seeds (0, 1) to keep the whole run near 1,000 s with
-#: phase 16 beside it
-FIG2_QUICK_CUT = dict(iters=100, seeds=(0,))
+#: the figure benches' QUICK tables at full size, cut for the run's time:
+#: fig2 from 250 iterations and seeds (0, 1) to 100 and one seed for
+#: phase 16 (the whole run near 1,000 s), then with fig3 (150) and
+#: table1 (120) to give phase 19 its room
+QUICK_CUTS = {
+    "repro_torch.bench.bench_fig2_convergence": dict(iters=50, seeds=(0,)),
+    "repro_torch.bench.bench_fig3_generalization": dict(iters=75),
+    "repro_torch.bench.bench_table1_tuned": dict(iters=60),
+}
 
 
 @contextlib.contextmanager
 def bench_sizes(sz: Sizes):
     """The figure benches' ``QUICK`` tables cut to ``sz.fig_n`` nodes and
     ``sz.fig_iters`` iterations inside the block (the CPU rehearsal);
-    when ``fig_n`` is 0, only fig2's, to ``FIG2_QUICK_CUT``."""
+    when ``fig_n`` is 0, only those of ``QUICK_CUTS``, as it says."""
     saved = []
     if sz.fig_n:
         for _, mod_name in brun.BENCHES:
@@ -2640,9 +2676,10 @@ def bench_sizes(sz: Sizes):
             if "iters" in quick:
                 quick["iters"] = sz.fig_iters
     else:
-        from repro_torch.bench import bench_fig2_convergence as fig2
-        saved.append((fig2.QUICK, dict(fig2.QUICK)))
-        fig2.QUICK.update(FIG2_QUICK_CUT)
+        for mod_name, cut in QUICK_CUTS.items():
+            quick = importlib.import_module(mod_name).QUICK
+            saved.append((quick, dict(quick)))
+            quick.update(cut)
     try:
         yield
     finally:
@@ -5654,6 +5691,18 @@ def tp_cfg(arch: str, sz: Sizes, layers: int = 0):
     return family_cfg(arch, sz, layers)
 
 
+def p17_cfg(name: str, sz: Sizes):
+    """Phases 17 and 19's configs: ``stablelm`` (stablelm-1.6b whole) or
+    ``llama4`` (llama4-scout at ``l4_layers``; on the CPU 2 KV heads and
+    16 experts, so both split)."""
+    if name == "stablelm":
+        return tp_cfg("stablelm-1.6b", sz)
+    cfg = tp_cfg("llama4-scout-17b-a16e", sz, sz.l4_layers)
+    if sz.tp_smoke:
+        cfg = dataclasses.replace(cfg, n_kv_heads=2, n_experts=16)
+    return cfg
+
+
 def tp_counted(dev, fn):
     """``fn()`` between a reset and a read of every launch counter and of
     the mesh's collective tally: (result, seconds, launches, bytes)."""
@@ -5674,25 +5723,42 @@ def tp_line(label: str, secs: float, counts: dict, coll: dict) -> None:
           f"{json.dumps(coll)}", flush=True)
 
 
+def tp_tokens(cfg, b: int, s: int, decode: int = 0):
+    """The prompt [b, s] of phases 17 and 19 and ``decode`` decode tokens
+    [b, 1], from fixed seeds (numpy)."""
+    rng = np.random.default_rng(19)
+    return (np.random.default_rng(17).integers(0, cfg.vocab_size, (b, s)),
+            [rng.integers(0, cfg.vocab_size, (b, 1)) for _ in range(decode)])
+
+
 def tp_prefill_case(dev, sz: Sizes, cfg, label: str, s: int, b: int,
-                    moe: bool = False, f32_twin: bool = False) -> dict:
+                    moe: bool = False, f32_twin: bool = False,
+                    decode: int = 0) -> dict:
     """One bf16 prefill at model = 1, then its weights split over a
     ``model = 2`` mesh on the card and the same prefill counted (MoE
     routing replayed from the first run).  ``f32_twin``: both also held
     against the same weights run in f32 (outside the counted window), to
-    read the model = 2 gap beside bf16's own rounding."""
+    read the model = 2 gap beside bf16's own rounding.  ``decode``: that
+    many decode steps after the model = 1 prefill (its cache sized for
+    them), their logits kept for phase 19a."""
     mesh = make_host_mesh(2, devices=(dev, dev))
     params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
                           dev, dtype=M._dt(cfg))
-    toks = torch.as_tensor(np.random.default_rng(17).integers(
-        0, cfg.vocab_size, (b, s)), device=dev)
-    batch = {"tokens": toks}
+    prompt, dec_toks = tp_tokens(cfg, b, s, decode)
+    batch = {"tokens": torch.as_tensor(prompt, device=dev)}
     n_attn = M.causal_attention_layers(cfg)
     route = fa.kernel_route(M._dt(cfg), cfg.resolved_head_dim)
     with torch.inference_mode():
         with observed() as seen:
-            one, one_s, one_counts, _ = tp_counted(
-                dev, lambda: steps.make_prefill_step(cfg)(params, batch)[0])
+            (one, cache), one_s, one_counts, _ = tp_counted(
+                dev, lambda: steps.make_prefill_step(cfg)(params, batch,
+                                                          s + decode))
+        serve = steps.make_serve_step(cfg)
+        dec_one = []
+        for t in dec_toks:
+            lg, cache = serve(params, cache, torch.as_tensor(t, device=dev))
+            dec_one.append(lg.cpu())
+        del cache
         twin = None
         if f32_twin:
             p32 = tree_map_only(torch.Tensor, lambda t: t.float(), params)
@@ -5757,7 +5823,10 @@ def tp_prefill_case(dev, sz: Sizes, cfg, label: str, s: int, b: int,
     return dict(seconds_model1=one_s, seconds=two_s, counts=counts,
                 collective_bytes=coll, rel_err=err, heads_a_shard=hq,
                 kv_heads_a_shard=kv, launches=counts[route],
-                f32_twin=f32_errs)
+                f32_twin=f32_errs, logits=two.cpu(), logits_model1=one.cpu(),
+                decode_model1=dec_one, decode_tokens=dec_toks,
+                replay=([e.cpu().numpy() for e in seen["experts"]] if moe
+                        else None))
 
 
 def tp_train_case(dev, sz: Sizes, cfg, label: str) -> dict:
@@ -5808,20 +5877,19 @@ def tp_phase(dev, sz: Sizes) -> dict:
     secs = {}
     out = {}
     t0 = time.perf_counter()
-    cfg = tp_cfg("stablelm-1.6b", sz)
+    cfg = p17_cfg("stablelm", sz)
     if not sz.tp_smoke:
         check(cfg.n_heads == 32 and cfg.d_model == 2048 and cfg.n_layers == 24
               and cfg.dtype == "bfloat16", f"unexpected stablelm {cfg}")
     out["17a prefill"] = tp_prefill_case(dev, sz, cfg, "17a stablelm-1.6b",
-                                         sz.tp_s, sz.tp_b, f32_twin=True)
+                                         sz.tp_s, sz.tp_b, f32_twin=True,
+                                         decode=P19_DECODE)
     secs["17a"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["17b train"] = tp_train_case(dev, sz, cfg, "17b stablelm-1.6b")
     secs["17b"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cfg = tp_cfg("llama4-scout-17b-a16e", sz, sz.l4_layers)
-    if sz.tp_smoke:
-        cfg = dataclasses.replace(cfg, n_kv_heads=2, n_experts=16)
+    cfg = p17_cfg("llama4", sz)
     out["17c moe prefill"] = tp_prefill_case(
         dev, sz, cfg, "17c llama4-scout", sz.tp_l4_s, 1, moe=True)
     secs["17c"] = time.perf_counter() - t0
@@ -5895,7 +5963,8 @@ def transport_check(tr) -> dict:
     return out
 
 
-def phase18_rank(rank, world, init, root, sz, device, cases, threads):
+def phase18_rank(rank, world, init, root, sz, device, cases, threads,
+                 lm=()):
     """One rank of phase 18 (run by ``procs.spawn``): its process group
     on ``device``'s layout, the graph memory-mapped from ``root``, and
     each case of ``cases`` trained on the process-group mesh between a
@@ -5903,7 +5972,9 @@ def phase18_rank(rank, world, init, root, sz, device, cases, threads):
     threads (a CPU reduction's order follows them, and 18a compares bits
     with the parent's runs).  Returns each case's run record, launches,
     wall and steady step times, the card's peak bytes of this process
-    and the bytes of the rows it holds."""
+    and the bytes of the rows it holds.  Then each phase-19 case of
+    ``lm`` (``P19_CASES``: name and arguments) on the same transport,
+    with its wall seconds."""
     full_precision()
     torch.set_num_threads(threads)
     tr = procs.init(rank, world, init, device=device)
@@ -5948,6 +6019,12 @@ def phase18_rank(rank, world, init, root, sz, device, cases, threads):
             peak_bytes=(torch.cuda.max_memory_allocated(dev)
                         if dev.type == "cuda" else 0))
         E.drop_device_cache(graph)
+    del graph
+    for name, kw in lm:
+        free_card(dev)
+        t0 = time.perf_counter()
+        out[name] = P19_CASES[name](tr, sz, **kw)
+        out[name]["wall_s"] = time.perf_counter() - t0
     return out
 
 
@@ -6017,15 +6094,16 @@ def procs_18a(sz, root, own, s1) -> dict:
     return r
 
 
-def procs_18b(sz, graph, root, shared, s1, s4) -> list:
+def procs_18b(sz, graph, root, shared, s1, s4, p17) -> list:
     """18b: S processes on the one card, fullgraph_sharded with the
     kernels: within 2e-2 of phase 12b's single-process S-shard run, each
-    rank launching on its own block and holding 1/S of the rows."""
+    rank launching on its own block and holding 1/S of the rows.  The
+    ranks then run phase 19b."""
     s = sz.sh_shards
     runs = procs.spawn(phase18_rank, s,
                        (root, sz, shared, (("fullgraph_sharded",
                                             sz.sh_fg_steps),),
-                        torch.get_num_threads()),
+                        torch.get_num_threads(), p19_cases(sz, p17, s)),
                        timeout_s=P18_JOIN_S, init_dir=root)
     case = "fullgraph_sharded"
     same_on_every_rank(runs, case)
@@ -6067,15 +6145,16 @@ def procs_18b(sz, graph, root, shared, s1, s4) -> list:
     return runs
 
 
-def procs_18c(sz, root, shared, s4) -> list:
+def procs_18c(sz, root, shared, s4, p17) -> list:
     """18c: two processes on the card, minibatch_sharded and the
     featshard layout, a few steps each, within their phase-12b
-    tolerances of the single-process runs."""
+    tolerances of the single-process runs.  The ranks then run phase
+    19a and 19c."""
     steps = P18C_STEPS
     runs = procs.spawn(phase18_rank, 2,
                        (root, sz, shared, (("minibatch_sharded", steps),
                                            ("featshard", steps)),
-                        torch.get_num_threads()),
+                        torch.get_num_threads(), p19_cases(sz, p17, 2)),
                        timeout_s=P18_JOIN_S, init_dir=root)
     for case, tol in (("minibatch_sharded", 1e-4), ("featshard", 2e-2)):
         same_on_every_rank(runs, case)
@@ -6099,12 +6178,14 @@ def procs_18c(sz, root, shared, s4) -> list:
     return runs
 
 
-def procs_phase(dev, sz: Sizes, graph, shrd: dict) -> dict:
+def procs_phase(dev, sz: Sizes, graph, shrd: dict, p17: dict) -> dict:
     """Phase 18: the NODES-sharded paths one process a rank, each rank
     holding only its rows, the graph handed to the ranks as memory-mapped
     files: 18a world size 1 over NCCL, 18b S processes on the card over
     the host-staged transport, 18c two processes (mini-batch and
-    featshard).  On the CPU the ranks take gloo."""
+    featshard).  On the CPU the ranks take gloo.  18b's and 18c's ranks
+    then run phase 19's cases (``lm_procs_phase`` holds them to phase
+    17's)."""
     cuda = dev.type == "cuda"
     own, shared = ("cuda", "cuda:0") if cuda else ("cpu", "cpu")
     E.drop_device_cache(graph)
@@ -6119,9 +6200,9 @@ def procs_phase(dev, sz: Sizes, graph, shrd: dict) -> dict:
         for key, fn, args in (
                 ("18a world 1", procs_18a, (sz, root, own, s1)),
                 ("18b processes", procs_18b, (sz, graph, root, shared, s1,
-                                              s4)),
+                                              s4, p17)),
                 ("18c mini-batch featshard", procs_18c, (sz, root, shared,
-                                                         s4))):
+                                                         s4, p17))):
             t0 = time.perf_counter()
             out[key] = fn(*args)
             secs[key] = time.perf_counter() - t0
@@ -6154,6 +6235,315 @@ def add_phase18(kernels: list, p18: dict, shards: int) -> None:
             for p, (ranks, case) in runs.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the LM's tensor parallelism one process a shard
+# ---------------------------------------------------------------------------
+
+#: decode steps of 17a's model = 1 run and of 19a
+P19_DECODE = 2
+#: 19a's decode logits against 17a's model = 1 decode (PERF.md §2's
+#: decode limit)
+P19_DECODE_TOL = 5e-2
+#: 19b's losses against 17b's model = 2 run, relative
+P19_TRAIN_TOL = 1e-4
+
+
+def free_card(dev) -> None:
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def host(t) -> np.ndarray:
+    """A tensor as f32 numpy (bf16 exactly): what a rank sends back (a
+    torch tensor would go through shared memory its exit frees)."""
+    return t.detach().float().cpu().numpy()
+
+
+def leaf_bytes(leaves) -> int:
+    return sum(x.numel() * x.element_size() for x in leaves)
+
+
+def p19_prefill(tr, sz: Sizes, name: str, s: int, b: int, replay=None,
+                decode: int = 0) -> dict:
+    """19a / 19c on this rank: phase 17's weights (the same seed), only
+    this rank's shard drawn (``init_model(mesh=)``) on the ``(1, 2)``
+    process mesh, phase 17's prompt prefilled between a reset and a read
+    of the launch counters and the collective tally (the MoE routing
+    replayed from 17c's model = 1 run), then ``decode`` decode steps."""
+    t0 = time.perf_counter()
+    cfg = p17_cfg(name, sz)
+    mesh = make_process_mesh(2, tr)
+    dev = mesh.devices[0]
+    mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                          dev, dtype=M._dt(cfg), mesh=mesh)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    prompt, dec_toks = tp_tokens(cfg, b, s, decode)
+    batch = {"tokens": torch.as_tensor(prompt, device=dev)}
+    prefill = steps.make_prefill_step(cfg, mesh)
+    serve = steps.make_serve_step(cfg, mesh)
+    replay = None if replay is None else [torch.as_tensor(e, device=dev)
+                                          for e in replay]
+    with torch.inference_mode():
+        with observed(replay=replay):
+            (logits, caches), secs, counts, coll = tp_counted(
+                dev, lambda: prefill(params, batch, s + decode))
+        dec = []
+        t0 = time.perf_counter()
+        for t in dec_toks:
+            lg, caches = serve(params, caches, torch.as_tensor(t, device=dev))
+            dec.append(host(lg))
+        decode_s = time.perf_counter() - t0
+    out = dict(logits=host(logits), decode=dec, seconds=secs, counts=counts,
+               mesh_s=mesh_s, init_s=init_s, decode_s=decode_s,
+               collective_bytes=coll,
+               heads=params[0]["runs"][0]["attn"]["wq"].shape[2],
+               kv_heads=caches[0]["runs"][0]["k"].shape[3],
+               param_bytes=leaf_bytes(tree_leaves(params[0])))
+    del params, caches, logits
+    free_card(dev)
+    return out
+
+
+def p19_train(tr, sz: Sizes) -> dict:
+    """19b on this rank: 17b's weights (only this rank's f32 shard drawn)
+    and batches (the global batch on every rank, one row a data
+    replica), ``tp_steps`` steps of ``make_train_step`` on the ``(2, 2)``
+    process mesh; the losses, the replicated leaves at the end, the
+    bytes of the leaves split over both axes beside the whole's, the
+    peak bytes of this process and each step's wall milliseconds."""
+    cfg = p17_cfg("stablelm", sz)
+    t0 = time.perf_counter()
+    mesh = make_process_mesh(2, tr)
+    mesh_s = time.perf_counter() - t0
+    dev = mesh.devices[0]
+    gen = token_batches(cfg.vocab_size, sz.tp_b, sz.tp_train_s, seed=17)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(gen).items()}
+               for _ in range(sz.tp_steps)]
+    base = peak_reset(dev)
+    t0 = time.perf_counter()
+    params = M.init_model(torch.Generator(device=dev).manual_seed(1), cfg,
+                          dev, mesh=mesh)
+    opt, step = steps.make_train_step(cfg, mesh=mesh)
+    st = [opt.init(p) for p in params]
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    losses, ms = [], []
+    reset_all()
+    SH.reset_collectives()
+    for bt in batches:
+        sync(dev)
+        t0 = time.perf_counter()
+        params, st, m = step(params, st, bt)
+        losses.append(float(m["loss"]))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    counts, coll = all_counts(), SH.collective_counts()
+    whole = tree_leaves(M.init_model(torch.Generator().manual_seed(1), cfg,
+                                     TRACE_DEVICE))
+    mine = tree_leaves(params[0])
+    specs = [SH.spec_axes(sp, mesh) for sp in M.spec_leaves(params[0], cfg)]
+    both = [i for i, ax in enumerate(specs) if set(ax) == {"data", "model"}]
+    out = dict(losses=losses, ms_steps=ms, counts=counts, init_s=init_s,
+               mesh_s=mesh_s,
+               collective_bytes=coll, base_bytes=base,
+               peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else 0),
+               split_bytes=leaf_bytes(mine[i] for i in both),
+               whole_split_bytes=leaf_bytes(whole[i] for i in both),
+               param_bytes=leaf_bytes(mine),
+               whole_param_bytes=leaf_bytes(whole),
+               replicated=[host(x) for x, ax in zip(mine, specs) if not ax])
+    del params, st, batches
+    free_card(dev)
+    return out
+
+
+#: what a phase-19 case runs in a rank of phase 18's spawns
+P19_CASES = {"19a": p19_prefill, "19b": p19_train, "19c": p19_prefill}
+
+
+def p19_cases(sz: Sizes, p17: dict, world: int) -> tuple:
+    """The phase-19 cases of a phase-18 spawn of ``world`` ranks: 19a and
+    19c in the two-rank spawn, 19b in the four-rank one."""
+    if world == 2:
+        return (("19a", dict(name="stablelm", s=sz.tp_s, b=sz.tp_b,
+                              decode=P19_DECODE)),
+                ("19c", dict(name="llama4", s=sz.tp_l4_s, b=1,
+                              replay=p17["17c moe prefill"]["replay"])))
+    return (("19b", {}),)
+
+
+def p19_line(label: str, runs: list, what: str) -> None:
+    print(f"19{label}: {what}; s a rank: the process mesh "
+          f"{[round(r['mesh_s'], 3) for r in runs]}, weights drawn and split "
+          f"{[round(r['init_s'], 3) for r in runs]}, prefill "
+          f"{[round(r['seconds'], 3) for r in runs]}, decode "
+          f"{[round(r['decode_s'], 3) for r in runs]}; flash "
+          f"launches by rank {[r['counts']['wgmma'] for r in runs]} wgmma, "
+          f"{[r['counts']['tf32x3'] for r in runs]} tf32x3; collective "
+          f"bytes a device {json.dumps(runs[0]['collective_bytes'])}",
+          flush=True)
+
+
+def p19_prefill_checks(dev, sz: Sizes, runs: list, want: dict, name: str,
+                       label: str, bit_equal: bool) -> dict:
+    """Every rank's prefill against phase 17's: ``bit_equal``, the last
+    logits bit-equal to its one-process model = 2 prefill's, and the
+    tally equal; within ``TP_TOL`` of its model = 1 logits; the wgmma
+    kernel once a layer on each rank and nothing else; each rank's
+    cache holding its heads.  Then the decode steps, where there are,
+    within ``P19_DECODE_TOL`` of 17a's model = 1 decode."""
+    cfg = p17_cfg(name, sz)
+    n_attn = M.causal_attention_layers(cfg)
+    route = fa.kernel_route(M._dt(cfg), cfg.resolved_head_dim)
+    errs, dec_errs = [], []
+    for r, got in enumerate(runs):
+        lg = torch.from_numpy(got["logits"])
+        check(bool(torch.isfinite(lg[..., :cfg.vocab_size]).all()),
+              f"19{label} rank {r}: a logit is not finite")
+        if bit_equal:
+            check(torch.equal(lg, want["logits"].float()),
+                  f"19{label} rank {r}: logits differ from phase 17a's "
+                  f"one-process model=2 prefill (max abs "
+                  f"{(lg - want['logits'].float()).abs().max()})")
+            check(got["collective_bytes"] == want["collective_bytes"],
+                  f"19{label} rank {r}: tally {got['collective_bytes']} != "
+                  f"phase 17's {want['collective_bytes']}")
+        errs.append(logits_err(cfg, lg, want["logits_model1"]))
+        check(errs[-1] <= TP_TOL, f"19{label} rank {r}: logits rel err "
+              f"{errs[-1]} beyond {TP_TOL} of model=1")
+        others = {k: v for k, v in got["counts"].items() if k != route and v}
+        check_launch(dev, got["counts"][route] == n_attn and not others,
+                     f"19{label} rank {r}: launches {got['counts']}, want "
+                     f"{n_attn} {route} and nothing else")
+        check(got["heads"] * 2 == SH.padded_heads(cfg.n_heads)
+              and got["kv_heads"] * 2 == cfg.n_kv_heads,
+              f"19{label} rank {r}: {got['heads']} query heads, "
+              f"{got['kv_heads']} KV heads cached")
+        for a, b in zip(got["decode"], want["decode_model1"]):
+            dec_errs.append(logits_err(cfg, torch.from_numpy(a), b))
+            check(dec_errs[-1] <= P19_DECODE_TOL, f"19{label} rank {r}: "
+                  f"decode rel err {dec_errs[-1]} beyond {P19_DECODE_TOL}")
+    return dict(rel_err=max(errs), decode_rel_err=max(dec_errs, default=None),
+                bit_equal=bit_equal, counts=[r["counts"] for r in runs],
+                collective_bytes=runs[0]["collective_bytes"],
+                heads=runs[0]["heads"], kv_heads=runs[0]["kv_heads"],
+                param_bytes=[r["param_bytes"] for r in runs],
+                seconds=[r["seconds"] for r in runs],
+                wall_s=max(r["wall_s"] for r in runs))
+
+
+def p19_train_checks(dev, sz: Sizes, runs: list, want: dict) -> dict:
+    """19b's ranks against 17b: each loss within ``TP_TOL`` of model = 1
+    and ``P19_TRAIN_TOL`` relative of model = 2; every rank the same
+    losses and replicated leaves; a rank's leaves split over both axes a
+    quarter of the whole's; no kernel launched (training attends through
+    the chunked path)."""
+    losses = runs[0]["losses"]
+    for r in runs[1:]:
+        check(r["losses"] == losses, f"19b: losses by rank "
+              f"{[x['losses'] for x in runs]}")
+        check(len(r["replicated"]) == len(runs[0]["replicated"]) and all(
+            np.array_equal(a, b) for a, b in zip(r["replicated"],
+                                                 runs[0]["replicated"])),
+            "19b: a replicated leaf differs between ranks")
+    check(all(math.isfinite(x) for x in losses), f"19b: losses {losses}")
+    e1 = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                 want["losses_model1"]))
+    e2 = max(abs(a - b) / abs(b) for a, b in zip(losses, want["losses"]))
+    check(e1 <= TP_TOL, f"19b: losses {losses} off 17b's model=1 "
+          f"{want['losses_model1']} by {e1}")
+    check(e2 <= P19_TRAIN_TOL, f"19b: losses {losses} off 17b's model=2 "
+          f"{want['losses']} by {e2} (limit {P19_TRAIN_TOL})")
+    for r in runs:
+        check(4 * r["split_bytes"] == r["whole_split_bytes"] > 0,
+              f"19b: a rank holds {r['split_bytes']} B of the "
+              f"{r['whole_split_bytes']} B split over data and model")
+        check_launch(dev, not any(r["counts"].values()),
+                     f"19b: launches {r['counts']}")
+    ms = [[round(x, 1) for x in r["ms_steps"]] for r in runs]
+    peaks = [r["peak_bytes"] for r in runs]
+    print(f"19b stablelm-1.6b {len(runs)} processes (2, 2), {sz.tp_steps} "
+          f"train steps at {sz.tp_b} x {sz.tp_train_s}: losses {losses}; "
+          f"relative error {e1:.3g} to 17b's model=1 (limit {TP_TOL}), "
+          f"{e2:.3g} to its model=2 (limit {P19_TRAIN_TOL}); each rank "
+          f"holds {runs[0]['param_bytes']} of {runs[0]['whole_param_bytes']} "
+          f"parameter bytes, {runs[0]['split_bytes']} of the "
+          f"{runs[0]['whole_split_bytes']} split over data and model; "
+          f"collective bytes a device {json.dumps(runs[0]['collective_bytes'])}",
+          flush=True)
+    print(f"19b peak device bytes by rank (max_memory_allocated of its "
+          f"process): {peaks}; the process mesh and its subgroups "
+          f"{[round(r['mesh_s'], 3) for r in runs]} s, weights drawn and "
+          f"split and AdamW state made "
+          f"{[round(r['init_s'], 3) for r in runs]} s; wall ms a step by "
+          f"rank {ms} ({len(runs)} "
+          f"processes time-slicing one card over the host-staged "
+          f"transport: not a {len(runs)}-card time; {card_tag()})",
+          flush=True)
+    return dict(losses=losses, rel_err_model1=e1, rel_err_model2=e2,
+                peak_bytes=peaks, ms_steps=ms,
+                counts=[r["counts"] for r in runs],
+                collective_bytes=runs[0]["collective_bytes"],
+                param_bytes=runs[0]["param_bytes"],
+                split_bytes=runs[0]["split_bytes"],
+                wall_s=max(r["wall_s"] for r in runs))
+
+
+def lm_procs_phase(dev, sz: Sizes, p17: dict, p18: dict) -> dict:
+    """19: the ranks' phase-19 results (run in phase 18's spawns, after
+    their GNN cases) held to phase 17's."""
+    t0 = time.perf_counter()
+    two = p18["18c mini-batch featshard"]
+    four = p18["18b processes"]
+    out = {}
+    a = [r["19a"] for r in two]
+    out["19a"] = p19_prefill_checks(dev, sz, a, p17["17a prefill"],
+                                    "stablelm", "a", True)
+    p19_line("a stablelm-1.6b (1, 2) 2 processes prefill", a,
+             f"{out['19a']['heads']} query and {out['19a']['kv_heads']} KV "
+             f"heads a rank; last logits bit-equal to 17a's one-process "
+             f"model=2, {out['19a']['rel_err']:.4g} from model=1 (limit "
+             f"{TP_TOL}); {P19_DECODE} decode steps "
+             f"{out['19a']['decode_rel_err']:.4g} from 17a's model=1 decode "
+             f"(limit {P19_DECODE_TOL}); parameter bytes by rank "
+             f"{out['19a']['param_bytes']}")
+    out["19b"] = p19_train_checks(dev, sz, [r["19b"] for r in four],
+                                  p17["17b train"])
+    c = [r["19c"] for r in two]
+    out["19c"] = p19_prefill_checks(dev, sz, c, p17["17c moe prefill"],
+                                    "llama4", "c", False)
+    p19_line("c llama4-scout (1, 2) 2 processes prefill", c,
+             f"routing replayed from 17c's model=1 run; last logits "
+             f"{out['19c']['rel_err']:.4g} from model=1 (limit {TP_TOL})")
+    secs = {"19a+19c in the 2-rank spawn": max(r["19a"]["wall_s"]
+                                               + r["19c"]["wall_s"]
+                                               for r in two),
+            "19b in the 4-rank spawn": out["19b"]["wall_s"],
+            "19 checks": time.perf_counter() - t0}
+    secs["19 lm processes"] = sum(secs.values())
+    print(f"19 seconds: {json.dumps({k: round(v, 2) for k, v in secs.items()})}"
+          f" (19a-c run inside phase 18's spawns, so phase 18's seconds "
+          f"include them)", flush=True)
+    out["seconds"] = secs
+    return out
+
+
+def add_phase19(kernels: list, p19: dict) -> None:
+    """Each kernel entry's launches on phase 19's paths, summed over the
+    ranks of each run."""
+    paths = {"procs_prefill_stablelm_d1m2": p19["19a"]["counts"],
+             "procs_train_stablelm_d2m2": p19["19b"]["counts"],
+             "procs_prefill_llama4_d1m2": p19["19c"]["counts"]}
+    for kern in kernels:
+        key = PHASE13[kern["name"]][0]
+        kern["launches_phase19"] = {p: sum(c[key] for c in ranks)
+                                    for p, ranks in paths.items()}
+
+
 def run(dev: torch.device, sz: Sizes) -> dict:
     full_precision()
     secs = {}
@@ -6182,13 +6572,14 @@ def run(dev: torch.device, sz: Sizes) -> dict:
     p14 = timed("14 families", family_phase, dev, sz)
     p15 = timed("15 audits", audit_phase, dev, sz, graph)
     p16 = timed("16 chaos", chaos_phase, dev, sz, graph)
-    p18 = timed("18 processes", procs_phase, dev, sz, graph, shrd)
-    del graph
-    gc.collect()
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    E.drop_device_cache(graph)          # phase 17 needs the memory
+    free_card(dev)
     p17 = timed("17 tensor parallel", tp_phase, dev, sz)
-    for ph in (figs, srcs, shrd, p13, p14, p15, p16, p17, p18):
+    free_card(dev)
+    p18 = timed("18 processes", procs_phase, dev, sz, graph, shrd, p17)
+    del graph
+    p19 = timed("19 checks", lm_procs_phase, dev, sz, p17, p18)
+    for ph in (figs, srcs, shrd, p13, p14, p15, p16, p17, p18, p19):
         secs.update({k: round(v, 2) for k, v in ph["seconds"].items()})
     print(f"phase seconds: {json.dumps(secs)}", flush=True)
     fig_runs = figs["10c figures"]
@@ -6416,6 +6807,7 @@ def run(dev: torch.device, sz: Sizes) -> dict:
     add_phase16(kernels, p16)
     add_phase17(kernels, p17)
     add_phase18(kernels, p18, sz.sh_shards)
+    add_phase19(kernels, p19)
     return {"kernels": kernels}
 
 

@@ -3,7 +3,9 @@
 ``make_host_mesh`` is the ``(data, model)`` mesh over the cards present,
 or over the devices given: a device may repeat, so ``make_host_mesh(2,
 devices=("cuda:0",) * 2)`` is two model shards on one card and
-``("cpu",) * 4`` four on the host (``sharding.Mesh``).
+``("cpu",) * 4`` four on the host (``sharding.Mesh``), one process
+driving every shard.  ``make_process_mesh`` is the same layout over the
+ranks of a process group, one shard a process (``sharding.process_mesh``).
 ``make_production_mesh`` is a layout the dry-run models: one H100
 (``1xH100``, the default), a pod of 16 x 16 = 256 cards
 (``16x16xH100``, axes ``("data", "model")``) or two of them
@@ -105,3 +107,18 @@ def make_host_mesh(model_par: int = 1, devices: Optional[Sequence] = None,
         raise ValueError(f"make_host_mesh: model_par={model_par} must "
                          f"divide the {n} devices")
     return sh.Mesh((n // model_par, model_par), ("data", "model"), devices)
+
+
+def make_process_mesh(model_par: int, transport) -> sh.Mesh:
+    """The ``(world // model_par, model_par)`` mesh over the ranks of an
+    initialised process group (``launch.procs.init``'s ``transport``),
+    one shard a rank, rank ``r`` at flat shard ``r``: ``model_par``
+    model shards, the rest data replicas, as ``make_host_mesh`` lays
+    them over cards.  Every rank must build it (it makes the mesh's
+    subgroups)."""
+    n = transport.world
+    if model_par < 1 or n % model_par:
+        raise ValueError(f"make_process_mesh: model_par={model_par} must "
+                         f"divide the {n} ranks")
+    return sh.process_mesh((n // model_par, model_par), ("data", "model"),
+                           transport)

@@ -22,9 +22,13 @@ nothing switches it afterwards:
   the layout on one card: its times are not a multi-card layout's.
 
 Each collective of the three (``all_gather``, ``all_reduce``,
-``reduce_scatter``) sums in f32 and rounds once to the part's dtype, in
-the backend's order.  Every process group has a ``timeout``: a rank
-stuck in a collective fails instead of hanging.  ``spawn`` runs a
+``reduce_scatter``) runs over the world or over a subgroup
+(``new_group``: every rank makes every subgroup, in one order), sizes
+its result by that group and sums in f32, rounding once to the part's
+dtype: nccl in its own order, gloo (and so the host transport) in rank
+order, the single-controller mesh's.  ``barrier`` is the world's.
+Every process group has a ``timeout``: a rank stuck in a collective
+fails instead of hanging.  ``spawn`` runs a
 function in ``world`` fresh processes (the tests' and
 ``chip_smoke.py``'s launcher) and ends the others when one raises.
 """
@@ -46,6 +50,10 @@ import torch.distributed as dist
 TIMEOUT_S = 120.0
 #: the transports (``Transport.name``)
 TRANSPORTS = ("nccl", "gloo", "host")
+#: process groups of the same ranks a gloo collective's spans go over at
+#: once (its lanes), and the bytes below which a span is not split off
+GLOO_LANES = 4
+LANE_MIN_BYTES = 1 << 20
 
 # torch >= 2.13 renamed the two fused collectives; older ones have only
 # the first names
@@ -56,16 +64,32 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
 
 
 class Transport:
-    """The collectives of one rank's process group (the default group):
-    ``rank`` of ``world`` on ``device``.  ``nccl`` and ``gloo`` hand the
-    parts to the backend as they are."""
+    """The collectives of one rank's process group: ``rank`` of ``world``
+    on ``device``.  Each collective runs over ``group`` (what
+    ``new_group`` returns; the world when None).  ``nccl`` hands the
+    parts to its own collectives, which sum in its order; ``gloo`` moves
+    them and sums here, in group rank order ((p0 + p1) + p2 ..., in f32,
+    as the single-controller mesh sums its shards), so a process mesh
+    over it gives the single controller's bits.
 
-    def __init__(self, name: str, rank: int, world: int, device):
+    A group is a tuple of process groups of the same ranks, its lanes:
+    one for nccl, ``GLOO_LANES`` for gloo, which moves a collective over
+    one TCP stream a peer at a time; a large part splits into one span a
+    lane, all in flight together."""
+
+    def __init__(self, name: str, rank: int, world: int, device,
+                 timeout_s: float = TIMEOUT_S):
         if name not in TRANSPORTS:
             raise ValueError(f"transport must be one of {TRANSPORTS}, got "
                              f"{name!r}")
         self.name, self.rank, self.world = name, int(rank), int(world)
         self.device = torch.device(device)
+        self.timeout = datetime.timedelta(seconds=timeout_s)
+        self.lanes = 1 if name == "nccl" or world == 1 else GLOO_LANES
+        # the world's lanes: the default group and its copies
+        self._world = (None,) + tuple(
+            dist.new_group(ranks=list(range(world)), timeout=self.timeout)
+            for _ in range(self.lanes - 1))
 
     def _stage(self, t: torch.Tensor) -> torch.Tensor:
         """The part as the backend takes it."""
@@ -75,29 +99,119 @@ class Transport:
         """A result back on the rank's device."""
         return t
 
-    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        """Every rank's ``t`` concatenated along ``dim`` in rank order."""
+    def _empty(self, shape, like: torch.Tensor) -> torch.Tensor:
+        """A buffer for a result beside the staged part ``like``."""
+        return like.new_empty(shape)
+
+    def _rank_sum(self, parts: torch.Tensor, out=None) -> torch.Tensor:
+        """``parts`` [n, ...] summed over dim 0 in order, ((p0 + p1) +
+        p2) + ..., into ``out`` (a new buffer when None)."""
+        acc = self._empty(parts.shape[1:], parts) if out is None else out
+        acc.copy_(parts[0])
+        for p in parts[1:]:
+            acc += p
+        return acc
+
+    def new_group(self, ranks: Sequence[int]) -> tuple:
+        """A group of ``ranks`` (global ranks, ascending: group rank ``i``
+        is ``ranks[i]``): its lanes, process groups on the world's
+        backend with its timeout.  Every rank must call it, in the same
+        order, for every group, its own or not."""
+        return tuple(dist.new_group(ranks=list(ranks), timeout=self.timeout)
+                     for _ in range(self.lanes))
+
+    def _lanes(self, group) -> tuple:
+        return self._world if group is None else group
+
+    def size(self, group=None) -> int:
+        """The ranks of ``group`` (the world when None)."""
+        pg = self._lanes(group)[0]
+        return self.world if pg is None else dist.get_world_size(pg)
+
+    def _spans(self, group, n: int, nbytes: int) -> list:
+        """(lane, start, end): ``n`` elements of a collective moving
+        ``nbytes`` a rank, one span a lane (no span of less than
+        ``LANE_MIN_BYTES``)."""
+        lanes = self._lanes(group)
+        k = max(1, min(len(lanes), n, nbytes // LANE_MIN_BYTES))
+        edges = [n * i // k for i in range(k + 1)]
+        return list(zip(lanes, edges[:-1], edges[1:]))
+
+    @staticmethod
+    def _wait(works) -> None:
+        for w in works:
+            w.wait()
+
+    def _gather(self, x: torch.Tensor, group) -> torch.Tensor:
+        """Every rank's ``x`` (contiguous), stacked [n, *x.shape] in group
+        rank order."""
+        n = self.size(group)
+        out = self._empty((n,) + tuple(x.shape), x)
+        spans = self._spans(group, x.numel(), out.numel() * x.element_size())
+        src, dst = x.view(-1), out.view(n, -1)
+        if len(spans) == 1:
+            _all_gather(out.view(-1), src, group=spans[0][0])
+        else:
+            self._wait([dist.all_gather([dst[r, a:b] for r in range(n)],
+                                        src[a:b], group=pg, async_op=True)
+                        for pg, a, b in spans])
+        return out
+
+    def _scatter_sum(self, x: torch.Tensor, group) -> torch.Tensor:
+        """``x`` [n, L], row ``r`` for group rank ``r``: the rank-order sum
+        of the rows the group's ranks sent this rank [L] (an all-to-all;
+        gloo has only its one-tensor form, so a lane's span of each row
+        goes through a buffer of its own)."""
+        spans = self._spans(group, x.shape[1], x.numel() * x.element_size())
+        if len(spans) == 1:
+            got = self._empty(x.shape, x)
+            dist.all_to_all_single(got, x, group=spans[0][0])
+            return self._rank_sum(got)
+        out, sent = self._empty(x.shape[1:], x), []
+        for pg, a, b in spans:
+            src = self._empty((x.shape[0], b - a), x)
+            src.copy_(x[:, a:b])
+            got = self._empty(src.shape, x)
+            sent.append((a, b, got, src, dist.all_to_all_single(
+                got, src, group=pg, async_op=True)))
+        for a, b, got, _, work in sent:
+            work.wait()
+            self._rank_sum(got, out[a:b])
+        return out
+
+    def all_gather(self, t: torch.Tensor, dim: int = 0, group=None
+                   ) -> torch.Tensor:
+        """Every rank's ``t`` concatenated along ``dim`` in group rank
+        order."""
         x = self._stage(t.movedim(dim, 0))
-        out = x.new_empty((self.world * x.shape[0],) + tuple(x.shape[1:]))
-        _all_gather(out, x)
+        out = self._gather(x, group).view((-1,) + tuple(x.shape[1:]))
         return self._unstage(out).movedim(0, dim).contiguous()
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+    def all_reduce(self, t: torch.Tensor, group=None) -> torch.Tensor:
         """The sum over ranks of ``t``, in f32, rounded once."""
         x = self._stage(t.to(torch.float32, copy=True))
-        dist.all_reduce(x)
+        if self.name == "nccl":
+            dist.all_reduce(x, group=self._lanes(group)[0])
+        else:
+            x = self._rank_sum(self._gather(x, group))
         return self._unstage(x).to(t.dtype)
 
-    def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        """Block ``rank`` along ``dim`` of the sum over ranks of ``t``, in
-        f32, rounded once."""
-        if t.shape[dim] % self.world:
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0, group=None
+                       ) -> torch.Tensor:
+        """Block (group rank) along ``dim`` of the sum over ranks of
+        ``t``, in f32, rounded once."""
+        n = self.size(group)
+        if t.shape[dim] % n:
             raise ValueError(f"reduce_scatter: dim {dim} of "
                              f"{tuple(t.shape)} does not split over "
-                             f"{self.world} ranks")
+                             f"{n} ranks")
         x = self._stage(t.movedim(dim, 0).to(torch.float32))
-        out = x.new_empty((x.shape[0] // self.world,) + tuple(x.shape[1:]))
-        _reduce_scatter(out, x)
+        shape = (x.shape[0] // n,) + tuple(x.shape[1:])
+        if self.name == "nccl":
+            out = x.new_empty(shape)
+            _reduce_scatter(out, x, group=self._lanes(group)[0])
+        else:
+            out = self._scatter_sum(x.view(n, -1), group).view(shape)
         return self._unstage(out).to(t.dtype).movedim(0, dim).contiguous()
 
     def barrier(self) -> None:
@@ -115,13 +229,18 @@ class HostStagedTransport(Transport):
     """The ``host`` transport: gloo over pinned host copies of the CUDA
     parts of ranks that share a card."""
 
-    def __init__(self, rank: int, world: int, device):
-        super().__init__("host", rank, world, device)
+    def __init__(self, rank: int, world: int, device,
+                 timeout_s: float = TIMEOUT_S):
+        super().__init__("host", rank, world, device, timeout_s)
 
     def _stage(self, t):
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h = self._empty(t.shape, t)
         h.copy_(t)
         return h
+
+    def _empty(self, shape, like):
+        # pinned: the copies to and from the card are DMA, no host copy
+        return torch.empty(shape, dtype=like.dtype, pin_memory=True)
 
     def _unstage(self, t):
         return t.to(self.device)
@@ -186,13 +305,13 @@ def init(rank: Optional[int] = None, world: Optional[int] = None,
         torch.cuda.set_device(dev)
         # device_id makes the communicator now: a failed init raises here
         dist.init_process_group("nccl", device_id=dev, **kw)
-        return Transport("nccl", rank, world, dev)
+        return Transport("nccl", rank, world, dev, timeout_s)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     dist.init_process_group("gloo", **kw)
     if name == "host":
-        return HostStagedTransport(rank, world, dev)
-    return Transport("gloo", rank, world, dev)
+        return HostStagedTransport(rank, world, dev, timeout_s)
+    return Transport("gloo", rank, world, dev, timeout_s)
 
 
 def close() -> None:

@@ -43,14 +43,26 @@ the CPU (gloo).  Only rank 0 prints and writes.
         -m repro_torch.launch.train --arch gnn-papers100m --smoke \
         --device cpu --steps 20
 
-``--model-par M`` (LM) trains tensor-parallel on a ``(1, M)`` mesh
-(``launch.mesh.make_host_mesh``) whose shards all sit on the run's
-device: on the card it repeats the card M times, as the S = 4 NODES
-paths do, so the run emulates the layout's arithmetic and collectives
-one shard after another (not its speed).  The JSON line keeps its keys.
+``--model-par M`` (LM) trains tensor-parallel.  In one process it runs
+on a ``(1, M)`` mesh (``launch.mesh.make_host_mesh``) whose shards all
+sit on the run's device: on the card it repeats the card M times, as the
+S = 4 NODES paths do, so the run emulates the layout's arithmetic and
+collectives one shard after another (not its speed).  Under
+``torchrun`` it runs one process a shard on the ``(world // M, M)``
+process-group mesh (``launch.mesh.make_process_mesh``, the reference's
+``make_host_mesh`` over its devices): each rank draws only its own
+parameter shard from ``--seed``, keeps only its own gradient and AdamW
+shards, and trains on its data replica's rows of the global batch, the
+collectives running on a subgroup of each mesh axis; ``--device`` picks
+the transport as for the GNN.  Only rank 0 prints, and it alone writes
+each checkpoint, of the whole tree (all-gathered), while the others
+wait at a barrier.  The JSON line keeps its keys.
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch stablelm-1.6b --smoke --device cpu --model-par 2 --steps 5
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        -m repro_torch.launch.train --arch stablelm-1.6b --smoke \\
+        --device cpu --model-par 2 --steps 5
 """
 from __future__ import annotations
 
@@ -77,24 +89,32 @@ def train_lm(args, optimizer=None) -> dict:
     line every ``--log-every`` steps and the reference's JSON line;
     returns that line's keys plus ``losses`` and, on the card, each
     step's device time ``step_ms`` (CUDA events).  With ``--model-par``
-    above 1 the parameters are split over the mesh
-    (``model.shard_params``) and saved whole."""
+    above 1, or under ``torchrun``, the parameters are split over the
+    mesh as they are drawn (``model.init_model(mesh=)``) and saved
+    whole; under ``torchrun`` every rank returns the same losses."""
+    from repro_torch import sharding as sh
     from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.launch import procs
+    from repro_torch.launch.mesh import make_host_mesh, make_process_mesh
     from repro_torch.launch.serve import stub_inputs
     from repro_torch.models import model as M
     from repro_torch.models import steps as S
 
-    from repro_torch.launch.mesh import make_host_mesh
-
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
-    params = M.init_model(torch.Generator(device=dev).manual_seed(args.seed),
-                          cfg, dev)
     mesh = None
-    if args.model_par != 1:
-        mesh = make_host_mesh(args.model_par,
-                              devices=(dev,) * args.model_par)
-        params = M.shard_params(params, cfg, mesh)
+    ranks = procs.in_torchrun()
+    if ranks:
+        mesh = make_process_mesh(args.model_par,
+                                 procs.init(device=args.device))
+        dev = mesh.devices[0]
+    else:
+        dev = resolve_device(args.device)
+        if args.model_par != 1:
+            mesh = make_host_mesh(args.model_par,
+                                  devices=(dev,) * args.model_par)
+    lead = procs.rank_zero()
+    params = M.init_model(torch.Generator(device=dev).manual_seed(args.seed),
+                          cfg, dev, mesh=mesh)
     opt, train_step = S.make_train_step(cfg, optimizer,
                                         microbatches=args.microbatches,
                                         mesh=mesh)
@@ -104,6 +124,7 @@ def train_lm(args, optimizer=None) -> dict:
     losses, events = [], []
     t0 = time.perf_counter()
     for it in range(args.steps):
+        # the global batch on every rank: each takes its replica's rows
         batch = {k: torch.from_numpy(v).to(dev) for k, v in next(gen).items()}
         batch.update(stub_inputs(cfg, args.batch, dev))
         if dev.type == "cuda":
@@ -115,22 +136,29 @@ def train_lm(args, optimizer=None) -> dict:
             events.append(pair)
         loss = float(metrics["loss"])
         losses.append(loss)
-        if it % args.log_every == 0:
+        if lead and it % args.log_every == 0:
             tok_s = (args.batch * args.seq * (it + 1)
                      / (time.perf_counter() - t0))
             print(f"step {it:5d} loss {loss:8.4f} "
                   f"acc {float(metrics['acc']):.3f} tok/s {tok_s:,.0f}",
                   flush=True)
         if args.ckpt_every and it and it % args.ckpt_every == 0:
-            save_checkpoint(args.ckpt_dir, it, params if mesh is None
-                            else M.unshard_params(params, cfg, mesh),
-                            {"arch": args.arch, "loss": loss},
-                            keep_last=args.keep_last or None)
+            tree = (params if mesh is None
+                    else M.unshard_params(params, cfg, mesh))
+            if lead:
+                save_checkpoint(args.ckpt_dir, it, tree,
+                                {"arch": args.arch, "loss": loss},
+                                keep_last=args.keep_last or None)
+            del tree
+            sh.barrier(mesh)
     result = {"arch": args.arch, "first_loss": losses[0],
               "final_loss": losses[-1], "steps": len(losses)}
-    print(json.dumps(result), flush=True)
+    if lead:
+        print(json.dumps(result), flush=True)
     if events:
         torch.cuda.synchronize(dev)
+    if ranks:
+        procs.close()
     return dict(result, losses=losses,
                 step_ms=[a.elapsed_time(b) for a, b in events] or None)
 
@@ -222,10 +250,11 @@ def main(argv=None):
                     help="LM only: gradient-accumulation micro-batches a "
                          "step")
     ap.add_argument("--model-par", type=int, default=1,
-                    help="LM only: tensor-parallel degree; the model "
-                         "shards repeat the run's device (one card "
-                         "emulates the layout's arithmetic, not its "
-                         "speed)")
+                    help="LM only: tensor-parallel degree; under "
+                         "torchrun one process a shard on a (world // M, "
+                         "M) mesh, else one process whose model shards "
+                         "repeat the run's device (one card emulates the "
+                         "layout's arithmetic, not its speed)")
     ap.add_argument("--lr", type=float, default=0.5, help="GNN only")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--preset", default="arxiv-like")

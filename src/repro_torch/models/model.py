@@ -46,8 +46,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
-from torch.utils._pytree import (tree_flatten, tree_map_with_path,
-                                  tree_unflatten)
+from torch.utils._pytree import (tree_flatten, tree_map,
+                                  tree_map_with_path, tree_unflatten)
 
 from repro_torch import sharding as sh
 from repro_torch.configs.base import ModelConfig
@@ -118,64 +118,97 @@ def _init_mamba_layer(gen, cfg: ModelConfig, device, dtype):
             "mamba": SSM.init_mamba(gen, cfg, device=device, dtype=dtype)}
 
 
-def _stack(count: int, init_fn):
+def _stack(count: int, init_fn, cut=None):
     """``count`` layers from ``init_fn()``, stacked leaf by leaf on a
     leading dim (each layer is stacked and dropped before the next run's
-    are drawn)."""
+    are drawn).  ``cut``: each layer is split as it is drawn (``cut``
+    returns one part a shard) and dropped; then a list, each shard's
+    parts stacked."""
     def stack(*xs):
         if isinstance(xs[0], dict):
             return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
         return torch.stack(xs, 0)
-    return stack(*(init_fn() for _ in range(count)))
+    if cut is None:
+        return stack(*(init_fn() for _ in range(count)))
+    layers = [cut(init_fn()) for _ in range(count)]
+    return [stack(*(layer[i] for layer in layers))
+            for i in range(len(layers[0]))]
 
 
 def init_model(gen: torch.Generator, cfg: ModelConfig, device="cuda",
-               dtype=torch.float32) -> Dict[str, Any]:
+               dtype=torch.float32, mesh=None) -> Any:
     """The parameter tree, drawn on ``device`` from ``gen`` (a generator of
     that device), one tensor at a time, in the reference's layout.  The
     reference keeps f32 master weights and casts at use;
     ``dtype=torch.bfloat16`` stores them in the compute dtype instead
     (what full-width serving does: the casts at use are then no-ops).
     ``torch.Generator`` cannot replay ``jax.random``: parity runs load
-    the reference's weights with ``params_from_numpy``."""
+    the reference's weights with ``params_from_numpy``.
+
+    ``mesh`` (a ``sharding.Mesh``): the same draws split as they are
+    made, one tree a run shard, equal to ``shard_params`` of the whole
+    tree; no more than one layer (or one unstacked leaf) is ever held
+    whole, so a rank of a process-group mesh builds its shard without
+    the whole model."""
     dev = resolve_device(device)
     d = cfg.d_model
     vp = _vp(cfg)
     is_moe = cfg.n_experts > 0
     cross = cfg.n_enc_layers > 0
-    params: Dict[str, Any] = {
-        "embed": L.dense_init(gen, vp, (d,), d ** -0.5, device=dev,
-                              dtype=dtype),
-        "final_norm": torch.zeros(d, device=dev, dtype=dtype),
-    }
+    specs = None if mesh is None else model_specs(cfg)
+    shards = [{} for _ in (mesh.traced if mesh is not None else (0,))]
+
+    def put(key, tree, spec=None):
+        """``tree`` (drawn whole) as ``key`` of every shard's tree."""
+        parts = [tree] if mesh is None else sh.shard_tree(
+            tree, specs[key] if spec is None else spec, mesh)
+        for out, part in zip(shards, parts):
+            out[key] = part
+
+    def cutter(spec):
+        """A stacked run's layer, split by ``spec`` without the stacked
+        dim (None without a mesh)."""
+        if mesh is None:
+            return None
+        layer = tree_map(lambda sp: sp[1:], spec, is_leaf=sh.is_spec)
+        return lambda tree: sh.shard_tree(tree, layer, mesh)
+
+    put("embed", L.dense_init(gen, vp, (d,), d ** -0.5, device=dev,
+                              dtype=dtype))
+    put("final_norm", torch.zeros(d, device=dev, dtype=dtype))
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.dense_init(gen, d, (vp,), d ** -0.5,
-                                         device=dev, dtype=dtype)
-    run_ps = []
-    for run in build_plan(cfg):
+        put("lm_head", L.dense_init(gen, d, (vp,), d ** -0.5, device=dev,
+                                    dtype=dtype))
+    runs: List[List[Any]] = [[] for _ in shards]
+    for r, run in enumerate(build_plan(cfg)):
         if run.shared:
-            if "shared_attn" not in params:
-                params["shared_attn"] = _init_attn_layer(gen, cfg, dev,
-                                                         dtype)
-            run_ps.append({})
-        elif run.type == "mamba":
-            run_ps.append(_stack(run.count, lambda: _init_mamba_layer(
-                gen, cfg, dev, dtype)))
+            if "shared_attn" not in shards[0]:
+                put("shared_attn", _init_attn_layer(gen, cfg, dev, dtype))
+            parts = [{} for _ in shards]
         else:
-            run_ps.append(_stack(run.count, lambda: _init_attn_layer(
-                gen, cfg, dev, dtype, moe=is_moe, cross=cross)))
-    params["runs"] = tuple(run_ps)
+            cut = cutter(specs["runs"][r]) if mesh is not None else None
+            if run.type == "mamba":
+                parts = _stack(run.count, lambda: _init_mamba_layer(
+                    gen, cfg, dev, dtype), cut)
+            else:
+                parts = _stack(run.count, lambda: _init_attn_layer(
+                    gen, cfg, dev, dtype, moe=is_moe, cross=cross), cut)
+            parts = [parts] if mesh is None else parts
+        for out, part in zip(runs, parts):
+            out.append(part)
+    for out, rs in zip(shards, runs):
+        out["runs"] = tuple(rs)
     if cross:                           # whisper's encoder
-        params["enc"] = {
+        put("enc", {
             "runs": (_stack(cfg.n_enc_layers, lambda: _init_attn_layer(
                 gen, cfg, dev, dtype)),),
             "pos_embed": L.dense_init(gen, cfg.enc_seq, (d,), 0.02,
                                       device=dev, dtype=dtype),
-            "final_norm": torch.zeros(d, device=dev, dtype=dtype)}
+            "final_norm": torch.zeros(d, device=dev, dtype=dtype)})
     if cfg.frontend_seq:                # the VLM projector
-        params["proj"] = L.dense_init(gen, d, (d,), d ** -0.5, device=dev,
-                                      dtype=dtype)
-    return params
+        put("proj", L.dense_init(gen, d, (d,), d ** -0.5, device=dev,
+                                 dtype=dtype))
+    return shards[0] if mesh is None else shards
 
 
 def causal_attention_layers(cfg: ModelConfig) -> int:
@@ -637,7 +670,7 @@ def forward_train(params, cfg: ModelConfig, batch, mesh=None):
         mesh, params = _solo(batch["tokens"].device), [params]
     stats = []
     reps = replicas(mesh)
-    for (tp, idx), bt in zip(reps, _split_rows(batch, len(reps))):
+    for (tp, idx), bt in zip(reps, _replica_rows(batch, mesh, len(reps))):
         ps = [params[i] for i in idx]
         labels = bt["labels"]
         if cfg.frontend_seq:
@@ -652,7 +685,7 @@ def forward_train(params, cfg: ModelConfig, batch, mesh=None):
         tot, ls, cr = _loss(ps, cfg, h, labels, tp, rs)
         stats.append((tot, ls, cr, aux[0].to(tot.device)))
     # the batch's sums over every data replica, on shard 0's replica
-    bg = mesh.group(sh.batch_mesh_axes(mesh), mesh.traced[0])
+    bg = _batch_group(mesh)
     if bg.size == 1:
         tot, ls, cr, aux = stats[0]
     else:
@@ -801,7 +834,7 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
         mesh, params = _solo(batch["tokens"].device), [params]
     logits, caches = [], [None] * len(mesh.traced)
     reps = replicas(mesh)
-    for (tp, idx), bt in zip(reps, _split_rows(batch, len(reps))):
+    for (tp, idx), bt in zip(reps, _replica_rows(batch, mesh, len(reps))):
         ps = [params[i] for i in idx]
         parts = [{k: v.to(d) for k, v in bt.items()} for d in tp.devices]
         x, rs, enc = _stream(ps, cfg, parts, tp)
@@ -824,11 +857,14 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None,
                                      for kv in kvs], s, cache_len,
                         positions.to(tp.devices[j]))
             caches[i] = cache
-    return _rows(logits), caches[0] if solo else caches
+    return _rows(logits, mesh), caches[0] if solo else caches
 
 
-def _rows(logits):
-    """The data replicas' logits as one batch, on the first's device."""
+def _rows(logits, mesh):
+    """The data replicas' logits as one batch, on the first's device (a
+    process-group mesh's: all-gathered over the batch axes)."""
+    if mesh.rank_local:
+        return sh.all_gather(logits, _batch_group(mesh))[0]
     if len(logits) == 1:
         return logits[0]
     return torch.cat([lg.to(logits[0].device) for lg in logits])
@@ -877,7 +913,8 @@ def decode_step(params, cfg: ModelConfig, cache, token, mesh=None):
     nope_global = cfg.family == "moe"
     logits = []
     reps = replicas(mesh)
-    for (tp, idx), bt in zip(reps, _split_rows({"t": token}, len(reps))):
+    for (tp, idx), bt in zip(reps, _replica_rows({"t": token}, mesh,
+                                                 len(reps))):
         ps = [params[i] for i in idx]
         cs = [cache[i] for i in idx]
         x = L.tp_reduce(_embed(ps, cfg, _on(tp, bt["t"]), tp), tp, False,
@@ -911,7 +948,7 @@ def decode_step(params, cfg: ModelConfig, cache, token, mesh=None):
                                     dim=-1)[0][:, 0])
     for c in cache:
         c["pos"] = pos + 1
-    return _rows(logits), cache
+    return _rows(logits, mesh), cache
 
 
 def _decode_layer(lps, x, cfg: ModelConfig, lcs, pos: int, run: Run,
@@ -1025,6 +1062,23 @@ def replicas(mesh) -> List[Tuple[Any, List[int]]]:
     of each run data replica, in shard order."""
     return [(g, [mesh.traced.index(f) for f in g.members])
             for g in mesh.groups(sh.MODEL)]
+
+
+def _batch_group(mesh) -> sh.Group:
+    """The group along the batch axes through the mesh's first run
+    shard."""
+    return mesh.group(sh.batch_mesh_axes(mesh), mesh.traced[0])
+
+
+def _replica_rows(batch: Dict[str, torch.Tensor], mesh, n: int):
+    """The rows of ``batch`` (the global batch) of each of the ``n`` run
+    data replicas: ``_split_rows``' blocks, one a replica; a
+    process-group mesh runs one replica, and takes the block of its
+    position along the batch axes."""
+    if mesh.rank_local:
+        bg = _batch_group(mesh)
+        return [_split_rows(batch, bg.size)[bg.positions[0]]]
+    return _split_rows(batch, n)
 
 
 def _split_rows(batch: Dict[str, torch.Tensor], n: int):

@@ -42,7 +42,11 @@ METRICS = ("loss", "aux", "acc")
 def _value_and_grad(params, cfg: ModelConfig, batch, mesh=None):
     """The gradients of ``forward_train``'s total and its metrics (with
     ``mesh``: of each shard's stored parameters, FSDP dims gathered in
-    the forward; a shard's copy that nothing read gets zeros)."""
+    the forward; a shard's copy that nothing read gets zeros).  The
+    total is one value the collectives hand every shard a copy of: its
+    cotangent enters once, at shard 0's copy (a process-group mesh's
+    other ranks seed theirs with 0), and the collectives' adjoints carry
+    it to every shard, as in the single controller."""
     if mesh is None:
         _, metrics, grads = value_and_grad(
             lambda p: M.forward_train(p, cfg, batch), params)
@@ -53,7 +57,9 @@ def _value_and_grad(params, cfg: ModelConfig, batch, mesh=None):
         total, metrics = M.forward_train(
             M.gather_params(tree_unflatten(leaves, spec), cfg, mesh), cfg,
             batch, mesh)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True,
+        seed = torch.ones_like(total) if mesh.traced[0] == 0 \
+            else torch.zeros_like(total)
+        grads = torch.autograd.grad(total, leaves, seed, allow_unused=True,
                                     materialize_grads=True)
     return (tree_unflatten(list(grads), spec),
             {k: metrics[k].detach() for k in METRICS})

@@ -16,11 +16,14 @@ spec), and per-shard programs meet in three collectives over a
 ``Group``, the shards of one or more axes (``Mesh.group``).  A mesh
 that repeats a device emulates the layout's arithmetic and its
 collectives on that device, one shard after another: it does not model
-the layout's speed.  A process-group ``NodeMesh`` (``process_node_mesh``)
-is PyTorch's idiom for the same layout: one process a shard, each
-holding only its own rows and running its shard alone (``traced`` is
-its rank), the collectives going through ``torch.distributed`` on a
-``launch.procs`` transport.  ``layout_mesh`` is the dry-run's: a production
+the layout's speed.  A process-group mesh (``process_mesh``, and the
+``NodeMesh`` of ``process_node_mesh``) is PyTorch's idiom for the same
+layout: one process a shard, each holding only its own shard and rows
+and running its shard alone (``traced`` is its rank), the collectives
+going through ``torch.distributed`` on a ``launch.procs`` transport,
+each ``Group`` on a process group of its own ranks (made when the mesh
+is, by every rank, for every group of every axis set).
+``layout_mesh`` is the dry-run's: a production
 layout (256 or 512 cards) of which only shard 0 is run, on meta
 tensors, so a trace holds one device's tensors and work; its
 collectives give shard 0 the shapes of their results and note their
@@ -45,14 +48,16 @@ active ``launch.roofline.TraceCounter`` and to ``collective_counts()``.
 Where results are not shared they are autograd functions whose backward
 is the adjoint collective (all-gather <-> reduce-scatter, all-reduce <->
 all-reduce), noted in the same way.  Over a process group the parts are
-cast to f32, reduced by the backend (its order, not shard order) and
-cast back once; one shard returns its part as it is.
+cast to f32, summed (over gloo in shard order, as here; over nccl in
+its own order) and cast back once; one shard returns its part as it
+is.
 """
 from __future__ import annotations
 
 import collections
 import functools
 import math
+import zlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -188,6 +193,10 @@ class Mesh:
         self.transport = transport
         self.sizes: Dict[str, int] = dict(zip(names, shape))
         self._groups: Dict[Tuple[Tuple[str, ...], int], "Group"] = {}
+        #: a process-group mesh's subgroups by their ranks (``_make_pgs``)
+        self._pgs: Dict[Tuple[int, ...], Any] = {}
+        if transport is not None:
+            self._make_pgs()
 
     @property
     def size(self) -> int:
@@ -199,6 +208,58 @@ class Mesh:
         """True for a process-group mesh: this process runs one shard and
         holds only that shard's rows."""
         return self.transport is not None
+
+    def _full(self, axes: Tuple[str, ...], flat: int) -> List[int]:
+        """The flat shards of the group along ``axes`` (in mesh order)
+        through shard ``flat``, in group order (ascending)."""
+        c = self.coords(flat)
+        full = []
+        for pos in range(math.prod(self.sizes[a] for a in axes)):
+            cc = dict(c)
+            cc.update(zip(axes, (int(x) for x in np.unravel_index(
+                pos, tuple(self.sizes[a] for a in axes)))))
+            full.append(int(np.ravel_multi_index(
+                tuple(cc[a] for a in self.axis_names), self.shape)))
+        return full
+
+    def pg_plan(self) -> List[Tuple[int, ...]]:
+        """The process groups a process-group mesh makes, in the order
+        every rank makes them: for each nonempty set of the mesh's axes
+        (in mesh order, fewest axes first: whatever the model code runs
+        a collective over, ``model``, ``data``, the batch axes, the axes
+        a parameter is replicated on, every axis), its groups in order
+        of their first shard; a group of one rank, of every rank (the
+        world's own) or already made is left out."""
+        names = self.axis_names
+        masks = sorted(range(1, 2 ** len(names)),
+                       key=lambda m: (bin(m).count("1"), m))
+        plan: List[Tuple[int, ...]] = []
+        for axes in (tuple(a for i, a in enumerate(names) if m >> i & 1)
+                     for m in masks):
+            for flat in range(self.size):
+                ranks = tuple(self._full(axes, flat))
+                if 1 < len(ranks) < self.size and ranks not in plan:
+                    plan.append(ranks)
+        return plan
+
+    def _make_pgs(self) -> None:
+        """Every rank makes every group of ``pg_plan``, in its order,
+        after the ranks agree on that plan (a rank that would make them
+        otherwise fails here, at once, instead of leaving the others in
+        a ``new_group`` until the timeout)."""
+        tr, plan = self.transport, self.pg_plan()
+        if not plan:
+            return
+        digest = zlib.crc32(repr((self.shape, plan)).encode())
+        mine = torch.tensor([digest], dtype=torch.int64, device=tr.device)
+        got = [int(x) for x in tr.all_gather(mine).cpu()]
+        if len(set(got)) != 1:
+            raise RuntimeError(f"{self}: the ranks' process-group plans "
+                               f"differ (digests by rank {got}): every "
+                               f"rank must make the same groups in the "
+                               f"same order")
+        for ranks in plan:
+            self._pgs[ranks] = tr.new_group(ranks)
 
     def coords(self, flat: int) -> Dict[str, int]:
         return dict(zip(self.axis_names,
@@ -222,17 +283,11 @@ class Mesh:
         if len(axes) != len(want):
             raise ValueError(f"Mesh.group: {want} not all in "
                              f"{self.axis_names}")
-        c = self.coords(flat)
-        full = []
-        for pos in range(math.prod(self.sizes[a] for a in axes)):
-            cc = dict(c)
-            cc.update(zip(axes, (int(x) for x in np.unravel_index(
-                pos, tuple(self.sizes[a] for a in axes)))))
-            full.append(int(np.ravel_multi_index(
-                tuple(cc[a] for a in self.axis_names), self.shape)))
+        full = self._full(axes, flat)
         members = tuple(f for f in full if f in self.traced)
         return Group(self, axes, len(full), members,
-                     tuple(full.index(f) for f in members))
+                     tuple(full.index(f) for f in members),
+                     self._pgs.get(tuple(full)))
 
     def groups(self, axes) -> List["Group"]:
         """The distinct groups along ``axes`` that hold a traced shard,
@@ -255,15 +310,20 @@ class Group:
     """The shards of one or more axes of a ``Mesh`` with the others
     fixed: ``size`` shards, of which ``members`` (flat shard ids, in
     group order, at ``positions``) are run here, on ``devices``.
-    ``share``: the mesh's ``shares_results``."""
+    ``share``: the mesh's ``shares_results``; ``pg``: the subgroup its
+    collectives run on (``Mesh.pg_plan``)."""
 
     def __init__(self, mesh: Mesh, axes: Tuple[str, ...], size: int,
-                 members: Tuple[int, ...], positions: Tuple[int, ...]):
+                 members: Tuple[int, ...], positions: Tuple[int, ...],
+                 pg=None):
         self.mesh, self.axes, self.size = mesh, axes, size
         self.members, self.positions = members, positions
         self.devices = tuple(mesh.device_of(f) for f in members)
         self.share = mesh.shares_results
         self.transport = mesh.transport
+        #: its ``torch.distributed`` process group on a process-group mesh
+        #: (None: the world's, or no process group)
+        self.pg = pg
 
     @property
     def virtual(self) -> bool:
@@ -326,10 +386,21 @@ def shard(x: torch.Tensor, logical: Sequence[Optional[str]], mesh: Mesh
 def unshard(parts: Sequence[torch.Tensor], logical: Sequence[Optional[str]],
             mesh: Mesh, device=None) -> torch.Tensor:
     """The tensor ``shard`` split, from the parts of every shard (not a
-    layout mesh), on ``device`` (the first shard's by default)."""
+    layout mesh), on ``device`` (the first shard's by default).  On a
+    process-group mesh ``parts`` is this rank's one part, all-gathered
+    over the axes of each dim the spec splits (every rank calls it, and
+    every rank gets the whole; not tallied)."""
     if mesh.layout:
         raise ValueError("unshard: a layout mesh runs shard 0 alone")
     axes = resolve(logical, mesh)
+    if mesh.rank_local:
+        out = parts[0]
+        for dim, ax in enumerate(axes):
+            names = tuple(a for a in mesh.axis_names if a in _axes(ax))
+            if math.prod(mesh.sizes[a] for a in names) > 1:
+                g = mesh.group(names, mesh.traced[0])
+                out = mesh.transport.all_gather(out, dim, g.pg)
+        return out.to(device or mesh.devices[0])
     spec = set(spec_axes(logical, mesh))
     device = device or mesh.devices[0]
     shape = list(parts[0].shape)
@@ -469,6 +540,16 @@ def process_node_mesh(transport) -> NodeMesh:
     shards, one a process, this process's shard ``transport.rank`` on
     ``transport.device`` (``launch.procs.init`` makes the transport)."""
     return NodeMesh((transport.device,), transport=transport)
+
+
+def process_mesh(shape: Sequence[int], axis_names: Sequence[str],
+                 transport) -> Mesh:
+    """The ``(data, model)`` or ``(pod, data, model)`` mesh of an
+    initialised process group (``launch.procs.init``): one shard a
+    process, shard ``transport.rank`` here on ``transport.device``.
+    Every rank builds it with the same shape: it makes the subgroups of
+    every axis set, a collective of every rank."""
+    return Mesh(shape, axis_names, (transport.device,), transport=transport)
 
 
 def rank_rows(n_pad: int, mesh: NodeMesh) -> Tuple[int, int]:
@@ -645,7 +726,7 @@ def _shard_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def _gather_values(parts, group: "Group", dim: int, f32_partial=False):
     if group.transport is not None:
-        out = [group.transport.all_gather(parts[0], dim)]
+        out = [group.transport.all_gather(parts[0], dim, group.pg)]
     elif group.virtual:
         shape = list(parts[0].shape)
         shape[dim] *= group.size
@@ -659,7 +740,7 @@ def _gather_values(parts, group: "Group", dim: int, f32_partial=False):
 
 def _sum_values(parts, group: "Group", f32_partial=False):
     if group.transport is not None:
-        out = [group.transport.all_reduce(parts[0])]
+        out = [group.transport.all_reduce(parts[0], group.pg)]
     elif group.virtual:
         out = [parts[0].new_empty(parts[0].shape)]
     else:
@@ -676,7 +757,7 @@ def _scatter_values(parts, group: "Group", dim: int, f32_partial=False):
                          f"{tuple(parts[0].shape)} does not split over "
                          f"{group.size} shards")
     if group.transport is not None:
-        out = [group.transport.reduce_scatter(parts[0], dim)]
+        out = [group.transport.reduce_scatter(parts[0], dim, group.pg)]
     elif group.virtual:
         shape = list(parts[0].shape)
         shape[dim] = n // group.size
